@@ -5,24 +5,40 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without a card, or without the package beside it,
 it exits non-zero before printing any result. Phases, one JSON line each:
 
-1. environment: the card, torch/CUDA versions, the kernels' build time;
+1. environment: the card, torch/CUDA versions, the kernels' build time
+   (one nvcc per source, all started together) and ptxas' report;
 2. kernels vs their plain PyTorch versions on the card: the decode prologue
    and the top-M at the headline shape and edge cases, bit-exact top
    values and indices, exact max and blank, ``sm_den`` within rtol 2e-6;
-3. the main path: a seeded d512/L8/H8/V1024 ConformerCTC (bf16) serves
-   three requests of 32 utterances through ``ctc_recognizer(width=16)``;
-   the decode-prologue kernel must have been launched by them, the card's
+   SpecAugment's apply bit-exact at (32, 1000, 80) in float32 and bfloat16,
+   with and without a warp, inf/NaN only where masked outputs read them
+   and every masked output +0.0; the edit distance exact at R=40, H=500
+   and R=100, H=250 (N=32) for three sets of costs;
+3. serving: a seeded d512/L8/H8/V1024 ConformerCTC (bf16) serves three
+   requests of 32 utterances through ``ctc_recognizer(width=16)``; the
+   decode-prologue kernel must have been launched by them, the card's
    hypotheses for four utterances must match a CPU decode of the same
    logits, and the model on the card must match itself on the CPU;
-4. times (medians of 7 after warm-up): each kernel's own device time from
-   a torch.profiler trace, beside its wrapper's, its plain version's and
-   ``torch.topk``'s per call from CUDA events around 20 queued calls, and
-   its bound; wall times of the encoder, the decode and a whole request,
-   taken in turn so they share the host's load; peak memory.
+4. serving times (medians of 7 after warm-up): each kernel's own device
+   time from a torch.profiler trace, beside its wrapper's, its plain
+   version's and ``torch.topk``'s per call from CUDA events around 20
+   queued calls, and its bound; wall times of the encoder, the decode and a
+   whole request, taken in turn so they share the host's load; peak memory;
+5. training: the same model with dropout 0.1 takes 5 steps of SpecAugment,
+   forward, CTC loss, backward and AdamW at bench_train_mfu's shape (B=32,
+   T=1000, U=100), which must launch the SpecAugment kernel 5 times and
+   end below the first loss; a float32, dropout-0, 2-layer copy takes one
+   step on the card and one on the CPU, which must agree; then the step's
+   wall time (median of 7), its FLOPs by ``FlopCounterMode`` and the
+   SpecAugment kernel's times;
+6. scoring: the trained model's greedy decode of 32 utterances (T'=500)
+   scored by ``error_rate`` against 40-token references, which must launch
+   the edit-distance kernel once and equal the CPU's result; its wall time,
+   peak memory and the kernel's times.
 
 ``python3 chip_smoke.py --profile`` runs phase 1, then traces one served
-request and one decode alone with ``torch.profiler``: wall time, device
-busy time and idle share, kernel launches per decode frame, and the
+request, one decode alone and one training step with ``torch.profiler``:
+wall time, device busy time and idle share, kernel launches, and the
 kernels that take the most device time.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's name and
@@ -30,7 +46,9 @@ power limit as ``nvidia-smi`` reports them, and
 ``{"ok": true, "device": {...}}``. Any failed check raises.
 """
 
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -80,12 +98,26 @@ def cuda_ms(fn, reps=REPS, inner=INNER, warmup=2):
     return statistics.median(times)
 
 
+def device_events(prof):
+    """The kernels of a torch.profiler trace, summed by name: events with
+    device time that are not user annotations (such as the optimizer's
+    ``Optimizer.step#AdamW.step`` range, which spans kernels already
+    counted)."""
+    from torch.autograd import DeviceType
+
+    return [
+        a for a in prof.key_averages()
+        if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0
+        and not getattr(a, "is_user_annotation", False)
+    ]
+
+
 def device_ms(fn, kernel=None, calls=INNER):
     """Device milliseconds per call of ``fn()`` from torch.profiler's CUDA
-    trace: the kernels whose name holds ``kernel`` (each call must launch
-    one), or every kernel when ``kernel`` is None. None when the trace
-    holds no device time."""
-    from torch.autograd import DeviceType
+    trace: the mean over the traced launches of the kernels whose name
+    holds ``kernel`` (each call launches one, but the trace may miss some
+    of a library's short kernels), or every kernel when ``kernel`` is None.
+    None when the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -95,16 +127,51 @@ def device_ms(fn, kernel=None, calls=INNER):
             fn()
         torch.cuda.synchronize()
     hits = [
-        a for a in prof.key_averages()
-        if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0
-        and (kernel is None or kernel in a.key)
+        a for a in device_events(prof) if kernel is None or kernel in a.key
     ]
     if not hits:
         return None
     launched = sum(a.count for a in hits)
-    if kernel is not None and launched != calls:
+    if kernel is None:
+        return sum(a.self_device_time_total for a in hits) / 1e3 / calls
+    if launched > calls:
         raise AssertionError(f"{calls} calls launched {kernel} {launched} times")
-    return sum(a.self_device_time_total for a in hits) / 1e3 / calls
+    return sum(a.self_device_time_total for a in hits) / 1e3 / launched
+
+
+def cold(fn):
+    """``fn`` after overwriting 64 MB, more than the card's 50 MB L2 cache,
+    so that ``fn`` reads its inputs from device memory as a step that has
+    just made them elsewhere would. With ``device_ms`` and a kernel name
+    the overwrite's own kernel is not counted."""
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def run():
+        scratch.zero_()
+        return fn()
+
+    return run
+
+
+def queued_ms(fn, reps=REPS):
+    """Device milliseconds of one ``fn()`` from CUDA events around it, with
+    the L2 cache overwritten first and the card kept busy by a sleep while
+    the host queues the events and the call, so the events bracket the
+    device's work and not the host's; the median of ``reps``."""
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        scratch.zero_()
+        torch.cuda._sleep(1_000_000)  # about 0.5 ms of clock cycles
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def host_ms(fns, reps=REPS, warmup=1):
@@ -267,8 +334,9 @@ def phase_main_path(torch_pkg):
     m_cpu = ConformerCTC(cfg32, device="cpu")
     m_cpu.load_state_dict(model.state_dict())
     f_small, l_small = requests[0][0][:2, :400], torch.tensor([400, 271])
-    lg_gpu = m_gpu(f_small, l_small)[0].cpu()
-    lg_cpu = m_cpu(f_small.cpu(), l_small)[0]
+    with torch.no_grad():
+        lg_gpu = m_gpu(f_small, l_small)[0].cpu()
+        lg_cpu = m_cpu(f_small.cpu(), l_small)[0]
     model_err = float((lg_gpu - lg_cpu).abs().max())
     if not model_err < 1e-2:
         raise AssertionError(f"f32 model on the card vs the CPU: max abs err {model_err}")
@@ -310,7 +378,6 @@ def make_requests(cfg):
 def trace(fn):
     """Wall ms, device-busy ms, kernel launches and the top kernels of one
     ``fn()`` under torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
@@ -320,10 +387,7 @@ def trace(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [
-        a for a in prof.key_averages()
-        if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0
-    ]
+    kern = device_events(prof)
     busy_ms = sum(a.self_device_time_total for a in kern) / 1e3
     kern.sort(key=lambda a: -a.self_device_time_total)
     return {
@@ -341,13 +405,14 @@ def phase_profile(ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch
     cfg, model = make_model(ConformerConfig, ConformerCTC)
     recognize = ctc_recognizer(model, width=WIDTH)
     feats, lens = make_requests(cfg)[0]
-    logits, out_lens = model(feats, lens)
+    encode = torch.no_grad()(model)
+    logits, out_lens = encode(feats, lens)
     x = logits.transpose(0, 1).contiguous()
     search = CTCPrefixSearch(WIDTH)
     served = trace(lambda: recognize(feats, lens))
     decode = trace(lambda: search(x, out_lens))
     decode["launches_per_frame"] = decode["kernel_launches"] / x.shape[0]
-    encoder = trace(lambda: model(feats, lens))
+    encoder = trace(lambda: encode(feats, lens))
     emit({"phase": "profile", "request": served, "encoder": encoder, "decode": decode})
 
 
@@ -413,8 +478,9 @@ def phase_times(kernels, model, recognize, requests, CTCPrefixSearch, logits):
     feats, lens = requests[0]
     search = CTCPrefixSearch(WIDTH)
     out_lens = (((lens + 1) // 2) + 1) // 2
+    encode = torch.no_grad()(model)
     (enc_ms, dec_ms, req_ms), runs = host_ms([
-        lambda: model(feats, lens),
+        lambda: encode(feats, lens),
         lambda: search(x, out_lens),
         lambda: recognize(feats, lens),
     ])
@@ -431,21 +497,401 @@ def phase_times(kernels, model, recognize, requests, CTCPrefixSearch, logits):
     return times
 
 
+# ---------------------------------------------------------------------------
+# The training path (SpecAugment, forward, CTC loss, backward, AdamW) and the
+# scoring path (greedy decode, error_rate), with their two kernels.
+
+B_TRAIN, T_TRAIN, U_TRAIN, TRAIN_STEPS, LR = 32, 1000, 100, 5, 1e-3
+# bench_train_mfu's SpecAugment (bench.py:622-626); the rest park2020's
+SA_ARGS = dict(max_time_warp=80.0, max_time_mask=100, max_freq_mask=27)
+SA_DRAW = (80.0, 0.0, 100, 27, 0.04, 20, 0.04, 2)
+R_SCORE, T_SCORE_RAW = 40, 2000  # BASELINE config #2: refs (40, 32), T' = 500
+BF16_OPS_PER_S = 989e12  # H100 SXM, dense tensor cores
+
+
+def same_bits(a, b):
+    """Equal bit patterns, or NaN in both."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return bool(((a.view(view) == b.view(view)) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def sa_case(img, shape, gen, warp=True):
+    """SpecAugment's apply arguments at ``shape`` with ragged lengths, a
+    time mask across each length, a frequency mask over columns 7-15, and
+    inf/NaN where only masked outputs read them: in those columns, and in
+    the time-masked rows that no kept row's lerp reads."""
+    N, T, F = shape
+    feats = torch.randn(shape, generator=gen, device="cuda")
+    lens = torch.randint(T // 2, T + 1, (N,), generator=gen, device="cuda")
+    lens[0] = T
+    p = list(img.spec_augment_draw_parameters(gen, feats, *SA_DRAW, lengths=lens))
+    p[4][:, 0], p[5][:, 0] = (lens - 5).int(), 10
+    p[6][:, 0], p[7][:, 0] = 7, 9
+    tmask = img._span_mask(p[4], p[5], T)
+    fmask = img._span_mask(p[6], p[7], F)
+    warp_args = [None] * 4
+    read = (~tmask).float()
+    if warp:
+        grid = img.warp_1d_grid(p[0], p[1], lens, T)
+        warp_args = list(img._axis_lerp_weights(grid, T))
+        read = torch.zeros((N, T), device="cuda")
+        for idx in warp_args[:2]:
+            read.scatter_add_(1, idx.long(), (~tmask).float())
+    poison = tmask & (read == 0)
+    special = torch.tensor([float("inf"), float("-inf"), float("nan")], device="cuda")
+    feats = torch.where(
+        poison[..., None], special[torch.arange(T, device="cuda") % 3][None, :, None], feats
+    )
+    feats[:, :, 9:12] = special
+    return feats, warp_args + [tmask, fmask], lens, p, int(poison.sum())
+
+
+def phase_new_kernels(kernels, img):
+    """Both new kernels against their plain versions on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst = {"spec_augment_apply": 0.0, "edit_distance": 0.0}
+    shape = (B_TRAIN, T_TRAIN, 80)
+    for dtype in (torch.float32, torch.bfloat16):
+        for warp in (True, False):
+            feats, args, _, _, poisoned = sa_case(img, shape, gen, warp)
+            x = feats.to(dtype)
+            got = kernels.spec_augment_apply(x, *args)
+            exp = kernels.spec_augment_apply_reference(x, *args)
+            torch.cuda.synchronize()
+            masked = (args[4][:, :, None] | args[5][:, None, :]).expand(shape)
+            zeros = got[masked].float()
+            res = {
+                "bit_exact": same_bits(got, exp),
+                "masked_all_pos_zero": bool((zeros == 0).all())
+                and not bool(torch.signbit(zeros).any()),
+                "t0_eq_t1_rows": int((args[0] == args[1]).sum()) if warp else 0,
+                "poisoned_rows": poisoned,
+            }
+            emit({"phase": "kernels", "kernel": "spec_augment_apply", "shape": list(shape),
+                  "dtype": str(dtype).replace("torch.", ""), "warp": warp, **res})
+            if not (res["bit_exact"] and res["masked_all_pos_zero"]):
+                raise AssertionError(f"spec_augment_apply parity failed: {res}")
+            worst["spec_augment_apply"] = max(
+                worst["spec_augment_apply"], max_abs_err([(got, exp)])
+            )
+    for R, H, N in ((40, 500, 32), (100, 250, 32)):
+        for costs in ((1.0, 1.0, 1.0), (3.0, 3.0, 4.0), (0.5, 1.25, 2.0)):
+            for exclude_last in (False, True):
+                ref = torch.randint(0, 8, (R, N), generator=gen, device="cuda", dtype=torch.int32)
+                hyp = torch.randint(0, 8, (H, N), generator=gen, device="cuda", dtype=torch.int32)
+                rl = torch.randint(0, R + 1, (N,), generator=gen, device="cuda", dtype=torch.int32)
+                hl = torch.randint(0, H + 1, (N,), generator=gen, device="cuda", dtype=torch.int32)
+                rl[0], hl[1], rl[2], hl[2] = 0, 0, R, H  # empty ones, full ones
+                args = (ref, hyp, rl, hl, *costs)
+                got = kernels.edit_distance(*args, exclude_last=exclude_last)
+                exp = kernels.edit_distance_reference(*args, exclude_last=exclude_last)
+                torch.cuda.synchronize()
+                ok = torch.equal(got.view(torch.int32), exp.view(torch.int32))
+                emit({"phase": "kernels", "kernel": "edit_distance", "shape": [R, H, N],
+                      "costs": list(costs), "exclude_last": exclude_last, "exact": ok})
+                if not ok:
+                    raise AssertionError(f"edit_distance parity failed at {(R, H, N, costs)}")
+                worst["edit_distance"] = max(worst["edit_distance"], max_abs_err([(got, exp)]))
+    return worst
+
+
+def make_train_batch(cfg):
+    """bench_train_mfu's batch: B=32 utterances of 1000 frames, 100 random
+    tokens each."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    feats = torch.randn((B_TRAIN, T_TRAIN, cfg.num_filts), generator=gen, device="cuda")
+    feat_lens = torch.full((B_TRAIN,), T_TRAIN, device="cuda")
+    refs = torch.randint(0, cfg.vocab_size, (B_TRAIN, U_TRAIN), generator=gen, device="cuda")
+    ref_lens = torch.full((B_TRAIN,), U_TRAIN, device="cuda")
+    return feats, feat_lens, refs, ref_lens
+
+
+def sa_bound_ms(N, T, F, itemsize):
+    bytes_ = 2 * N * T * F * itemsize + N * T * (4 * 4 + 1) + N * F
+    ops = 3 * N * T * F  # two products and a sum per output
+    t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def ed_bound_ms(R, N, hyp_lens):
+    """What this data needs: each reference and the hypothesis tokens its
+    DP reads once, lengths in, a distance out; about 9 operations per DP
+    cell over the steps each sequence takes."""
+    steps = int(hyp_lens.clamp(min=0).sum())
+    bytes_ = 4 * (R * N + steps + 3 * N)
+    ops = 9 * (R + 1) * steps
+    t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def adamw_first_step(p0, g):
+    """The parameters after AdamW's first step (``adamw``'s defaults, as
+    optax's), in float64: the bias-corrected moments are ``g`` and ``g**2``,
+    so the step is ``lr * g / (|g| + eps)`` plus the weight decay."""
+    p0, g = p0.double(), g.double()
+    return p0 * (1 - LR * 1e-4) - LR * g / (g.abs() + 1e-8)
+
+
+def train_step_check(pkg, kernels, model):
+    """A float32, dropout-0, 2-layer copy of ``model`` takes one step on the
+    card and one on the CPU from the same weights and SpecAugment
+    parameters. The loss agrees within rtol 1e-4, each gradient within
+    1e-3 of its tensor's largest (an attention key bias, whose true
+    gradient is 0 since softmax is blind to it, within 1e-3 of the model's
+    largest gradient on both devices), each device's update is AdamW's first
+    step from its own gradient (within 1e-6), and the parameters agree
+    within atol 1e-4.
+
+    That last holds wherever Adam lets it: its first step is ``lr * g /
+    (|g| + eps)``, about ``lr`` times the sign of ``g`` whatever its size,
+    so an entry whose gradient is near 0 (an attention key bias, which
+    softmax is blind to, or any entry below the two devices' rounding)
+    can move by up to ``lr`` one way on one device and the other way on
+    the other. Entries where the two devices' own first steps differ by
+    more than 1e-4 are counted and held to 2 learning rates instead.
+
+    The warp grid is solved once, on the CPU, and both devices apply its
+    lerp indices and weights through ``spec_augment_apply`` (on the card,
+    the kernel): each device's own solve rounds differently, and at 1000
+    frames that moves a lerp by up to about 1e-3, enough to move the
+    gradients of a loss this large by more than the float32 products do.
+    """
+    _, ConformerCTC, adamw, make_train_step, img = pkg
+    cfg = dataclasses.replace(model.cfg, num_layers=2, dropout=0.0, dtype=torch.float32)
+    keep = ("subsample.", "block_0.", "block_1.", "ctc_head.")
+    sd = {k: v.cpu() for k, v in model.state_dict().items() if k.startswith(keep)}
+    feats, feat_lens, refs, ref_lens = (a[:8].cpu() for a in make_train_batch(model.cfg))
+    feat_lens = feat_lens - torch.arange(8) * (T_TRAIN // 16)  # ragged
+    ref_lens = ref_lens - torch.arange(8) * (U_TRAIN // 12)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    p = img.spec_augment_draw_parameters(gen, feats, *SA_DRAW, lengths=feat_lens)
+    T, F = feats.shape[1:]
+    grid = img.warp_1d_grid(p[0], p[1], feat_lens, T)
+    sa_args = list(img._axis_lerp_weights(grid, T)) + [
+        img._span_mask(p[4], p[5], T), img._span_mask(p[6], p[7], F)
+    ]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = ConformerCTC(cfg, device=dev)
+        m.load_state_dict(sd)
+        args = [a.to(dev) for a in sa_args]
+        step = make_train_step(
+            m, adamw(m.parameters(), LR),
+            lambda g, f, l: kernels.spec_augment_apply(f, *args),
+        )
+        loss = step(None, *(a.to(dev) for a in (feats, feat_lens, refs, ref_lens)))
+        out[dev] = (
+            float(loss),
+            {k: v.detach().cpu() for k, v in m.named_parameters()},
+            {k: v.grad.cpu() for k, v in m.named_parameters()},
+        )
+    (lc, pc, gc), (lg, pg, gg) = out["cpu"], out["cuda"]
+    res = {
+        "batch": 8, "loss_cpu": lc, "loss_card": lg, "loss_rel_err": abs(lg - lc) / abs(lc),
+        "grad_max_rel_err": 0.0, "key_bias_grad_rel": 0.0, "update_max_abs_err": 0.0,
+        "param_max_abs_err": 0.0, "param_worst": None,
+        "split_entries": 0, "split_max_abs_err": 0.0, "entries": 0,
+    }
+    g_max = max(float(g.abs().max()) for g in gc.values())
+    for k in pc:
+        scale = float(gc[k].abs().max())
+        if k.endswith("attn.key.bias"):
+            noise = max(scale, float(gg[k].abs().max())) / g_max
+            res["key_bias_grad_rel"] = max(res["key_bias_grad_rel"], noise)
+        elif scale > 0:
+            rel = float((gg[k] - gc[k]).abs().max()) / scale
+            res["grad_max_rel_err"] = max(res["grad_max_rel_err"], rel)
+        own_c, own_g = adamw_first_step(sd[k], gc[k]), adamw_first_step(sd[k], gg[k])
+        res["update_max_abs_err"] = max(
+            res["update_max_abs_err"],
+            float((pc[k].double() - own_c).abs().max()),
+            float((pg[k].double() - own_g).abs().max()),
+        )
+        d = (pg[k] - pc[k]).abs()
+        split = (own_g - own_c).abs() > 1e-4
+        res["entries"] += d.numel()
+        res["split_entries"] += int(split.sum())
+        if split.any():
+            res["split_max_abs_err"] = max(res["split_max_abs_err"], float(d[split].max()))
+        if (~split).any() and float(d[~split].max()) > res["param_max_abs_err"]:
+            res["param_max_abs_err"], res["param_worst"] = float(d[~split].max()), k
+    ok = (
+        res["loss_rel_err"] <= 1e-4 and res["grad_max_rel_err"] <= 1e-3
+        and res["key_bias_grad_rel"] <= 1e-3 and res["update_max_abs_err"] <= 1e-6
+        and res["param_max_abs_err"] <= 1e-4 and res["split_max_abs_err"] <= 2 * LR
+    )
+    if not ok:
+        raise AssertionError(f"train step on the card vs the CPU: {res}")
+    return res
+
+
+def phase_train(pkg, kernels):
+    ConformerConfig, ConformerCTC, adamw, make_train_step, img = pkg
+    cfg = ConformerConfig(
+        vocab_size=1024, num_filts=80, d_model=512, num_layers=8, num_heads=8,
+        dropout=0.1, attn_dropout=0.0,
+    )
+    model = ConformerCTC(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    step = make_train_step(
+        model, adamw(model.parameters(), LR),
+        lambda g, f, l: img.spec_augment(g, f, lengths=l.float(), **SA_ARGS),
+    )
+    batch = make_train_batch(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    losses = [float(step(gen, *batch)) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    first_pass_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if launches["spec_augment_apply"] != TRAIN_STEPS:
+        raise AssertionError(f"spec_augment_apply launches {launches}, expected {TRAIN_STEPS}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses not finite and falling: {losses}")
+    check = train_step_check(pkg, kernels, model)
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    (step_ms,), runs = host_ms([lambda: step(gen, *batch)])
+    with FlopCounterMode(display=False) as counter:
+        step(gen, *batch)
+    flops = counter.get_total_flops()
+    emit({
+        "phase": "train", "model": "ConformerCTC d512 L8 H8 V1024 bf16, dropout 0.1",
+        "batch": B_TRAIN, "t_raw": T_TRAIN, "u": U_TRAIN, "spec_augment": SA_ARGS,
+        "lr": LR, "losses": losses, "launches": launches,
+        "first_steps_s": first_pass_s, "peak_mem_bytes": peak,
+        "card_vs_cpu_step": check,
+        "step_ms": step_ms, "step_runs_ms": runs[0], "steps_per_s": 1e3 / step_ms,
+        "flops_per_step": flops, "model_tflops_per_s": flops / step_ms / 1e9,
+        "bf16_peak_share": flops / step_ms / 1e9 / (BF16_OPS_PER_S / 1e12),
+    })
+    return model, step, batch, gen, launches
+
+
+def sa_times(kernels, img):
+    """The SpecAugment kernel at the training shape, float32 feats."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    N, T, F = B_TRAIN, T_TRAIN, 80
+    feats = torch.randn((N, T, F), generator=gen, device="cuda")
+    lens = torch.full((N,), T, device="cuda")
+    p = img.spec_augment_draw_parameters(gen, feats, *SA_DRAW, lengths=lens)
+    grid = img.warp_1d_grid(p[0], p[1], lens, T)
+    args = list(img._axis_lerp_weights(grid, T)) + [
+        img._span_mask(p[4], p[5], T), img._span_mask(p[6], p[7], F)
+    ]
+    wrapper = cuda_ms(lambda: kernels.spec_augment_apply(feats, *args))
+    own = device_ms(cold(lambda: kernels.spec_augment_apply(feats, *args)), "sa_kernel")
+    bound = sa_bound_ms(N, T, F, 4)
+    return {
+        "ms": wrapper if own is None else own,
+        "ms_from": "cuda_events" if own is None else "profiler, L2 flushed",
+        "ms_l2_warm": device_ms(lambda: kernels.spec_augment_apply(feats, *args), "sa_kernel"),
+        "ms_queued_events": queued_ms(lambda: kernels.spec_augment_apply(feats, *args)),
+        "wrapper_ms": wrapper,
+        "plain_ms": cuda_ms(lambda: kernels.spec_augment_apply_reference(feats, *args)),
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": None, "library": "none: no single PyTorch call warps and masks",
+        "shape": [N, T, F], "dtype": "float32",
+    }
+
+
+def phase_score(pkg, kernels, model):
+    """BASELINE config #2's scoring on the trained model: greedy decode of
+    32 utterances (T' = 500, V = 1024), hypotheses padded with -1, then
+    error_rate against 40-token references."""
+    ctc_greedy_search, error_rate = pkg
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    feats = torch.randn((B_TRAIN, T_SCORE_RAW, cfg.num_filts), generator=gen, device="cuda")
+    lens = torch.full((B_TRAIN,), T_SCORE_RAW, device="cuda")
+    with torch.no_grad():
+        logits, out_lens = model(feats, lens)
+    refs = torch.randint(
+        0, cfg.vocab_size, (R_SCORE, B_TRAIN), generator=gen, device="cuda", dtype=torch.int32
+    )
+
+    def score():
+        _, y, y_lens = ctc_greedy_search(logits, out_lens, batch_first=True)
+        y = y.T  # (S, N)
+        S = y.shape[0]
+        y = torch.where(torch.arange(S, device=y.device)[:, None] < y_lens[None], y, -1)
+        return error_rate(refs, y, eos=-1, norm=False, warn=False), y, y_lens
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    er, y, y_lens = score()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if launches["edit_distance"] != 1:
+        raise AssertionError(f"edit_distance launches {launches}, expected 1")
+    assert tuple(logits.shape) == (B_TRAIN, 500, cfg.vocab_size + 1)
+    assert er.shape == (B_TRAIN,) and bool(torch.isfinite(er).all()) and bool((er >= 0).all())
+    cpu = error_rate(refs.cpu(), y.cpu(), eos=-1, norm=False, warn=False)
+    if not torch.equal(er.cpu(), cpu):
+        raise AssertionError("error_rate on the card differs from the CPU's")
+    (score_ms,), runs = host_ms([score])
+
+    ref_lens = torch.full((B_TRAIN,), R_SCORE, device="cuda", dtype=torch.int32)
+    hyp_lens = y_lens.int()
+    ed = (refs, y.int(), ref_lens, hyp_lens, 1.0, 1.0, 1.0)  # as the kernel takes them
+    wrapper = cuda_ms(lambda: kernels.edit_distance(*ed))
+    own = device_ms(cold(lambda: kernels.edit_distance(*ed)), "ed_kernel")
+    bound = ed_bound_ms(R_SCORE, B_TRAIN, hyp_lens)
+    # the same kernel on full-length random hypotheses, for scale
+    full = (refs, torch.randint(0, cfg.vocab_size, y.shape, generator=gen, device="cuda",
+                                dtype=torch.int32),
+            ref_lens, torch.full_like(hyp_lens, y.shape[0]), 1.0, 1.0, 1.0)
+    times = {
+        "ms": wrapper if own is None else own,
+        "ms_from": "cuda_events" if own is None else "profiler, L2 flushed",
+        "wrapper_ms": wrapper,
+        "plain_ms": cuda_ms(lambda: kernels.edit_distance_reference(*ed), inner=2),
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": None, "library": "none: no single PyTorch call computes edit distances",
+        "shape": [R_SCORE, int(y.shape[0]), B_TRAIN],
+        "ms_queued_events": queued_ms(lambda: kernels.edit_distance(*ed)),
+        "full_hyp_ms": device_ms(cold(lambda: kernels.edit_distance(*full)), "ed_kernel"),
+        "full_hyp_ms_queued_events": queued_ms(lambda: kernels.edit_distance(*full)),
+        "full_hyp_bound_ms": ed_bound_ms(R_SCORE, B_TRAIN, full[3])[0],
+    }
+    emit({
+        "phase": "score", "utterances": B_TRAIN, "t_prime": int(logits.shape[1]),
+        "refs": [R_SCORE, B_TRAIN], "launches": launches,
+        "hyp_len_mean": float(y_lens.float().mean()), "hyp_len_max": int(y_lens.max()),
+        "error_rate_sum": float(er.sum()), "equals_cpu": True,
+        "score_ms": score_ms, "score_runs_ms": runs[0], "peak_mem_bytes": peak,
+    })
+    return launches, times
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     try:
         from pydrobert_tpu_torch.export import ctc_recognizer
-        from pydrobert_tpu_torch.models import ConformerConfig, ConformerCTC
-        from pydrobert_tpu_torch.ops import _build, kernels
-        from pydrobert_tpu_torch.ops.decoding import CTCPrefixSearch
+        from pydrobert_tpu_torch.models import (
+            ConformerConfig, ConformerCTC, adamw, make_train_step,
+        )
+        from pydrobert_tpu_torch.ops import _build, img, kernels
+        from pydrobert_tpu_torch.ops.decoding import CTCPrefixSearch, ctc_greedy_search
+        from pydrobert_tpu_torch.ops.string import error_rate
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
     # stated, not assumed: no TF32 in float32 products or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    train_pkg = (ConformerConfig, ConformerCTC, adamw, make_train_step, img)
 
     smi = smi_line()
     t0 = time.perf_counter()
@@ -459,33 +905,44 @@ def main(argv):
         "nvcc_s": log["seconds"], "library": os.path.relpath(log["path"]),
         "ptxas": [
             l.strip() for l in (log["stderr"] or "").splitlines()
-            if "registers" in l or "spill" in l
+            if "registers" in l or "spill" in l or "Compiling entry" in l
         ],
     })
 
     if "--profile" in argv:
         phase_profile(ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch)
+        model, step, batch, gen, _ = phase_train(train_pkg, kernels)
+        emit({"phase": "profile", "train_step": trace(lambda: step(gen, *batch))})
         print(smi, flush=True)
         emit(ok_line())
         return 0
 
     errs = phase_kernels(kernels)
+    errs.update(phase_new_kernels(kernels, img))
     model, recognize, requests, launches, (logits, _) = phase_main_path(
         (ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch, kernels)
     )
     times = phase_times(kernels, model, recognize, requests, CTCPrefixSearch, logits)
+    del model, recognize, requests, logits
+    trained, _, _, _, train_launches = phase_train(train_pkg, kernels)
+    times["spec_augment_apply"] = sa_times(kernels, img)
+    score_launches, times["edit_distance"] = phase_score(
+        (ctc_greedy_search, error_rate), kernels, trained
+    )
 
-    src = "pydrobert_tpu_torch/csrc/prologue.cu"
-    replaces = {
-        "decode_prologue": "pydrobert_tpu/ops/pallas.py:1664",
-        "top_m": "pydrobert_tpu/ops/pallas.py:1359",
-    }
+    csrc = "pydrobert_tpu_torch/csrc/"
     rows = []
-    for name in ("decode_prologue", "top_m"):
+    for name, src, replaces, path, n in (
+        ("decode_prologue", "prologue.cu", 1664, "serve", launches["decode_prologue"]),
+        ("top_m", "prologue.cu", 1359, "none", launches["top_m"]),
+        ("spec_augment_apply", "spec_augment.cu", 180, "train",
+         train_launches["spec_augment_apply"]),
+        ("edit_distance", "edit_distance.cu", 49, "score", score_launches["edit_distance"]),
+    ):
         rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces[name],
-            "launches": launches[name], "on_main_path": name == "decode_prologue",
-            "max_abs_err": errs[name], **times[name],
+            "name": name, "route": "cuda", "source": csrc + src,
+            "replaces": f"pydrobert_tpu/ops/pallas.py:{replaces}", "path": path,
+            "launches": n, "max_abs_err": errs[name], **times[name],
         })
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -10,6 +10,9 @@ import os
 
 __all__ = [
     "DECODE_RENORM",
+    "DEFT_DEL_COST",
+    "DEFT_INS_COST",
+    "DEFT_SUB_COST",
     "EPS_0",
     "EPS_INF",
     "EPS_NINF",
@@ -20,6 +23,15 @@ __all__ = [
 INDEX_PAD_VALUE = -100
 """The value to pad index-based tensors with (the ``ignore_index``
 convention)."""
+
+DEFT_INS_COST = 1.0
+"""Default insertion cost in error rate/distance computations."""
+
+DEFT_DEL_COST = 1.0
+"""Default deletion cost in error rate/distance computations."""
+
+DEFT_SUB_COST = 1.0
+"""Default substitution cost in error rate/distance computations."""
 
 TINY = 1.1754943508222875e-38
 """Smallest normal single-precision floating-point value."""

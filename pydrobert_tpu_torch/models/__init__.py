@@ -1,5 +1,19 @@
 """Acoustic models (counterpart of :mod:`pydrobert_tpu.models`)."""
 
-from .conformer import ConformerConfig, ConformerCTC, state_dict_from_jax
+from .conformer import (
+    ConformerConfig,
+    ConformerCTC,
+    adamw,
+    ctc_loss,
+    make_train_step,
+    state_dict_from_jax,
+)
 
-__all__ = ["ConformerConfig", "ConformerCTC", "state_dict_from_jax"]
+__all__ = [
+    "ConformerConfig",
+    "ConformerCTC",
+    "adamw",
+    "ctc_loss",
+    "make_train_step",
+    "state_dict_from_jax",
+]

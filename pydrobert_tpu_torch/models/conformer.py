@@ -1,4 +1,4 @@
-"""Conformer CTC acoustic model for inference (counterpart of
+"""Conformer CTC acoustic model and its training step (counterpart of
 :mod:`pydrobert_tpu.models.conformer`).
 
 The same network as the JAX package's ``ConformerCTC``: a two-conv
@@ -17,13 +17,18 @@ card a float32 matrix product runs in full float32 by default
 convolution runs in TF32 unless ``torch.backends.cudnn.allow_tf32`` is set
 False; bfloat16 compute is unaffected by either.
 
-Training (dropout, SpecAugment, the backward pass), mixture-of-experts
-blocks, rematerialization and sequence sharding are not ported yet.
+Training follows the JAX package: dropout at the same sites with the same
+quantized rate and scale (:class:`_FastDropout`), flax's attention-weight
+dropout, :func:`ctc_loss` and :func:`make_train_step` (SpecAugment, forward,
+CTC loss, backward, AdamW with optax's defaults from :func:`adamw`). Random
+bits come from an explicit :class:`torch.Generator`, so they differ from
+``jax.random``'s. Mixture-of-experts blocks, rematerialization and sequence
+sharding are not ported yet.
 """
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,13 +37,21 @@ from torch import nn
 
 from .. import default_device
 
-__all__ = ["ConformerCTC", "ConformerConfig", "state_dict_from_jax"]
+__all__ = [
+    "ConformerCTC",
+    "ConformerConfig",
+    "adamw",
+    "ctc_loss",
+    "make_train_step",
+    "state_dict_from_jax",
+]
 
 
 @dataclasses.dataclass(frozen=True)
 class ConformerConfig:
     """Hyperparameters for :class:`ConformerCTC`: the JAX package's
-    ``ConformerConfig`` without its training and sharding fields."""
+    ``ConformerConfig`` without its mixture-of-experts and sharding
+    fields."""
 
     vocab_size: int = 1024  # excludes the CTC blank (blank = vocab_size)
     num_filts: int = 80
@@ -48,6 +61,8 @@ class ConformerConfig:
     ffn_factor: int = 4
     conv_kernel: int = 15
     subsample_channels: int = 128
+    dropout: float = 0.1
+    attn_dropout: float = 0.0  # attention-weight dropout (flax semantics)
     dtype: torch.dtype = torch.bfloat16  # compute dtype; params stay f32
     # limited attention context (left, right) in post-subsampling frames
     attention_context: Tuple[Optional[int], Optional[int]] = (None, None)
@@ -66,6 +81,43 @@ class ConformerConfig:
     @property
     def subsampling(self) -> int:
         return 4
+
+
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float (so a product with
+    a tensor of that dtype rounds once, as ``x * jnp.asarray(value,
+    dtype)`` does, with no host-to-device copy)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+class _FastDropout(nn.Module):
+    """The JAX package's ``_FastDropout``: the keep mask thresholds raw
+    ``uint8`` random bits.
+
+    The drop probability is quantized to 1/256 (``cutoff = round(rate *
+    256)``, at most 255), a rate that rounds to 0 is a no-op, and a rate of
+    1 or more gives zeros. Kept values scale by the realized keep
+    probability ``256 / (256 - cutoff)`` rounded to ``x``'s dtype, so the
+    output's expectation is ``x``. The bits come from ``generator``.
+    """
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, deterministic: bool = True, generator=None):
+        if deterministic or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        cutoff = min(round(self.rate * 256.0), 255)
+        if cutoff == 0:
+            return x
+        scale = _in_dtype(256.0 / (256.0 - cutoff), x.dtype)
+        bits = torch.randint(
+            0, 256, x.shape, dtype=torch.uint8, generator=generator, device=x.device
+        )
+        return torch.where(bits >= cutoff, x * scale, 0)
 
 
 class _LayerNorm(nn.LayerNorm):
@@ -103,26 +155,33 @@ class _FeedForward(nn.Module):
         self.ln = _LayerNorm(d, cfg.dtype)
         self.wi = _Dense(d, f, cfg.dtype)
         self.wo = _Dense(f, d, cfg.dtype)
+        self.drop = _FastDropout(cfg.dropout)
 
-    def forward(self, x):
-        return self.wo(F.silu(self.wi(self.ln(x))))
+    def forward(self, x, deterministic=True, generator=None):
+        h = self.drop(F.silu(self.wi(self.ln(x))), deterministic, generator)
+        return self.drop(self.wo(h), deterministic, generator)
 
 
 class _Attention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` as explicit matmuls and a
-    softmax: query/key/value/out projections over all heads at once."""
+    softmax: query/key/value/out projections over all heads at once.
+
+    Attention-weight dropout is flax's: one Bernoulli keep mask of shape
+    ``(T, T)`` shared by every utterance and head, kept weights divided by
+    the keep probability rounded to the compute dtype."""
 
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
         d = cfg.d_model
         self.num_heads = cfg.num_heads
         self.dtype = cfg.dtype
+        self.dropout_rate = float(cfg.attn_dropout)
         self.query = _Dense(d, d, cfg.dtype)
         self.key = _Dense(d, d, cfg.dtype)
         self.value = _Dense(d, d, cfg.dtype)
         self.out = _Dense(d, d, cfg.dtype)
 
-    def forward(self, y, mask):
+    def forward(self, y, mask, deterministic=True, generator=None):
         N, T, d = y.shape
         H = self.num_heads
         hd = d // H
@@ -138,6 +197,12 @@ class _Attention(nn.Module):
         scores = torch.matmul(q, k.transpose(-1, -2))  # (N, H, T, T)
         scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
         w = torch.softmax(scores, -1).to(self.dtype)
+        if not deterministic and self.dropout_rate > 0.0:
+            keep_prob = 1.0 - self.dropout_rate
+            keep = (
+                torch.rand((T, T), generator=generator, device=y.device) < keep_prob
+            )
+            w = w * (keep.to(self.dtype) / _in_dtype(keep_prob, self.dtype))
         o = torch.matmul(w, v).transpose(1, 2).reshape(N, T, d)
         return self.out(o)
 
@@ -148,8 +213,9 @@ class _MHSA(nn.Module):
         self.cfg = cfg
         self.ln = _LayerNorm(cfg.d_model, cfg.dtype)
         self.attn = _Attention(cfg)
+        self.drop = _FastDropout(cfg.dropout)
 
-    def forward(self, x, pad_mask):
+    def forward(self, x, pad_mask, deterministic=True, generator=None):
         T = x.shape[1]
         mask = pad_mask[:, None, None, :]  # (N, 1, 1, T): any unpadded key
         left, right = self.cfg.attention_context
@@ -162,7 +228,8 @@ class _MHSA(nn.Module):
             if right is not None:
                 band = band & (k <= q + int(right))
             mask = mask & band
-        return self.attn(self.ln(x), mask)
+        y = self.attn(self.ln(x), mask, deterministic, generator)
+        return self.drop(y, deterministic, generator)
 
 
 class _DepthwiseConv1D(nn.Module):
@@ -197,12 +264,14 @@ class _ConvModule(nn.Module):
         self.dw = _DepthwiseConv1D(cfg.conv_kernel, d, cfg.dtype, cfg.causal_conv)
         self.norm = _LayerNorm(d, cfg.dtype)
         self.pw2 = _Dense(d, d, cfg.dtype)
+        self.drop = _FastDropout(cfg.dropout)
 
-    def forward(self, x, pad_mask):
+    def forward(self, x, pad_mask, deterministic=True, generator=None):
         y = F.glu(self.pw1(self.ln(x)), -1)
         # zero padded frames so the depthwise conv cannot leak across lengths
         y = y * pad_mask[..., None].to(y.dtype)
-        return self.pw2(F.silu(self.norm(self.dw(y))))
+        y = self.pw2(F.silu(self.norm(self.dw(y))))
+        return self.drop(y, deterministic, generator)
 
 
 class _ConformerBlock(nn.Module):
@@ -214,11 +283,11 @@ class _ConformerBlock(nn.Module):
         self.ffn2 = _FeedForward(cfg)
         self.ln_out = _LayerNorm(cfg.d_model, cfg.dtype)
 
-    def forward(self, x, pad_mask):
-        x = x + 0.5 * self.ffn1(x)
-        x = x + self.mhsa(x, pad_mask)
-        x = x + self.conv(x, pad_mask)
-        x = x + 0.5 * self.ffn2(x)
+    def forward(self, x, pad_mask, deterministic=True, generator=None):
+        x = x + 0.5 * self.ffn1(x, deterministic, generator)
+        x = x + self.mhsa(x, pad_mask, deterministic, generator)
+        x = x + self.conv(x, pad_mask, deterministic, generator)
+        x = x + 0.5 * self.ffn2(x, deterministic, generator)
         return self.ln_out(x)
 
 
@@ -268,7 +337,7 @@ def _sinusoidal_pos_emb(T: int, d: int, dtype, device) -> torch.Tensor:
 
 
 class ConformerCTC(nn.Module):
-    """Conformer encoder + CTC head, for inference.
+    """Conformer encoder + CTC head.
 
     ``ConformerCTC(cfg, device=None, generator=None)`` builds the model on
     ``device`` (``cuda`` when None; raises without a card) with parameters
@@ -276,7 +345,10 @@ class ConformerCTC(nn.Module):
     gives the same weights on every device). Call with batch-major
     ``feats (N, T, num_filts)`` and ``lens (N,)``; returns ``(logits
     (N, T', vocab_size + 1) float32, out_lens (N,))`` with the blank at
-    index ``vocab_size`` and ``T' = ceil(ceil(T / 2) / 2)``.
+    index ``vocab_size`` and ``T' = ceil(ceil(T / 2) / 2)``. With
+    ``deterministic=False`` dropout is on, drawing its bits from
+    ``generator`` (on the model's device; its default generator when
+    None). The module's ``train()``/``eval()`` mode plays no part.
     """
 
     def __init__(
@@ -292,9 +364,9 @@ class ConformerCTC(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"block_{i}", _ConformerBlock(cfg))
         self.ctc_head = _Dense(cfg.d_model, cfg.vocab_size + 1, torch.float32)
+        self.drop = _FastDropout(cfg.dropout)
         self._init_params(generator)
         self.to(device)
-        self.eval()
 
     @torch.no_grad()
     def _init_params(self, generator):
@@ -316,8 +388,13 @@ class ConformerCTC(nn.Module):
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.cfg.num_layers)]
 
-    @torch.no_grad()
-    def forward(self, feats: torch.Tensor, lens: torch.Tensor):
+    def forward(
+        self,
+        feats: torch.Tensor,
+        lens: torch.Tensor,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
         cfg = self.cfg
         dev = self.ctc_head.weight.device
         feats = feats.to(dev)
@@ -331,8 +408,9 @@ class ConformerCTC(nn.Module):
         T4 = x.shape[1]
         pad_mask = torch.arange(T4, device=dev)[None] < out_lens[:, None]
         x = x + _sinusoidal_pos_emb(T4, cfg.d_model, cfg.dtype, dev)[None]
+        x = self.drop(x, deterministic, generator)
         for block in self.blocks:
-            x = block(x, pad_mask)
+            x = block(x, pad_mask, deterministic, generator)
         return self.ctc_head(x.float()), out_lens
 
 
@@ -349,6 +427,8 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     Dense kernels ``(in, out)`` transpose to ``(out, in)``; attention
     kernels ``(d, H, hd)`` and ``(H, hd, d)`` flatten their head axes;
     conv kernels HWIO become OIHW; LayerNorm ``scale`` becomes ``weight``.
+    The map is linear, so it also carries a gradient tree of the same
+    structure onto the names of the port's ``.grad``s.
     """
     out: Dict[str, np.ndarray] = {}
 
@@ -408,3 +488,76 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         i += 1
     put("ctc_head", _linear(params["ctc_head"]["kernel"], params["ctc_head"]["bias"]))
     return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in out.items()}
+
+
+def ctc_loss(
+    logits: torch.Tensor,
+    logit_lens: torch.Tensor,
+    refs: torch.Tensor,
+    ref_lens: torch.Tensor,
+    blank_id: int,
+) -> torch.Tensor:
+    """Mean per-utterance CTC loss from batch-major ``logits (N, T, C)``
+    and dense ``refs (N, U)`` (``optax.ctc_loss`` then ``.mean()``, as the
+    JAX package computes it). An alignment that cannot fit its reference
+    costs ``inf`` here, where optax gives a large finite value. On a card
+    ``F.ctc_loss`` copies the lengths to the host."""
+    log_probs = torch.log_softmax(logits.float(), -1).transpose(0, 1)
+    per_utt = F.ctc_loss(
+        log_probs,
+        refs.long(),
+        logit_lens.long(),
+        ref_lens.long(),
+        blank=blank_id,
+        reduction="none",
+        zero_infinity=False,
+    )
+    return per_utt.mean()
+
+
+def adamw(
+    params,
+    learning_rate: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    weight_decay: float = 1e-4,
+) -> torch.optim.AdamW:
+    """``torch.optim.AdamW`` with ``optax.adamw``'s defaults (PyTorch's own
+    weight decay default is 0.01); both decay every parameter."""
+    return torch.optim.AdamW(
+        params, lr=learning_rate, betas=(b1, b2), eps=eps, weight_decay=weight_decay
+    )
+
+
+def make_train_step(
+    model: ConformerCTC,
+    optimizer: torch.optim.Optimizer,
+    augment: Optional[Callable] = None,
+) -> Callable:
+    """The training step: ``step(generator, feats, feat_lens, refs,
+    ref_lens) -> loss``.
+
+    ``augment`` optionally maps ``(generator, feats, lens) -> feats`` (for
+    example SpecAugment) before the forward, which runs with dropout on;
+    then the CTC loss, its backward and one optimizer step. Unlike the JAX
+    package's pure step, this one updates ``model``'s parameters and
+    ``optimizer``'s state in place, the PyTorch idiom, and returns the
+    detached loss. The same generator feeds the augmentation and every
+    dropout site, in that order.
+    """
+    blank_id = model.cfg.vocab_size
+
+    def step(generator, feats, feat_lens, refs, ref_lens):
+        if augment is not None:
+            feats = augment(generator, feats, feat_lens)
+        logits, out_lens = model(
+            feats, feat_lens, deterministic=False, generator=generator
+        )
+        loss = ctc_loss(logits, out_lens, refs, ref_lens, blank_id)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step

@@ -1,8 +1,9 @@
 """Build the package's CUDA sources on first use and load them with ctypes.
 
 The sources under ``pydrobert_tpu_torch/csrc/`` have a plain C interface
-(no PyTorch headers), so ``nvcc`` compiles them into a shared library in
-seconds. The library lands in ``pydrobert_tpu_torch/_build/``, named by a
+(no PyTorch headers). One ``nvcc`` per source compiles them to objects, all
+started together, and one more links the objects into a shared library;
+the whole build takes seconds. The library lands in ``pydrobert_tpu_torch/_build/``, named by a
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the existing file. A failed build raises with nvcc's
 stderr; nothing falls back to the plain PyTorch versions.
@@ -26,11 +27,11 @@ __all__ = ["build_log", "load_library"]
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("prologue.cu",)
+SOURCES = ("prologue.cu", "spec_augment.cu", "edit_distance.cu")
 HEADERS = ("select.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -66,9 +67,36 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pydt_decode_prologue.restype = i32
     lib.pydt_top_m.argtypes = [p, i32, i64, i32, i32, p, p, p]
     lib.pydt_top_m.restype = i32
+    lib.pydt_spec_augment_apply.argtypes = [
+        p, i32, p, p, p, p, p, p, i32, i32, i32, i32, p, p,
+    ]
+    lib.pydt_spec_augment_apply.restype = i32
+    f32 = ctypes.c_float
+    lib.pydt_edit_distance.argtypes = [
+        p, p, p, p, i32, i32, i32, f32, f32, f32, i32, p, p,
+    ]
+    lib.pydt_edit_distance.restype = i32
     lib.pydt_max_row_lanes.argtypes = []
     lib.pydt_max_row_lanes.restype = i32
     return lib
+
+
+def _run_all(cmds) -> str:
+    """Run the commands together; their stderr, or raise with it if any
+    fails."""
+    procs = [
+        subprocess.Popen(
+            c, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True
+        )
+        for c in cmds
+    ]
+    errs = [p.communicate()[1] for p in procs]
+    for c, p, e in zip(cmds, procs, errs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(c)}\n{e}"
+            )
+    return "".join(errs)
 
 
 def load_library() -> ctypes.CDLL:
@@ -80,22 +108,22 @@ def load_library() -> ctypes.CDLL:
         path = os.path.join(_BUILD_DIR, f"libpydt_{_source_hash()}.so")
         if not os.path.isfile(path):
             os.makedirs(_BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [
-                os.path.join(_CSRC_DIR, s) for s in SOURCES
-            ]
+            nvcc = _nvcc()
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as work:
+                objs = [os.path.join(work, s + ".o") for s in SOURCES]
+                stderr = _run_all([
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(_CSRC_DIR, s)]
+                    for s, o in zip(SOURCES, objs)
+                ])
+                tmp = os.path.join(work, "lib.so")
+                stderr += _run_all([
+                    [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                     "-shared", "-o", tmp, *objs]
+                ])
+                os.replace(tmp, path)  # atomic: concurrent builds agree
             _log["seconds"] = time.perf_counter() - t0
-            _log["stderr"] = proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stderr}"
-                )
-            os.replace(tmp, path)  # atomic: concurrent builders agree
+            _log["stderr"] = stderr
         _log["path"] = path
         _lib = _declare(ctypes.CDLL(path))
         return _lib

@@ -1,6 +1,11 @@
-"""Wrappers of the Hopper kernels in ``csrc/prologue.cu`` and their plain
-PyTorch versions (counterparts of ``decode_prologue_pallas`` and
-``top_m_pallas`` in :mod:`pydrobert_tpu.ops.pallas`).
+"""Wrappers of the Hopper kernels under ``csrc/`` and their plain PyTorch
+versions (counterparts of the kernels in :mod:`pydrobert_tpu.ops.pallas`):
+
+- :func:`decode_prologue` and :func:`top_m` (``csrc/prologue.cu``):
+  ``decode_prologue_pallas`` and ``top_m_pallas``;
+- :func:`spec_augment_apply` (``csrc/spec_augment.cu``):
+  ``spec_augment_apply_kernel``;
+- :func:`edit_distance` (``csrc/edit_distance.cu``): ``edit_distance_kernel``.
 
 A wrapper given a CPU tensor runs the plain version. Given a CUDA tensor it
 checks dtype, shape and contiguity, launches the kernel on the current
@@ -20,12 +25,21 @@ __all__ = [
     "LAUNCHES",
     "decode_prologue",
     "decode_prologue_reference",
+    "edit_distance",
+    "edit_distance_reference",
     "reset_launches",
+    "spec_augment_apply",
+    "spec_augment_apply_reference",
     "top_m",
     "top_m_reference",
 ]
 
-LAUNCHES = {"decode_prologue": 0, "top_m": 0}
+LAUNCHES = {
+    "decode_prologue": 0,
+    "top_m": 0,
+    "spec_augment_apply": 0,
+    "edit_distance": 0,
+}
 """Kernel launches per wrapper since the last :func:`reset_launches`."""
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -182,3 +196,221 @@ def top_m(x: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     _raise_on(err, "top_m")
     LAUNCHES["top_m"] += 1
     return vals, idx
+
+
+def _sa_io_dtype(feats: torch.Tensor) -> torch.dtype:
+    return torch.bfloat16 if feats.dtype == torch.bfloat16 else torch.float32
+
+
+def _check_sa_args(feats, t0, t1, w0, w1, tmask, fmask):
+    if feats.dim() != 3:
+        raise ValueError("feats must be (N, T, F)")
+    if not feats.is_floating_point():
+        raise TypeError(f"feats must be floating point, got {feats.dtype}")
+    N, T, F = feats.shape
+    warp = (t0, t1, w0, w1)
+    if any(a is None for a in warp) and any(a is not None for a in warp):
+        raise ValueError("t0, t1, w0 and w1 are given together or not at all")
+    for name, a, shape in (
+        ("t0", t0, (N, T)), ("t1", t1, (N, T)), ("w0", w0, (N, T)),
+        ("w1", w1, (N, T)), ("tmask", tmask, (N, T)), ("fmask", fmask, (N, F)),
+    ):
+        if a is not None and tuple(a.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(a.shape)}")
+        if a is not None and a.device != feats.device:
+            raise ValueError(f"{name} must be on feats' device ({feats.device})")
+    for name, a in (("tmask", tmask), ("fmask", fmask)):
+        if a is not None and a.dtype != torch.bool:
+            raise TypeError(f"{name} must be bool, got {a.dtype}")
+
+
+def spec_augment_apply_reference(
+    feats: torch.Tensor,
+    t0: Optional[torch.Tensor],
+    t1: Optional[torch.Tensor],
+    w0: Optional[torch.Tensor],
+    w1: Optional[torch.Tensor],
+    tmask: Optional[torch.Tensor],
+    fmask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """Plain version of :func:`spec_augment_apply` (the JAX package's XLA
+    route: a row gather and lerp, then ``where(mask, 0, x)``)."""
+    _check_sa_args(feats, t0, t1, w0, w1, tmask, fmask)
+    io = _sa_io_dtype(feats)
+    x = feats.to(io)
+    if t0 is None:
+        out = x.float()
+    else:
+        N, T, F = x.shape
+        g0 = torch.gather(x, 1, t0.long()[..., None].expand(N, T, F)).float()
+        g1 = torch.gather(x, 1, t1.long()[..., None].expand(N, T, F)).float()
+        out = w0.float()[..., None] * g0 + w1.float()[..., None] * g1
+    mask = None
+    if tmask is not None:
+        mask = tmask[:, :, None]
+    if fmask is not None:
+        mask = fmask[:, None, :] if mask is None else mask | fmask[:, None, :]
+    if mask is not None:
+        out = torch.where(mask, 0.0, out)
+    return out.to(io).to(feats.dtype)
+
+
+def spec_augment_apply(
+    feats: torch.Tensor,
+    t0: Optional[torch.Tensor],
+    t1: Optional[torch.Tensor],
+    w0: Optional[torch.Tensor],
+    w1: Optional[torch.Tensor],
+    tmask: Optional[torch.Tensor],
+    fmask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """SpecAugment's time warp and masks in one pass over ``feats (N, T, F)``.
+
+    ``out[n, t] = w0[n, t] * feats[n, t0[n, t]] + w1[n, t] *
+    feats[n, t1[n, t]]``, then ``+0.0`` wherever ``tmask[n, t]`` or
+    ``fmask[n, f]`` is set. ``t0, t1 (N, T)`` are integer indices in
+    ``[0, T)`` and ``w0, w1 (N, T)`` float weights, all four None for no
+    warp; ``tmask (N, T)`` and ``fmask (N, F)`` are bool or None. The
+    arithmetic is float32 on bfloat16 or float32 I/O (bfloat16 feats stay
+    bfloat16, anything else goes through float32), and the result has
+    ``feats``' dtype.
+    """
+    _check_sa_args(feats, t0, t1, w0, w1, tmask, fmask)
+    if not feats.is_cuda:
+        return spec_augment_apply_reference(feats, t0, t1, w0, w1, tmask, fmask)
+    N, T, F = feats.shape
+    io = _sa_io_dtype(feats)
+    x = feats.to(io).contiguous()
+    out = torch.empty_like(x)
+    warp = None
+    if t0 is not None:
+        warp = (
+            t0.to(torch.int32).contiguous(), t1.to(torch.int32).contiguous(),
+            w0.to(torch.float32).contiguous(), w1.to(torch.float32).contiguous(),
+        )
+    masks = tuple(
+        None if m is None else m.contiguous() for m in (tmask, fmask)
+    )
+    vec = 16 // x.element_size()
+    if F % vec or x.data_ptr() % 16 or out.data_ptr() % 16:
+        vec = 1
+    lib = load_library()
+
+    def ptr(a):
+        return None if a is None else ctypes.c_void_p(a.data_ptr())
+
+    with torch.cuda.device(x.device):
+        err = lib.pydt_spec_augment_apply(
+            ptr(x),
+            _DTYPE_CODE[io],
+            *(ptr(a) for a in (warp or (None,) * 4)),
+            *(ptr(m) for m in masks),
+            N,
+            T,
+            F,
+            vec,
+            ptr(out),
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        )
+    _raise_on(err, "spec_augment_apply")
+    LAUNCHES["spec_augment_apply"] += 1
+    return out.to(feats.dtype)
+
+
+def _check_ed_args(ref, hyp, ref_lens, hyp_lens):
+    if ref.dim() != 2 or hyp.dim() != 2:
+        raise ValueError("ref and hyp must be time-major (R, N) and (H, N)")
+    N = ref.shape[1]
+    if hyp.shape[1] != N or ref_lens.shape != (N,) or hyp_lens.shape != (N,):
+        raise ValueError(
+            f"batch sizes differ: ref {tuple(ref.shape)}, hyp {tuple(hyp.shape)}, "
+            f"ref_lens {tuple(ref_lens.shape)}, hyp_lens {tuple(hyp_lens.shape)}"
+        )
+    for name, a in (
+        ("ref", ref), ("hyp", hyp), ("ref_lens", ref_lens), ("hyp_lens", hyp_lens)
+    ):
+        if a.is_floating_point() or a.is_complex() or a.dtype == torch.bool:
+            raise TypeError(f"{name} must hold integers, got {a.dtype}")
+        if a.device != ref.device:
+            raise ValueError(f"{name} must be on ref's device ({ref.device})")
+
+
+def edit_distance_reference(
+    ref: torch.Tensor,
+    hyp: torch.Tensor,
+    ref_lens: torch.Tensor,
+    hyp_lens: torch.Tensor,
+    ins_cost: float,
+    del_cost: float,
+    sub_cost: float,
+    exclude_last: bool = False,
+) -> torch.Tensor:
+    """Plain version of :func:`edit_distance`: the distance-only DP of the
+    JAX package's ``_string_matching_jit``, one hypothesis step at a time,
+    with the deletions relaxed as ``cummin(row - i*del) + i*del``."""
+    _check_ed_args(ref, hyp, ref_lens, hyp_lens)
+    R, N = ref.shape
+    H = hyp.shape[0]
+    off = 0 if exclude_last else 1
+    dev = ref.device
+    hyp_lens = hyp_lens.to(torch.int32)
+    rrange = torch.arange(R + 1, dtype=torch.float32, device=dev)[:, None]
+    shift = rrange * float(del_cost)
+    row = shift.expand(R + 1, N)
+    for t in range(1, H + off):
+        not_done = (t - off) < hyp_lens
+        ins_mask = (hyp_lens >= t).float()
+        neq = (ref != hyp[t - 1][None]).float()
+        up = row + float(ins_cost) * ins_mask[None]
+        sub = row[:-1] + float(sub_cost) * neq
+        new = torch.cat([up[:1], torch.minimum(up[1:], sub)], 0)
+        new = torch.cummin(new - shift, 0).values + shift
+        row = torch.where(not_done[None], new, row)
+    idx = ref_lens.long().clamp(0, R)[None]
+    return torch.gather(row, 0, idx)[0]
+
+
+def edit_distance(
+    ref: torch.Tensor,
+    hyp: torch.Tensor,
+    ref_lens: torch.Tensor,
+    hyp_lens: torch.Tensor,
+    ins_cost: float,
+    del_cost: float,
+    sub_cost: float,
+    exclude_last: bool = False,
+) -> torch.Tensor:
+    """Batched weighted Levenshtein distances ``(N,)`` float32 from
+    time-major integer ``ref (R, N)`` and ``hyp (H, N)`` with lengths
+    ``ref_lens, hyp_lens (N,)``. ``exclude_last`` drops the last hypothesis
+    token of each sequence. A ``ref_lens`` entry above ``R`` reads row
+    ``R``."""
+    _check_ed_args(ref, hyp, ref_lens, hyp_lens)
+    if not ref.is_cuda:
+        return edit_distance_reference(
+            ref, hyp, ref_lens, hyp_lens, ins_cost, del_cost, sub_cost, exclude_last
+        )
+    R, N = ref.shape
+    H = hyp.shape[0]
+    args = [
+        a.to(torch.int32).contiguous() for a in (ref, hyp, ref_lens, hyp_lens)
+    ]
+    # one sequence's shared memory: R tokens and two rows of R + 1
+    lib = _launch_args(args[0], 3 * R + 2, "edit_distance")
+    out = torch.empty((N,), dtype=torch.float32, device=ref.device)
+    with torch.cuda.device(ref.device):
+        err = lib.pydt_edit_distance(
+            *(ctypes.c_void_p(a.data_ptr()) for a in args),
+            R,
+            H,
+            N,
+            float(ins_cost),
+            float(del_cost),
+            float(sub_cost),
+            int(bool(exclude_last)),
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream(ref.device).cuda_stream),
+        )
+    _raise_on(err, "edit_distance")
+    LAUNCHES["edit_distance"] += 1
+    return out

@@ -44,7 +44,8 @@ def test_conformer_ctc_matches_flax(extra):
     elogits, elens = jmodel.apply(
         {"params": params}, jnp.asarray(feats), jnp.asarray(lens)
     )
-    logits, out_lens = pmodel(torch.from_numpy(feats), torch.from_numpy(lens))
+    with torch.no_grad():  # the model also trains: its forward records a graph
+        logits, out_lens = pmodel(torch.from_numpy(feats), torch.from_numpy(lens))
     assert logits.dtype == torch.float32
     np.testing.assert_array_equal(out_lens.numpy(), np.asarray(elens))
     np.testing.assert_allclose(logits.numpy(), np.asarray(elogits), atol=2e-4, rtol=0)

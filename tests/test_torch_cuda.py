@@ -11,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from pydrobert_tpu_torch.models import conformer as pconf
+from pydrobert_tpu_torch.ops import img as pimg
 from pydrobert_tpu_torch.ops import kernels
+from pydrobert_tpu_torch.ops import string as pstr
 from pydrobert_tpu_torch.ops.decoding import CTCPrefixSearch
 from pydrobert_tpu_torch.ops.topk import hoisted_top_k
 
@@ -60,12 +63,16 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     kernels.reset_launches()
     kernels.decode_prologue(x, 8)
     kernels.top_m(x, 8)
-    assert kernels.LAUNCHES == {"decode_prologue": 1, "top_m": 1}
+    assert kernels.LAUNCHES == {
+        "decode_prologue": 1, "top_m": 1, "spec_augment_apply": 0, "edit_distance": 0
+    }
     with pytest.raises(ValueError):
         kernels.decode_prologue(x.transpose(0, 1), 8)  # not contiguous
     with pytest.raises(ValueError):
         kernels.decode_prologue(x, 8, torch.zeros(128))  # bias on the CPU
-    assert kernels.LAUNCHES == {"decode_prologue": 1, "top_m": 1}
+    assert kernels.LAUNCHES == {
+        "decode_prologue": 1, "top_m": 1, "spec_augment_apply": 0, "edit_distance": 0
+    }
 
 
 def test_hoisted_top_k_takes_the_kernel_or_raises(dev):
@@ -95,3 +102,223 @@ def test_search_on_card_matches_cpu(dev):
             L = int(cl[n, w])
             assert torch.equal(cy[:L, n, w], gy[:L, n, w])
     torch.testing.assert_close(gp, cp, rtol=1e-5, atol=0)
+
+
+def _same_bits(a, b):
+    """Equal bit patterns, or NaN in both."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return bool(((a.view(view) == b.view(view)) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _sa_inputs(dev, dtype, N=6, T=200, F=80, seed=0):
+    """Ragged lengths, a time warp clamped at the borders (t0 == t1 there),
+    masks that cross each length, and inf/NaN in masked columns."""
+    gen = torch.Generator().manual_seed(seed)
+    feats = torch.randn((N, T, F), generator=gen)
+    feats[:, :, 3] = float("inf")
+    feats[:, :, 4] = float("nan")
+    feats[:, :, 5] = -float("inf")
+    lens = torch.randint(T // 2, T + 1, (N,), generator=gen)
+    lens[0] = T
+    params = list(pimg.spec_augment_draw_parameters(
+        gen, feats, 20.0, 0.0, 30, 10, 0.5, 4, 0.2, 2, lengths=lens
+    ))
+    params[6][:, 0] = 2  # one frequency mask always over columns 2..6
+    params[7][:, 0] = 5
+    grid = pimg.warp_1d_grid(params[0], params[1], lens, T)
+    t0, t1, w0, w1 = pimg._axis_lerp_weights(grid, T)
+    tmask = pimg._span_mask(params[4], params[5], T)
+    fmask = pimg._span_mask(params[6], params[7], F)
+    args = [a.to(dev) for a in (feats.to(dtype), t0, t1, w0, w1, tmask, fmask)]
+    return args, params, lens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("warp", [True, False])
+@pytest.mark.parametrize("F", [80, 13])
+def test_spec_augment_kernel_matches_plain_version(dev, dtype, warp, F):
+    """Bit-exact (NaN equal to NaN), masked outputs +0.0, with vector and
+    scalar rows (F=13 takes 1 element a thread)."""
+    (x, t0, t1, w0, w1, tm, fm), _, _ = _sa_inputs(dev, dtype, F=F)
+    if not warp:
+        t0 = t1 = w0 = w1 = None
+    got = kernels.spec_augment_apply(x, t0, t1, w0, w1, tm, fm)
+    exp = kernels.spec_augment_apply_reference(x, t0, t1, w0, w1, tm, fm)
+    torch.cuda.synchronize()
+    assert _same_bits(got, exp)
+    masked = tm[:, :, None] | fm[:, None, :]
+    zeros = got[masked.expand_as(got)].float()
+    assert bool((zeros == 0).all()) and not bool(torch.signbit(zeros).any())
+    assert t0 is None or bool((t0 == t1).any())  # a border case was exercised
+
+
+def test_spec_augment_kernel_other_dtypes_and_views(dev):
+    """float16 goes through float32 I/O and comes back float16; a
+    contiguous tensor that starts 4 bytes past an alignment takes the
+    scalar path; both match the plain version."""
+    (x, t0, t1, w0, w1, tm, fm), _, _ = _sa_inputs(dev, torch.float32, F=80)
+    shifted = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    for feats in (x.half(), shifted):
+        got = kernels.spec_augment_apply(feats, t0, t1, w0, w1, tm, fm)
+        exp = kernels.spec_augment_apply_reference(feats, t0, t1, w0, w1, tm, fm)
+        assert got.dtype == feats.dtype and _same_bits(got, exp)
+
+
+def _ed_inputs(dev, R, H, N, seed, V=6):
+    gen = torch.Generator().manual_seed(seed)
+    ref = torch.randint(0, V, (R, N), generator=gen, dtype=torch.int32)
+    hyp = torch.randint(0, V, (H, N), generator=gen, dtype=torch.int32)
+    ref_lens = torch.randint(0, R + 1, (N,), generator=gen, dtype=torch.int32)
+    hyp_lens = torch.randint(0, H + 1, (N,), generator=gen, dtype=torch.int32)
+    ref_lens[0], hyp_lens[1] = 0, 0  # an empty reference and hypothesis
+    return [a.to(dev) for a in (ref, hyp, ref_lens, hyp_lens)]
+
+
+@pytest.mark.parametrize(
+    "costs", [(1.0, 1.0, 1.0), (3.0, 3.0, 4.0), (0.5, 1.25, 2.0)]
+)
+@pytest.mark.parametrize(
+    "shape", [(40, 500, 32), (100, 250, 32), (1, 1, 3), (31, 33, 5), (64, 7, 70)]
+)
+@pytest.mark.parametrize("exclude_last", [False, True])
+def test_edit_distance_kernel_matches_plain_version(dev, costs, shape, exclude_last):
+    """Bit-exact, at the scoring shapes and at row sizes around a warp's."""
+    args = _ed_inputs(dev, *shape, seed=sum(shape))
+    got = kernels.edit_distance(*args, *costs, exclude_last=exclude_last)
+    exp = kernels.edit_distance_reference(*args, *costs, exclude_last=exclude_last)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+
+
+def test_new_wrappers_count_launches_and_check_inputs(dev, monkeypatch):
+    """A CUDA tensor launches the kernel and never reaches a plain version;
+    bad inputs raise before any launch."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    (x, t0, t1, w0, w1, tm, fm), _, _ = _sa_inputs(dev, torch.float32)
+    ed = _ed_inputs(dev, 9, 11, 4, seed=0)
+    monkeypatch.setattr(kernels, "spec_augment_apply_reference", refuse)
+    monkeypatch.setattr(kernels, "edit_distance_reference", refuse)
+    kernels.reset_launches()
+    kernels.spec_augment_apply(x, t0, t1, w0, w1, tm, fm)
+    kernels.edit_distance(*ed, 1.0, 1.0, 1.0)
+    assert kernels.LAUNCHES == {
+        "decode_prologue": 0, "top_m": 0, "spec_augment_apply": 1, "edit_distance": 1
+    }
+    with pytest.raises(ValueError):
+        kernels.spec_augment_apply(x, t0, t1, w0, w1, tm.cpu(), fm)
+    with pytest.raises(TypeError):
+        kernels.spec_augment_apply(x, t0, t1, w0, w1, tm.float(), fm)
+    with pytest.raises(ValueError):
+        kernels.spec_augment_apply(x, t0, None, w0, w1, tm, fm)
+    with pytest.raises(TypeError):
+        kernels.edit_distance(ed[0].float(), *ed[1:], 1.0, 1.0, 1.0)
+    with pytest.raises(ValueError):
+        kernels.edit_distance(ed[0], ed[1].cpu(), *ed[2:], 1.0, 1.0, 1.0)
+    assert kernels.LAUNCHES["spec_augment_apply"] == 1
+    assert kernels.LAUNCHES["edit_distance"] == 1
+
+
+def test_public_paths_take_the_kernels(dev):
+    """spec_augment and error_rate on the card launch one kernel each and
+    agree with the same calls on the CPU. The warp grid's solves round
+    differently on the two devices: the grids agree within 1e-5, and the
+    warped features within what that moves a lerp by: the grid error, and
+    an ulp on each side from the frame index (g + 1) * T / 2, times T/2
+    frames times the largest step between neighbouring frames."""
+    (x, *_), params, lens = _sa_inputs(torch.device("cpu"), torch.float32, seed=3)
+    x = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+    T = x.shape[1]
+    grid = pimg.warp_1d_grid(params[0], params[1], lens, T)
+    grid_err = float(
+        (pimg.warp_1d_grid(params[0].to(dev), params[1].to(dev), lens.to(dev), T).cpu()
+         - grid).abs().max()
+    )
+    assert grid_err <= 1e-5
+    kernels.reset_launches()
+    got = pimg.spec_augment_apply_parameters(
+        x.to(dev), [None if p is None else p.to(dev) for p in params],
+        lengths=lens.to(dev),
+    )
+    exp = pimg.spec_augment_apply_parameters(x, params, lengths=lens)
+    step = float((x[:, 1:] - x[:, :-1]).abs().max())
+    torch.testing.assert_close(
+        got.cpu(), exp, atol=(grid_err + 2.4e-7) * T / 2 * step + 1e-6, rtol=0
+    )
+    ref, hyp, _, _ = _ed_inputs(torch.device("cpu"), 40, 60, 32, seed=1)
+    hyp[50:, :7] = -1
+    er = pstr.error_rate(ref.to(dev), hyp.to(dev), eos=-1, norm=False, warn=False)
+    assert torch.equal(er.cpu(), pstr.error_rate(ref, hyp, eos=-1, norm=False, warn=False))
+    assert kernels.LAUNCHES["spec_augment_apply"] == 1
+    assert kernels.LAUNCHES["edit_distance"] == 1
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One float32 step (SpecAugment on fixed parameters, dropout 0) on the
+    card and on the CPU from the same weights: loss within rtol 1e-4, each
+    gradient within 1e-3 of its tensor's largest (an attention key bias,
+    whose true gradient is 0, within 1e-3 of the model's largest gradient),
+    each device's update
+    AdamW's first step from its own gradient (within 1e-6), parameters
+    within atol 1e-4. Adam's first step is lr * g / (|g| + eps), about lr
+    times the sign of g whatever its size, so entries whose two first
+    steps differ by more than 1e-4 (gradients near 0, such as the
+    attention key biases, which softmax is blind to) may move apart by up
+    to 2 learning rates."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = pconf.ConformerConfig(
+        vocab_size=11, num_filts=10, d_model=32, num_layers=2, num_heads=2,
+        subsample_channels=4, conv_kernel=7, dropout=0.0, dtype=torch.float32,
+    )
+    gen = torch.Generator().manual_seed(0)
+    feats = torch.randn((4, 60, 10), generator=gen)
+    lens = torch.tensor([60, 52, 41, 30])
+    refs = torch.randint(0, 11, (4, 6), generator=gen)
+    ref_lens = torch.tensor([6, 5, 3, 2])
+    params = pimg.spec_augment_draw_parameters(
+        gen, feats, 5.0, 0.0, 5, 3, 0.2, 2, 0.1, 1, lengths=lens
+    )
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        model = pconf.ConformerCTC(cfg, device=d, generator=torch.Generator().manual_seed(1))
+        before = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+        p_d = [None if p is None else p.to(d) for p in params]
+        step = pconf.make_train_step(
+            model, pconf.adamw(model.parameters(), 1e-3),
+            lambda g, f, l: pimg.spec_augment_apply_parameters(f, p_d, lengths=l.float()),
+        )
+        kernels.reset_launches()
+        loss = step(None, *(a.to(d) for a in (feats, lens, refs, ref_lens)))
+        assert kernels.LAUNCHES["spec_augment_apply"] == int(d.type == "cuda")
+        out[d.type] = (
+            float(loss),
+            {k: v.detach().cpu() for k, v in model.named_parameters()},
+            {k: v.grad.cpu() for k, v in model.named_parameters()},
+        )
+    (lc, pc, gc), (lg, pg, gg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+
+    def first_step(p0, g):  # AdamW's first step with optax's defaults
+        p0, g = p0.double(), g.double()
+        return p0 * (1 - 1e-3 * 1e-4) - 1e-3 * g / (g.abs() + 1e-8)
+
+    g_max = max(float(g.abs().max()) for g in gc.values())
+    for k in pc:
+        if k.endswith("attn.key.bias"):
+            assert max(float(gc[k].abs().max()), float(gg[k].abs().max())) <= 1e-3 * g_max
+        else:
+            torch.testing.assert_close(
+                gg[k], gc[k], atol=1e-3 * float(gc[k].abs().max()), rtol=0, msg=k
+            )
+        own_c, own_g = first_step(before[k], gc[k]), first_step(before[k], gg[k])
+        torch.testing.assert_close(pc[k].double(), own_c, atol=1e-6, rtol=0, msg=k)
+        torch.testing.assert_close(pg[k].double(), own_g, atol=1e-6, rtol=0, msg=k)
+        split = (own_g - own_c).abs() > 1e-4
+        torch.testing.assert_close(pg[k][~split], pc[k][~split], atol=1e-4, rtol=0, msg=k)
+        assert float((pg[k] - pc[k]).abs().max()) <= 2e-3, k
