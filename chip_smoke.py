@@ -31,9 +31,10 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    step on the card and one on the CPU, which must agree; then the step's
    wall time (median of 7), its FLOPs by ``FlopCounterMode`` and the
    SpecAugment kernel's times;
-6. scoring: the trained model's greedy decode of 32 utterances (T'=500)
-   scored by ``error_rate`` against 40-token references, which must launch
-   the edit-distance kernel once and equal the CPU's result; its wall time,
+6. scoring: the greedy decode of the first served request's logits (32
+   utterances, T'=500) scored by ``error_rate`` against 40-token
+   references; every hypothesis must hold tokens, the call must launch the
+   edit-distance kernel once and equal the CPU's result; its wall time,
    peak memory and the kernel's times.
 
 ``python3 chip_smoke.py --profile`` runs phase 1, then traces one served
@@ -114,29 +115,32 @@ def device_events(prof):
 
 def device_ms(fn, kernel=None, calls=INNER):
     """Device milliseconds per call of ``fn()`` from torch.profiler's CUDA
-    trace: the mean over the traced launches of the kernels whose name
-    holds ``kernel`` (each call launches one, but the trace may miss some
-    of a library's short kernels), or every kernel when ``kernel`` is None.
-    None when the trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    trace of ``calls`` calls: the kernels whose name holds ``kernel``, which
+    each call must launch once, or every kernel when ``kernel`` is None.
+    The traced calls follow a warm-up cycle of as many calls under the
+    profiler whose events are dropped, so that none of the traced launches
+    falls in the start of tracing, where CUPTI can miss kernels. None when
+    the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    hits = [
-        a for a in device_events(prof) if kernel is None or kernel in a.key
-    ]
+    traced = []
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        schedule=schedule(wait=0, warmup=1, active=1),
+        on_trace_ready=lambda p: traced.extend(device_events(p)),
+    ) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    hits = [a for a in traced if kernel is None or kernel in a.key]
     if not hits:
         return None
     launched = sum(a.count for a in hits)
-    if kernel is None:
-        return sum(a.self_device_time_total for a in hits) / 1e3 / calls
-    if launched > calls:
+    if kernel is not None and launched != calls:
         raise AssertionError(f"{calls} calls launched {kernel} {launched} times")
-    return sum(a.self_device_time_total for a in hits) / 1e3 / launched
+    return sum(a.self_device_time_total for a in hits) / 1e3 / calls
 
 
 def cold(fn):
@@ -151,27 +155,6 @@ def cold(fn):
         return fn()
 
     return run
-
-
-def queued_ms(fn, reps=REPS):
-    """Device milliseconds of one ``fn()`` from CUDA events around it, with
-    the L2 cache overwritten first and the card kept busy by a sleep while
-    the host queues the events and the call, so the events bracket the
-    device's work and not the host's; the median of ``reps``."""
-    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        scratch.zero_()
-        torch.cuda._sleep(1_000_000)  # about 0.5 ms of clock cycles
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def host_ms(fns, reps=REPS, warmup=1):
@@ -505,7 +488,7 @@ B_TRAIN, T_TRAIN, U_TRAIN, TRAIN_STEPS, LR = 32, 1000, 100, 5, 1e-3
 # bench_train_mfu's SpecAugment (bench.py:622-626); the rest park2020's
 SA_ARGS = dict(max_time_warp=80.0, max_time_mask=100, max_freq_mask=27)
 SA_DRAW = (80.0, 0.0, 100, 27, 0.04, 20, 0.04, 2)
-R_SCORE, T_SCORE_RAW = 40, 2000  # BASELINE config #2: refs (40, 32), T' = 500
+R_SCORE = 40  # BASELINE config #2: refs (40, 32), T' = 500
 BF16_OPS_PER_S = 989e12  # H100 SXM, dense tensor cores
 
 
@@ -608,9 +591,22 @@ def make_train_batch(cfg):
     return feats, feat_lens, refs, ref_lens
 
 
-def sa_bound_ms(N, T, F, itemsize):
-    bytes_ = 2 * N * T * F * itemsize + N * T * (4 * 4 + 1) + N * F
-    ops = 3 * N * T * F  # two products and a sum per output
+def sa_bound_ms(x, t0, t1, w0, w1, tmask, fmask):
+    """What these inputs need: every output written once; of ``x``, the
+    columns outside the frequency mask of each distinct row that a frame
+    outside the time mask reads; t0, t1, w0 and w1 of those frames, the
+    time mask of every frame and the frequency mask once; two products and
+    a sum per output outside both masks."""
+    N, T, F = x.shape
+    kept = ~tmask
+    read = torch.zeros((N, T), device=x.device)
+    for idx in (t0, t1):
+        read.scatter_add_(1, idx.long(), kept.float())
+    cols = (~fmask).sum(1)
+    rows_read = int(((read > 0).sum(1) * cols).sum())
+    outputs_kept = int((kept.sum(1) * cols).sum())
+    bytes_ = x.element_size() * (N * T * F + rows_read) + 16 * int(kept.sum()) + N * T + N * F
+    ops = 3 * outputs_kept
     t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
@@ -640,17 +636,17 @@ def train_step_check(pkg, kernels, model):
     parameters. The loss agrees within rtol 1e-4, each gradient within
     1e-3 of its tensor's largest (an attention key bias, whose true
     gradient is 0 since softmax is blind to it, within 1e-3 of the model's
-    largest gradient on both devices), each device's update is AdamW's first
-    step from its own gradient (within 1e-6), and the parameters agree
-    within atol 1e-4.
+    largest gradient on both devices), and each device's update is AdamW's
+    first step from its own gradient (within 1e-6): together these hold
+    the step.
 
-    That last holds wherever Adam lets it: its first step is ``lr * g /
-    (|g| + eps)``, about ``lr`` times the sign of ``g`` whatever its size,
-    so an entry whose gradient is near 0 (an attention key bias, which
-    softmax is blind to, or any entry below the two devices' rounding)
-    can move by up to ``lr`` one way on one device and the other way on
-    the other. Entries where the two devices' own first steps differ by
-    more than 1e-4 are counted and held to 2 learning rates instead.
+    The parameters after it are compared (atol 1e-4) only where both
+    devices' gradients are at least 10 times the gradient tolerance and
+    1e-6. Adam's first step is ``lr * g / (|g| + eps)``, about ``lr`` times
+    the sign of ``g`` whatever its size, so where a gradient is rounding
+    noise (an attention key bias, which softmax is blind to) the two
+    devices' steps may part by up to 2 ``lr``; where it is well above the
+    noise the two steps agree far inside 1e-4.
 
     The warp grid is solved once, on the CPU, and both devices apply its
     lerp indices and weights through ``spec_augment_apply`` (on the card,
@@ -691,36 +687,33 @@ def train_step_check(pkg, kernels, model):
     res = {
         "batch": 8, "loss_cpu": lc, "loss_card": lg, "loss_rel_err": abs(lg - lc) / abs(lc),
         "grad_max_rel_err": 0.0, "key_bias_grad_rel": 0.0, "update_max_abs_err": 0.0,
-        "param_max_abs_err": 0.0, "param_worst": None,
-        "split_entries": 0, "split_max_abs_err": 0.0, "entries": 0,
+        "param_max_abs_err": 0.0, "param_entries": 0, "entries": 0,
     }
     g_max = max(float(g.abs().max()) for g in gc.values())
     for k in pc:
         scale = float(gc[k].abs().max())
+        res["entries"] += pc[k].numel()
         if k.endswith("attn.key.bias"):
             noise = max(scale, float(gg[k].abs().max())) / g_max
             res["key_bias_grad_rel"] = max(res["key_bias_grad_rel"], noise)
         elif scale > 0:
             rel = float((gg[k] - gc[k]).abs().max()) / scale
             res["grad_max_rel_err"] = max(res["grad_max_rel_err"], rel)
+            held = torch.minimum(gc[k].abs(), gg[k].abs()) >= max(1e-2 * scale, 1e-6)
+            res["param_entries"] += int(held.sum())
+            if held.any():
+                d = float((pg[k] - pc[k]).abs()[held].max())
+                res["param_max_abs_err"] = max(res["param_max_abs_err"], d)
         own_c, own_g = adamw_first_step(sd[k], gc[k]), adamw_first_step(sd[k], gg[k])
         res["update_max_abs_err"] = max(
             res["update_max_abs_err"],
             float((pc[k].double() - own_c).abs().max()),
             float((pg[k].double() - own_g).abs().max()),
         )
-        d = (pg[k] - pc[k]).abs()
-        split = (own_g - own_c).abs() > 1e-4
-        res["entries"] += d.numel()
-        res["split_entries"] += int(split.sum())
-        if split.any():
-            res["split_max_abs_err"] = max(res["split_max_abs_err"], float(d[split].max()))
-        if (~split).any() and float(d[~split].max()) > res["param_max_abs_err"]:
-            res["param_max_abs_err"], res["param_worst"] = float(d[~split].max()), k
     ok = (
         res["loss_rel_err"] <= 1e-4 and res["grad_max_rel_err"] <= 1e-3
         and res["key_bias_grad_rel"] <= 1e-3 and res["update_max_abs_err"] <= 1e-6
-        and res["param_max_abs_err"] <= 1e-4 and res["split_max_abs_err"] <= 2 * LR
+        and res["param_max_abs_err"] <= 1e-4 and res["param_entries"] > 0
     )
     if not ok:
         raise AssertionError(f"train step on the card vs the CPU: {res}")
@@ -788,34 +781,29 @@ def sa_times(kernels, img):
     ]
     wrapper = cuda_ms(lambda: kernels.spec_augment_apply(feats, *args))
     own = device_ms(cold(lambda: kernels.spec_augment_apply(feats, *args)), "sa_kernel")
-    bound = sa_bound_ms(N, T, F, 4)
+    bound = sa_bound_ms(feats, *args)
     return {
         "ms": wrapper if own is None else own,
         "ms_from": "cuda_events" if own is None else "profiler, L2 flushed",
-        "ms_l2_warm": device_ms(lambda: kernels.spec_augment_apply(feats, *args), "sa_kernel"),
-        "ms_queued_events": queued_ms(lambda: kernels.spec_augment_apply(feats, *args)),
         "wrapper_ms": wrapper,
         "plain_ms": cuda_ms(lambda: kernels.spec_augment_apply_reference(feats, *args)),
         "bound_ms": bound[0], "bound_by": bound[1],
         "library_ms": None, "library": "none: no single PyTorch call warps and masks",
         "shape": [N, T, F], "dtype": "float32",
+        "time_masked_share": float(args[4].float().mean()),
     }
 
 
-def phase_score(pkg, kernels, model):
-    """BASELINE config #2's scoring on the trained model: greedy decode of
-    32 utterances (T' = 500, V = 1024), hypotheses padded with -1, then
-    error_rate against 40-token references."""
+def phase_score(pkg, kernels, logits, out_lens):
+    """BASELINE config #2's scoring: greedy decode of the model's logits
+    for the first served request (32 utterances, T' = 500, V = 1024),
+    hypotheses padded with -1, then error_rate against 40-token
+    references. Every hypothesis must hold tokens, so that the DP runs.
+    (The trained model, after 5 steps on random data, emits only blanks.)"""
     ctc_greedy_search, error_rate = pkg
-    cfg = model.cfg
+    V = logits.shape[-1] - 1
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    feats = torch.randn((B_TRAIN, T_SCORE_RAW, cfg.num_filts), generator=gen, device="cuda")
-    lens = torch.full((B_TRAIN,), T_SCORE_RAW, device="cuda")
-    with torch.no_grad():
-        logits, out_lens = model(feats, lens)
-    refs = torch.randint(
-        0, cfg.vocab_size, (R_SCORE, B_TRAIN), generator=gen, device="cuda", dtype=torch.int32
-    )
+    refs = torch.randint(0, V, (R_SCORE, B_TRAIN), generator=gen, device="cuda", dtype=torch.int32)
 
     def score():
         _, y, y_lens = ctc_greedy_search(logits, out_lens, batch_first=True)
@@ -833,7 +821,9 @@ def phase_score(pkg, kernels, model):
     peak = torch.cuda.max_memory_allocated()
     if launches["edit_distance"] != 1:
         raise AssertionError(f"edit_distance launches {launches}, expected 1")
-    assert tuple(logits.shape) == (B_TRAIN, 500, cfg.vocab_size + 1)
+    assert tuple(logits.shape) == (B_TRAIN, 500, V + 1)
+    if not int(y_lens.min()) > 0:
+        raise AssertionError(f"empty hypotheses leave the DP nothing to do: {y_lens.tolist()}")
     assert er.shape == (B_TRAIN,) and bool(torch.isfinite(er).all()) and bool((er >= 0).all())
     cpu = error_rate(refs.cpu(), y.cpu(), eos=-1, norm=False, warn=False)
     if not torch.equal(er.cpu(), cpu):
@@ -846,10 +836,6 @@ def phase_score(pkg, kernels, model):
     wrapper = cuda_ms(lambda: kernels.edit_distance(*ed))
     own = device_ms(cold(lambda: kernels.edit_distance(*ed)), "ed_kernel")
     bound = ed_bound_ms(R_SCORE, B_TRAIN, hyp_lens)
-    # the same kernel on full-length random hypotheses, for scale
-    full = (refs, torch.randint(0, cfg.vocab_size, y.shape, generator=gen, device="cuda",
-                                dtype=torch.int32),
-            ref_lens, torch.full_like(hyp_lens, y.shape[0]), 1.0, 1.0, 1.0)
     times = {
         "ms": wrapper if own is None else own,
         "ms_from": "cuda_events" if own is None else "profiler, L2 flushed",
@@ -858,15 +844,13 @@ def phase_score(pkg, kernels, model):
         "bound_ms": bound[0], "bound_by": bound[1],
         "library_ms": None, "library": "none: no single PyTorch call computes edit distances",
         "shape": [R_SCORE, int(y.shape[0]), B_TRAIN],
-        "ms_queued_events": queued_ms(lambda: kernels.edit_distance(*ed)),
-        "full_hyp_ms": device_ms(cold(lambda: kernels.edit_distance(*full)), "ed_kernel"),
-        "full_hyp_ms_queued_events": queued_ms(lambda: kernels.edit_distance(*full)),
-        "full_hyp_bound_ms": ed_bound_ms(R_SCORE, B_TRAIN, full[3])[0],
+        "dp_steps": int(hyp_lens.sum()),
     }
     emit({
         "phase": "score", "utterances": B_TRAIN, "t_prime": int(logits.shape[1]),
         "refs": [R_SCORE, B_TRAIN], "launches": launches,
-        "hyp_len_mean": float(y_lens.float().mean()), "hyp_len_max": int(y_lens.max()),
+        "hyp_len_min": int(y_lens.min()), "hyp_len_mean": float(y_lens.float().mean()),
+        "hyp_len_max": int(y_lens.max()),
         "error_rate_sum": float(er.sum()), "equals_cpu": True,
         "score_ms": score_ms, "score_runs_ms": runs[0], "peak_mem_bytes": peak,
     })
@@ -919,15 +903,15 @@ def main(argv):
 
     errs = phase_kernels(kernels)
     errs.update(phase_new_kernels(kernels, img))
-    model, recognize, requests, launches, (logits, _) = phase_main_path(
+    model, recognize, requests, launches, (logits, out_lens) = phase_main_path(
         (ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch, kernels)
     )
     times = phase_times(kernels, model, recognize, requests, CTCPrefixSearch, logits)
-    del model, recognize, requests, logits
-    trained, _, _, _, train_launches = phase_train(train_pkg, kernels)
+    del model, recognize, requests
+    *_, train_launches = phase_train(train_pkg, kernels)
     times["spec_augment_apply"] = sa_times(kernels, img)
     score_launches, times["edit_distance"] = phase_score(
-        (ctc_greedy_search, error_rate), kernels, trained
+        (ctc_greedy_search, error_rate), kernels, logits, out_lens
     )
 
     csrc = "pydrobert_tpu_torch/csrc/"

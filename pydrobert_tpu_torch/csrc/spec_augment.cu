@@ -21,11 +21,13 @@
 // nearest even, with NaN as 0x7fc0, as PyTorch does.
 //
 // Bound: memory. At the training shape (N=32, T=1000, F=80, f32) it must
-// read 10.24 MB of feats and write 10.24 MB, plus 17 bytes of per-frame
-// parameters per frame, about 6.3 us at 3.35 TB/s. One thread block covers
-// a tile of frames of one utterance (blockIdx.y); each thread moves one
-// 16-byte vector of a row (4 floats or 8 bfloat16) where F allows it, and
-// a frame that is masked in time reads nothing.
+// write 10.24 MB and read at most 10.24 MB of feats, plus up to 17 bytes of
+// per-frame parameters per frame: at most about 6.3 us at 3.35 TB/s, and
+// less where the masks hide frames and columns, which need no reading.
+// One thread block covers a tile of frames of one utterance (blockIdx.y);
+// each thread moves one 16-byte vector of a row (4 floats or 8 bfloat16)
+// where F allows it. A frame that is masked in time reads nothing; the
+// masked columns of a kept frame are still read.
 //
 // Plain C interface for ctypes: the entry returns cudaGetLastError() after
 // its launch, allocates nothing, and runs on the caller's stream.

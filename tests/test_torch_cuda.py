@@ -263,13 +263,12 @@ def test_train_step_on_card_matches_cpu(dev):
     card and on the CPU from the same weights: loss within rtol 1e-4, each
     gradient within 1e-3 of its tensor's largest (an attention key bias,
     whose true gradient is 0, within 1e-3 of the model's largest gradient),
-    each device's update
-    AdamW's first step from its own gradient (within 1e-6), parameters
-    within atol 1e-4. Adam's first step is lr * g / (|g| + eps), about lr
-    times the sign of g whatever its size, so entries whose two first
-    steps differ by more than 1e-4 (gradients near 0, such as the
-    attention key biases, which softmax is blind to) may move apart by up
-    to 2 learning rates."""
+    each device's update AdamW's first step from its own gradient (within
+    1e-6). Parameters within atol 1e-4 where both devices' gradients are at
+    least 10 times the gradient tolerance and 1e-6: Adam's first step is
+    lr * g / (|g| + eps), about lr times the sign of g whatever its size,
+    so where a gradient is rounding noise (the attention key biases, which
+    softmax is blind to) the two devices' steps may part by up to 2 lr."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = pconf.ConformerConfig(
@@ -309,16 +308,17 @@ def test_train_step_on_card_matches_cpu(dev):
         return p0 * (1 - 1e-3 * 1e-4) - 1e-3 * g / (g.abs() + 1e-8)
 
     g_max = max(float(g.abs().max()) for g in gc.values())
+    held_entries = 0
     for k in pc:
         if k.endswith("attn.key.bias"):
             assert max(float(gc[k].abs().max()), float(gg[k].abs().max())) <= 1e-3 * g_max
         else:
-            torch.testing.assert_close(
-                gg[k], gc[k], atol=1e-3 * float(gc[k].abs().max()), rtol=0, msg=k
-            )
+            tol = 1e-3 * float(gc[k].abs().max())
+            torch.testing.assert_close(gg[k], gc[k], atol=tol, rtol=0, msg=k)
+            held = torch.minimum(gc[k].abs(), gg[k].abs()) >= max(10 * tol, 1e-6)
+            held_entries += int(held.sum())
+            torch.testing.assert_close(pg[k][held], pc[k][held], atol=1e-4, rtol=0, msg=k)
         own_c, own_g = first_step(before[k], gc[k]), first_step(before[k], gg[k])
         torch.testing.assert_close(pc[k].double(), own_c, atol=1e-6, rtol=0, msg=k)
         torch.testing.assert_close(pg[k].double(), own_g, atol=1e-6, rtol=0, msg=k)
-        split = (own_g - own_c).abs() > 1e-4
-        torch.testing.assert_close(pg[k][~split], pc[k][~split], atol=1e-4, rtol=0, msg=k)
-        assert float((pg[k] - pc[k]).abs().max()) <= 2e-3, k
+    assert held_entries > 0
