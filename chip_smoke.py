@@ -13,7 +13,10 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    SpecAugment's apply bit-exact at (32, 1000, 80) in float32 and bfloat16,
    with and without a warp, inf/NaN only where masked outputs read them
    and every masked output +0.0; the edit distance exact at R=40, H=500
-   and R=100, H=250 (N=32) for three sets of costs;
+   and R=100, H=250 (N=32) for three sets of costs; the whole-loop beam
+   search at (T=500, N=32, V=1024, W=16) with diffuse and decisive logits,
+   at W=2 and W=32 and at T=2, ragged lengths with 0 and 1, lengths and
+   tokens exact and probabilities within rtol 1e-6;
 3. serving: a seeded d512/L8/H8/V1024 ConformerCTC (bf16) serves three
    requests of 32 utterances through ``ctc_recognizer(width=16)``; the
    decode-prologue kernel must have been launched by them, the card's
@@ -24,6 +27,17 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    version's and ``torch.topk``'s per call from CUDA events around 20
    queued calls, and its bound; wall times of the encoder, the decode and a
    whole request, taken in turn so they share the host's load; peak memory;
+4b. beam serving: the same three requests with ``USE_BEAM_KERNEL="1"``;
+   one ``top_m`` and one ``ctc_beam_search`` launch each, hypotheses equal
+   to the card's own scan with ``DECODE_RENORM`` off (lengths and tokens
+   exact, probabilities within rtol 1e-4); encoder, decode and request wall
+   times in turn; the beam kernel's own, plain and bound times;
+4c. streaming: the same widths as a causal config (``attention_context=
+   (16, 0)``, ``causal_conv=True``, R=240) serve 32 streams of 1000-2000
+   raw frames through ``StreamingCTCRecognizer``, 32 raw frames a push,
+   partials every 16th push, the beam route forced; push latency, finish
+   latency and launches; a float32 copy's finish on 4 streams equals the
+   one-shot search of its full forward;
 5. training: the same model with dropout 0.1 takes 5 steps of SpecAugment,
    forward, CTC loss, backward and AdamW at bench_train_mfu's shape (B=32,
    T=1000, U=100), which must launch the SpecAugment kernel 5 times and
@@ -38,7 +52,8 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    peak memory and the kernel's times.
 
 ``python3 chip_smoke.py --profile`` runs phase 1, then traces one served
-request, one decode alone and one training step with ``torch.profiler``:
+request, one decode alone, one beam-route request and decode, and one
+training step with ``torch.profiler``:
 wall time, device busy time and idle share, kernel launches, and the
 kernels that take the most device time.
 
@@ -56,6 +71,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 SEED = 0
@@ -278,15 +294,7 @@ def phase_main_path(torch_pkg):
     if launches["decode_prologue"] != N_REQUESTS:
         raise AssertionError(f"decode_prologue launches {launches}, expected {N_REQUESTS}")
 
-    S = -(-(-(-T_RAW // 2)) // 2)
-    for (hyps, hlens, probs), (logits, out_lens) in zip(outputs, captured):
-        assert hyps.shape == (N_BATCH, WIDTH, S) and hlens.shape == (N_BATCH, WIDTH)
-        assert logits.shape == (N_BATCH, S, cfg.vocab_size + 1)
-        assert bool(torch.isfinite(logits).all()), "non-finite logits"
-        assert bool(((hyps >= 0) & (hyps < cfg.vocab_size)).all())
-        assert bool((hlens <= out_lens[:, None]).all())
-        assert bool(((probs >= 0) & (probs <= 1)).all()), "probabilities out of [0, 1]"
-        assert bool((probs[:, :-1] >= probs[:, 1:]).all()), "beams out of order"
+    check_served(outputs, captured, cfg)
 
     # the card's hypotheses against a CPU decode of the same logits
     (hyps, hlens, probs), (logits, out_lens) = outputs[0], captured[0]
@@ -384,7 +392,7 @@ def trace(fn):
     }
 
 
-def phase_profile(ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch):
+def phase_profile(config, ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch):
     cfg, model = make_model(ConformerConfig, ConformerCTC)
     recognize = ctc_recognizer(model, width=WIDTH)
     feats, lens = make_requests(cfg)[0]
@@ -396,7 +404,17 @@ def phase_profile(ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch
     decode = trace(lambda: search(x, out_lens))
     decode["launches_per_frame"] = decode["kernel_launches"] / x.shape[0]
     encoder = trace(lambda: encode(feats, lens))
-    emit({"phase": "profile", "request": served, "encoder": encoder, "decode": decode})
+    saved = config.USE_BEAM_KERNEL
+    config.USE_BEAM_KERNEL = "1"
+    try:
+        beam_request = trace(lambda: recognize(feats, lens))
+        beam_decode = trace(lambda: search(x, out_lens))
+    finally:
+        config.USE_BEAM_KERNEL = saved
+    emit({
+        "phase": "profile", "request": served, "encoder": encoder, "decode": decode,
+        "beam_request": beam_request, "beam_decode": beam_decode,
+    })
 
 
 def prologue_bound_ms(T, N, Vp1, m, itemsize):
@@ -420,7 +438,7 @@ def phase_times(kernels, model, recognize, requests, CTCPrefixSearch, logits):
     V, m = Vp1 - 1, M_HEADLINE
     x = logits.transpose(0, 1).contiguous()  # the main path's (T, N, V + 1)
     assert tuple(x.shape) == HEADLINE
-    xv = x[..., :V].contiguous()  # what hoisted_top_k would be handed
+    xv = beam_inputs(x)[0]  # what the beam route hands hoisted_top_k
     fns = {
         "decode_prologue": (
             lambda: kernels.decode_prologue(x, m),
@@ -478,6 +496,300 @@ def phase_times(kernels, model, recognize, requests, CTCPrefixSearch, logits):
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
     ))
     return times
+
+
+# ---------------------------------------------------------------------------
+# The whole-loop beam search (USE_BEAM_KERNEL="1"): its kernel, the beam
+# route through ctc_recognizer, and streaming CTC serving through it.
+
+TINY = 1.1754943508222875e-38  # smallest normal float32
+BEAM_CASES = (  # name, (T, N, V), width, logit scale
+    ("headline_diffuse", (500, 32, 1024), WIDTH, 2.0),
+    ("headline_decisive", (500, 32, 1024), WIDTH, 32.0),
+    ("w2", (500, 32, 1024), 2, 32.0),
+    ("w32", (500, 32, 1024), 32, 32.0),
+    ("t2", (2, 32, 1024), WIDTH, 2.0),
+)
+# the causal flagship (the context of bench.py:720): R = 8 * (16 + 15 - 1)
+STREAM_CONTEXT, STREAM_CHUNK, STREAM_PUSH, STREAM_PARTIALS_EVERY = (16, 0), 8, 32, 16
+
+
+def beam_inputs(x):
+    """``(nonext (T, N, V), blank (T, N))`` probabilities from time-major
+    logits ``(T, N, V + 1)``, as ``CTCPrefixSearch``'s beam route makes
+    them."""
+    V = x.shape[-1] - 1
+    lg32 = x.float()
+    mx = lg32.amax(2)
+    den = torch.exp(lg32 - mx[..., None]).sum(2)
+    blank = torch.exp(lg32[..., V] - mx) / den
+    return torch.exp(lg32[..., :V] - mx[..., None]) / den[..., None], blank
+
+
+def search_compare(got, exp, rtol):
+    """``(y (T, N, W), y_lens, y_probs)`` triples: lengths, finiteness and
+    tokens up to each length exact, finite probabilities within ``rtol``
+    (tests/test_pallas.py's _beam_outputs_equal rule, atol 1e-12)."""
+    (gy, gl, gp), (ey, el, ep) = got, exp
+    S = min(gy.shape[0], ey.shape[0])
+    mask = torch.arange(S, device=ey.device)[:, None, None] < el[None]
+    fin = torch.isfinite(ep)
+    rel = ((gp - ep).abs() / ep.abs())[fin & (ep != 0)]
+    res = {
+        "lens_exact": torch.equal(gl, el),
+        "tokens_exact_to_lens": bool(gl.max() <= S) and torch.equal(
+            torch.where(mask, gy[:S], -1), torch.where(mask, ey[:S], -1)
+        ),
+        "probs_max_rel_err": float(rel.max()) if rel.numel() else 0.0,
+    }
+    res["ok"] = (
+        res["lens_exact"] and res["tokens_exact_to_lens"]
+        and torch.equal(fin, torch.isfinite(gp))
+        and bool(torch.isclose(gp[fin], ep[fin], rtol=rtol, atol=1e-12).all())
+    )
+    return res
+
+
+def phase_beam_kernel(kernels):
+    """The beam kernel against its plain version on the card, at the
+    headline shape with diffuse (masses subnormal within some 55 frames,
+    then zero) and decisive logits, at widths 2 and 32, and at T=2; ragged
+    lengths with 0 and 1. Lengths and tokens must be exact and
+    probabilities within rtol 1e-6 (bit-exact is the design; the line says
+    whether they were)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    worst = 0.0
+    for name, (T, N, V), W, scale in BEAM_CASES:
+        x = torch.randn((T, N, V + 1), generator=gen, device="cuda") * scale
+        nonext, blank = beam_inputs(x)
+        lens = torch.randint(T // 2, T + 1, (N,), generator=gen, device="cuda")
+        lens[0], lens[1], lens[2] = T, 0, 1
+        top = kernels.top_m(nonext, min(V, 2 * W))
+        got = kernels.ctc_beam_search(nonext, blank, lens, W, top)
+        exp = kernels.ctc_beam_search_reference(nonext, blank, lens, W, top)
+        torch.cuda.synchronize()
+        res = search_compare(got, exp, rtol=1e-6)
+        res.update(
+            buffer_exact=torch.equal(got[0], exp[0]), probs_bit_exact=same_bits(got[2], exp[2]),
+            zero_probs=int((exp[2] == 0).sum()),
+            subnormal_probs=int(((exp[2] > 0) & (exp[2] < TINY)).sum()),
+        )
+        emit({"phase": "kernels", "kernel": "ctc_beam_search", "case": name,
+              "shape": [T, N, V, W], "scale": scale, **res})
+        if not res["ok"]:
+            raise AssertionError(f"ctc_beam_search parity failed for case {name}: {res}")
+        worst = max(worst, max_abs_err(zip(got, exp)))
+    return worst
+
+
+def beam_bound_ms(lens, T, N, W, M):
+    """What these inputs need: for each frame a row runs (its length, at
+    most T), the tv/ti rows, the blank and W gathered probabilities in;
+    the paths (int64), lengths (int64) and masses out once; per frame about
+    3 operations for each of the W * (M + 2) candidates (score, compare,
+    select) and 2 for each of the W * W prefix-matrix entries."""
+    frames = int(lens.clamp(0, T).sum())
+    bytes_ = frames * (8 * M + 4 * W + 4) + 4 * N + 8 * T * N * W + 12 * N * W
+    ops = frames * (3 * W * (M + 2) + 2 * W * W)
+    t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def check_served(outputs, captured, cfg):
+    S = -(-(-(-T_RAW // 2)) // 2)
+    for (hyps, hlens, probs), (logits, out_lens) in zip(outputs, captured):
+        assert hyps.shape == (N_BATCH, WIDTH, S) and hlens.shape == (N_BATCH, WIDTH)
+        assert logits.shape == (N_BATCH, S, cfg.vocab_size + 1)
+        assert bool(torch.isfinite(logits).all()), "non-finite logits"
+        assert bool(((hyps >= 0) & (hyps < cfg.vocab_size)).all())
+        assert bool((hlens <= out_lens[:, None]).all())
+        assert bool(((probs >= 0) & (probs <= 1)).all()), "probabilities out of [0, 1]"
+        assert bool((probs[:, :-1] >= probs[:, 1:]).all()), "beams out of order"
+
+
+def phase_beam_serve(pkg, kernels, model, requests):
+    """The three requests of the serve phase through the beam route: one
+    ``top_m`` and one ``ctc_beam_search`` launch each, hypotheses equal to
+    the card's own scan with DECODE_RENORM off (the raw masses the kernel
+    carries) by the JAX package's rule; then wall times of the encoder, the
+    decode and the request in turn, and the kernel's times."""
+    config, ctc_recognizer, CTCPrefixSearch = pkg
+    saved = config.USE_BEAM_KERNEL, config.DECODE_RENORM
+    config.USE_BEAM_KERNEL = "1"
+    try:
+        recognize = ctc_recognizer(model, width=WIDTH)
+        captured = []
+        hook = model.register_forward_hook(lambda mod, inp, out: captured.append(out))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        outputs = [recognize(f, l) for f, l in requests]
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        hook.remove()
+        want = {"decode_prologue": 0, "top_m": N_REQUESTS, "ctc_beam_search": N_REQUESTS}
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"beam route launches {launches}, expected {want}")
+        check_served(outputs, captured, model.cfg)
+
+        config.USE_BEAM_KERNEL, config.DECODE_RENORM = "0", False
+        scan = CTCPrefixSearch(WIDTH)
+        checks = []
+        for (hyps, hlens, probs), (logits, out_lens) in zip(outputs, captured):
+            exp = scan(logits.transpose(0, 1).contiguous(), out_lens)
+            checks.append(search_compare((hyps.permute(2, 0, 1), hlens, probs), exp, 1e-4))
+        if not all(c["ok"] for c in checks):
+            raise AssertionError(f"beam route vs the card's raw-mass scan: {checks}")
+        config.USE_BEAM_KERNEL, config.DECODE_RENORM = "1", saved[1]
+
+        feats, lens = requests[0]
+        logits, out_lens = captured[0]
+        x = logits.transpose(0, 1).contiguous()
+        T, N, Vp1 = x.shape
+        M = min(Vp1 - 1, 2 * WIDTH)
+        search = CTCPrefixSearch(WIDTH)
+        encode = torch.no_grad()(model)
+        (enc_ms, dec_ms, req_ms), runs = host_ms([
+            lambda: encode(feats, lens),
+            lambda: search(x, out_lens),
+            lambda: recognize(feats, lens),
+        ])
+        nonext, blank = beam_inputs(x)
+        top = kernels.top_m(nonext, M)
+
+        def kernel():
+            return kernels.ctc_beam_search(nonext, blank, out_lens, WIDTH, top)
+
+        wrapper = cuda_ms(kernel)
+        own = device_ms(kernel, "ctc_beam_kernel")
+        ms = wrapper if own is None else own
+        frames = int(out_lens.clamp(max=T).max())
+        bound = beam_bound_ms(out_lens, T, N, WIDTH, M)
+        times = {
+            "ms": ms, "ms_from": "cuda_events" if own is None else "profiler",
+            "wrapper_ms": wrapper,
+            "plain_ms": cuda_ms(
+                lambda: kernels.ctc_beam_search_reference(nonext, blank, out_lens, WIDTH, top),
+                reps=3, inner=1, warmup=1,
+            ),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None, "library": "none: no PyTorch call runs a CTC beam search",
+            "shape": [T, N, Vp1 - 1, WIDTH], "frames_longest_row": frames,
+            "us_per_frame": ms * 1e3 / frames,
+        }
+        emit({
+            "phase": "beam_serve", "requests": N_REQUESTS, "batch": N_BATCH,
+            "width": WIDTH, "launches": launches, "serve_s_first_pass": serve_s,
+            "vs_card_scan_raw_masses": checks,
+            "encoder_ms_per_batch": enc_ms, "decode_ms_per_batch": dec_ms,
+            "request_ms": req_ms, "utt_per_s": N_BATCH / (req_ms / 1e3),
+            "decode_share_of_request": dec_ms / req_ms,
+            "runs_ms": {"encoder": runs[0], "decode": runs[1], "request": runs[2]},
+            "kernel": times, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        })
+    finally:
+        config.USE_BEAM_KERNEL, config.DECODE_RENORM = saved
+    return launches, times
+
+
+def stream_session(rec, feats, lens, partials_every=0, times=None):
+    """Push ``feats`` STREAM_PUSH raw frames at a time (partials every
+    ``partials_every``-th push), then finish; each push's and the finish's
+    wall ms go to ``times``."""
+    sess = rec.start(feats.shape[0])
+    for p, t in enumerate(range(0, feats.shape[1], STREAM_PUSH)):
+        partial = bool(partials_every) and (p + 1) % partials_every == 0
+        t0 = time.perf_counter()
+        out = rec.push(
+            sess, feats[:, t : t + STREAM_PUSH],
+            np.clip(lens - t, 0, STREAM_PUSH), partials=partial,
+        )
+        torch.cuda.synchronize()
+        if times is not None:
+            times["partial" if partial else "push"].append((time.perf_counter() - t0) * 1e3)
+        assert (out is not None) == partial
+    t0 = time.perf_counter()
+    res = rec.finish(sess)
+    torch.cuda.synchronize()
+    if times is not None:
+        times["finish"].append((time.perf_counter() - t0) * 1e3)
+    return res
+
+
+def phase_stream(pkg, kernels):
+    """Streaming CTC serving: the flagship widths as a causal config, 32
+    streams of 1000-2000 raw frames pushed 32 at a time (chunk 8), partials
+    every 16th push, the beam route forced, so every partial and the finish
+    launch the beam kernel. A float32 copy streams 4 of them, and its
+    finish must equal the one-shot search of its full forward (lengths and
+    tokens exact, probabilities within rtol 1e-4: the windowed and the
+    one-shot forwards sum in other orders)."""
+    config, ConformerConfig, ConformerCTC, CTCPrefixSearch, StreamingCTCRecognizer = pkg
+    cfg = ConformerConfig(
+        vocab_size=1024, num_filts=80, d_model=512, num_layers=8, num_heads=8,
+        attention_context=STREAM_CONTEXT, causal_conv=True,
+    )
+    model = ConformerCTC(cfg, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.ctc_head.weight.mul_(32.0)  # decisive, as in the serve phase
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    feats = torch.randn((N_BATCH, T_RAW, cfg.num_filts), generator=gen, device="cuda")
+    lens = torch.randint(T_RAW // 2, T_RAW + 1, (N_BATCH,), generator=gen, device="cuda")
+    lens = lens.cpu().numpy()
+    saved = config.USE_BEAM_KERNEL
+    config.USE_BEAM_KERNEL = "1"
+    try:
+        rec = StreamingCTCRecognizer(model, chunk=STREAM_CHUNK, width=WIDTH)
+        stream_session(rec, feats[:, : 4 * STREAM_PUSH], lens.clip(max=4 * STREAM_PUSH), 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = {"push": [], "partial": [], "finish": []}
+        kernels.reset_launches()
+        y, y_lens, y_probs = stream_session(rec, feats, lens, STREAM_PARTIALS_EVERY, times)
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        searches = len(times["partial"]) + 1
+        if launches["ctc_beam_search"] != searches or launches["top_m"] != searches:
+            raise AssertionError(f"streaming launches {launches}, {searches} searches")
+        out_lens = torch.from_numpy(-(-lens // 4)).cuda()
+        S = -(-int(out_lens.max()) // 32) * 32  # decode_pad_multiple
+        assert tuple(y.shape) == (S, N_BATCH, WIDTH) and tuple(y_lens.shape) == (N_BATCH, WIDTH)
+        assert bool((y_lens <= out_lens[:, None]).all())
+        assert bool(((y_probs >= 0) & (y_probs <= 1)).all()), "probabilities out of [0, 1]"
+        assert bool((y_probs[:, :-1] >= y_probs[:, 1:]).all()), "beams out of order"
+
+        m32 = ConformerCTC(dataclasses.replace(cfg, dtype=torch.float32), device="cuda")
+        m32.load_state_dict(model.state_dict())
+        k = 4
+        got = stream_session(
+            StreamingCTCRecognizer(m32, chunk=STREAM_CHUNK, width=WIDTH), feats[:k], lens[:k]
+        )
+        with torch.no_grad():
+            lg, ol = m32(feats[:k], torch.from_numpy(lens[:k]).cuda())
+        exp = CTCPrefixSearch(WIDTH)(lg.transpose(0, 1).contiguous(), ol)
+        parity = search_compare(got, exp, rtol=1e-4)
+        if not parity["ok"]:
+            raise AssertionError(f"streaming finish vs one-shot (f32, {k} streams): {parity}")
+    finally:
+        config.USE_BEAM_KERNEL = saved
+    emit({
+        "phase": "stream", "model": "ConformerCTC d512 L8 H8 V1024 bf16, causal",
+        "attention_context": list(STREAM_CONTEXT), "causal_conv": True, "R": rec.R,
+        "window_raw_frames": rec.Lw, "streams": N_BATCH,
+        "raw_frames_min": int(lens.min()), "raw_frames_max": int(lens.max()),
+        "push_raw_frames": STREAM_PUSH, "chunk": STREAM_CHUNK, "width": WIDTH,
+        "pushes": len(times["push"]) + len(times["partial"]),
+        "partials": len(times["partial"]), "launches": launches,
+        "push_ms_median": statistics.median(times["push"]),
+        "push_ms_max": max(times["push"]),
+        "partial_push_ms_median": (
+            statistics.median(times["partial"]) if times["partial"] else None
+        ),
+        "finish_ms": times["finish"][0], "peak_mem_bytes": peak,
+        "finish_vs_one_shot_f32": dict(parity, streams=k),
+    })
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -862,6 +1174,7 @@ def main(argv):
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     try:
+        from pydrobert_tpu_torch import config
         from pydrobert_tpu_torch.export import ctc_recognizer
         from pydrobert_tpu_torch.models import (
             ConformerConfig, ConformerCTC, adamw, make_train_step,
@@ -869,6 +1182,7 @@ def main(argv):
         from pydrobert_tpu_torch.ops import _build, img, kernels
         from pydrobert_tpu_torch.ops.decoding import CTCPrefixSearch, ctc_greedy_search
         from pydrobert_tpu_torch.ops.string import error_rate
+        from pydrobert_tpu_torch.serving import StreamingCTCRecognizer
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
@@ -894,7 +1208,7 @@ def main(argv):
     })
 
     if "--profile" in argv:
-        phase_profile(ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch)
+        phase_profile(config, ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch)
         model, step, batch, gen, _ = phase_train(train_pkg, kernels)
         emit({"phase": "profile", "train_step": trace(lambda: step(gen, *batch))})
         print(smi, flush=True)
@@ -903,11 +1217,19 @@ def main(argv):
 
     errs = phase_kernels(kernels)
     errs.update(phase_new_kernels(kernels, img))
+    errs["ctc_beam_search"] = phase_beam_kernel(kernels)
     model, recognize, requests, launches, (logits, out_lens) = phase_main_path(
         (ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch, kernels)
     )
     times = phase_times(kernels, model, recognize, requests, CTCPrefixSearch, logits)
+    beam_launches, times["ctc_beam_search"] = phase_beam_serve(
+        (config, ctc_recognizer, CTCPrefixSearch), kernels, model, requests
+    )
     del model, recognize, requests
+    phase_stream(
+        (config, ConformerConfig, ConformerCTC, CTCPrefixSearch, StreamingCTCRecognizer),
+        kernels,
+    )
     *_, train_launches = phase_train(train_pkg, kernels)
     times["spec_augment_apply"] = sa_times(kernels, img)
     score_launches, times["edit_distance"] = phase_score(
@@ -918,10 +1240,12 @@ def main(argv):
     rows = []
     for name, src, replaces, path, n in (
         ("decode_prologue", "prologue.cu", 1664, "serve", launches["decode_prologue"]),
-        ("top_m", "prologue.cu", 1359, "none", launches["top_m"]),
+        ("top_m", "prologue.cu", 1359, "beam serve", beam_launches["top_m"]),
         ("spec_augment_apply", "spec_augment.cu", 180, "train",
          train_launches["spec_augment_apply"]),
         ("edit_distance", "edit_distance.cu", 49, "score", score_launches["edit_distance"]),
+        ("ctc_beam_search", "ctc_beam.cu", 649, "beam serve",
+         beam_launches["ctc_beam_search"]),
     ):
         rows.append({
             "name": name, "route": "cuda", "source": csrc + src,

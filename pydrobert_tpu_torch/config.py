@@ -18,6 +18,7 @@ __all__ = [
     "EPS_NINF",
     "INDEX_PAD_VALUE",
     "TINY",
+    "USE_BEAM_KERNEL",
 ]
 
 INDEX_PAD_VALUE = -100
@@ -47,6 +48,23 @@ frames. With this flag each decode step rescales every beam's masses by
 power of two is exact, so every comparison matches the unrenormalized
 trajectory wherever that stays in normal range. Final probabilities below
 the normal f32 floor flush to zero."""
+
+USE_BEAM_KERNEL = os.environ.get("PYDROBERT_TPU_TORCH_BEAM_KERNEL", "auto")
+"""Route :class:`pydrobert_tpu_torch.ops.decoding.CTCPrefixSearch` (no LM)
+through the whole-loop beam search
+(:func:`pydrobert_tpu_torch.ops.kernels.ctc_beam_search`): ``"1"`` forces
+it, ``"0"`` forces the per-frame scan, and ``"auto"`` (the default) takes
+it only when :data:`DECODE_RENORM` is off.
+
+The whole-loop search carries raw linear masses, the reference's
+semantics, while the scan with :data:`DECODE_RENORM` on (the default) is
+denormal-proof; so ``"auto"`` never routes to it under the defaults, and
+``"1"`` is an explicit opt-in to raw masses. Either way the search also
+needs ``T >= 2``, ``1 < width <= min(32, V)`` and a shape whose state fits
+one block's shared memory
+(:func:`pydrobert_tpu_torch.ops.kernels.ctc_beam_search_fits`). The JAX
+package's counterpart, ``USE_PALLAS_BEAM``, times both routes on the
+device to choose under ``"auto"``; nothing is timed here."""
 
 EPS_NINF = math.log(1.1754943508222875e-38) / 2
 """A small enough log-space value that exponentiating it is very close to 0."""

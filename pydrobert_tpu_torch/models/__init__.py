@@ -7,6 +7,7 @@ from .conformer import (
     ctc_loss,
     make_train_step,
     state_dict_from_jax,
+    streaming_logits,
 )
 
 __all__ = [
@@ -16,4 +17,5 @@ __all__ = [
     "ctc_loss",
     "make_train_step",
     "state_dict_from_jax",
+    "streaming_logits",
 ]

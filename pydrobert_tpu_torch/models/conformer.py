@@ -44,6 +44,7 @@ __all__ = [
     "ctc_loss",
     "make_train_step",
     "state_dict_from_jax",
+    "streaming_logits",
 ]
 
 
@@ -326,8 +327,10 @@ class _ConvSubsample(nn.Module):
         return self.proj(x)
 
 
-def _sinusoidal_pos_emb(T: int, d: int, dtype, device) -> torch.Tensor:
-    pos = torch.arange(T, device=device, dtype=torch.float32)[:, None]
+def _sinusoidal_pos_emb(T: int, d: int, dtype, device, offset: int = 0) -> torch.Tensor:
+    # `offset` shifts the absolute positions (streaming chunks encode with
+    # their true global positions; int offsets are exact in f32 < 2**24)
+    pos = (torch.arange(T, device=device) + int(offset)).float()[:, None]
     dim = torch.arange(0, d, 2, device=device, dtype=torch.float32)[None]
     angles = pos / torch.pow(10000.0, dim / d)
     emb = torch.zeros((T, d), dtype=torch.float32, device=device)
@@ -349,6 +352,8 @@ class ConformerCTC(nn.Module):
     ``deterministic=False`` dropout is on, drawing its bits from
     ``generator`` (on the model's device; its default generator when
     None). The module's ``train()``/``eval()`` mode plays no part.
+    ``pos_offset`` shifts the sinusoidal positions, so a chunk of a stream
+    encodes with its frames' global positions (:func:`streaming_logits`).
     """
 
     def __init__(
@@ -394,6 +399,7 @@ class ConformerCTC(nn.Module):
         lens: torch.Tensor,
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
+        pos_offset: int = 0,
     ):
         cfg = self.cfg
         dev = self.ctc_head.weight.device
@@ -407,11 +413,64 @@ class ConformerCTC(nn.Module):
         out_lens = (((lens + 1) // 2) + 1) // 2  # ceil-div by 2, twice
         T4 = x.shape[1]
         pad_mask = torch.arange(T4, device=dev)[None] < out_lens[:, None]
-        x = x + _sinusoidal_pos_emb(T4, cfg.d_model, cfg.dtype, dev)[None]
+        x = x + _sinusoidal_pos_emb(T4, cfg.d_model, cfg.dtype, dev, pos_offset)[None]
         x = self.drop(x, deterministic, generator)
         for block in self.blocks:
             x = block(x, pad_mask, deterministic, generator)
         return self.ctc_head(x.float()), out_lens
+
+
+def streaming_margin(cfg: ConformerConfig, what: str) -> int:
+    """The receptive-field margin ``R = num_layers * (L + conv_kernel - 1)``
+    of a causal config, in post-subsampling frames; raises ``ValueError``
+    for any other config (``what`` names the caller)."""
+    left, right = cfg.attention_context
+    if left is None or right != 0 or not cfg.causal_conv:
+        raise ValueError(
+            f"{what} requires a causal config: "
+            "attention_context=(L, 0) with finite L and causal_conv=True "
+            f"(got attention_context={cfg.attention_context}, "
+            f"causal_conv={cfg.causal_conv})"
+        )
+    return cfg.num_layers * (int(left) + cfg.conv_kernel - 1)
+
+
+@torch.no_grad()
+def streaming_logits(
+    model: ConformerCTC, feats: torch.Tensor, lens: torch.Tensor, chunk: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked (streaming) CTC logits of a causal config: the output of
+    ``model(feats, lens)``, computed in post-subsampling chunks of ``chunk``
+    frames that each re-encode only their receptive-field margin (the JAX
+    package's ``streaming_logits``).
+
+    The config must have ``attention_context = (L, 0)`` with finite ``L``
+    and ``causal_conv = True``; each chunk then encodes ``O(chunk + R)``
+    frames, ``R = num_layers * (L + conv_kernel - 1)``. Within each
+    utterance's ``out_lens`` the logits match the one-shot forward up to
+    the order of reductions; frames past ``out_lens`` are unspecified in
+    both.
+    """
+    R = streaming_margin(model.cfg, "streaming_logits")
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    T = feats.shape[1]
+    T4 = -(-T // 4)  # the subsampler's ceil-div by 2, twice
+    lens = torch.as_tensor(lens)
+    outs = []
+    for o0 in range(0, T4, chunk):
+        o1 = min(o0 + chunk, T4)
+        # +1 margin row: subsample row m0 reads up to 3 input frames left
+        # of the chunk (zero-padded here, real data in the full forward)
+        m0 = max(o0 - R - 1, 0)
+        i0, i1 = 4 * m0, min(4 * o1, T)
+        logits, _ = model(
+            feats[:, i0:i1], (lens - i0).clamp(0, i1 - i0), pos_offset=m0
+        )
+        outs.append(logits[:, o0 - m0 : o1 - m0])
+    logits = torch.cat(outs, 1)
+    out_lens = (((lens.to(logits.device).long() + 1) // 2) + 1) // 2
+    return logits, out_lens
 
 
 def _linear(kernel, bias) -> Dict[str, np.ndarray]:

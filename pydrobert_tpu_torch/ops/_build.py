@@ -27,7 +27,7 @@ __all__ = ["build_log", "load_library"]
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("prologue.cu", "spec_augment.cu", "edit_distance.cu")
+SOURCES = ("prologue.cu", "spec_augment.cu", "edit_distance.cu", "ctc_beam.cu")
 HEADERS = ("select.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -76,6 +76,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p, p, i32, i32, i32, f32, f32, f32, i32, p, p,
     ]
     lib.pydt_edit_distance.restype = i32
+    lib.pydt_ctc_beam_search.argtypes = [
+        p, p, p, p, p, i32, i32, i32, i32, i32, p, p, p, p,
+    ]
+    lib.pydt_ctc_beam_search.restype = i32
+    lib.pydt_ctc_beam_smem_bytes.argtypes = [i32, i32, i32]
+    lib.pydt_ctc_beam_smem_bytes.restype = i64
     lib.pydt_max_row_lanes.argtypes = []
     lib.pydt_max_row_lanes.restype = i32
     return lib

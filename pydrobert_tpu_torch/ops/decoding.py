@@ -16,6 +16,13 @@ per-frame row) give results identical to the flat forms by construction
 and have no counterpart here. Where those contractions turn a picked
 ``-0.0`` into ``+0.0`` the port adds ``0.0`` to the gathered value, so the
 total-order ranking of zero masses agrees.
+
+With :data:`pydrobert_tpu_torch.config.USE_BEAM_KERNEL` forced, or with
+:data:`~pydrobert_tpu_torch.config.DECODE_RENORM` off, the search takes the
+JAX package's whole-loop route instead: the softmax, the exact top-``M`` of
+the non-blank probabilities (:func:`~pydrobert_tpu_torch.ops.topk.
+hoisted_top_k`) and one :func:`~pydrobert_tpu_torch.ops.kernels.
+ctc_beam_search` over every frame, which carries raw masses.
 """
 
 from typing import Optional, Tuple
@@ -23,8 +30,8 @@ from typing import Optional, Tuple
 import torch
 
 from .. import argcheck, config
-from .kernels import decode_prologue
-from .topk import exact_top_k
+from .kernels import ctc_beam_search, ctc_beam_search_fits, decode_prologue
+from .topk import exact_top_k, hoisted_top_k
 
 __all__ = [
     "CTCGreedySearch",
@@ -291,6 +298,15 @@ class CTCPrefixSearch(torch.nn.Module):
     probability and dummy beams (when fewer than ``W`` prefixes exist) at
     probability ``-inf``. Rows with ``lens == 0`` return the empty prefix.
 
+    With no LM, ``T >= 2``, ``1 < W <= min(32, V)``, a shape that
+    :func:`~pydrobert_tpu_torch.ops.kernels.ctc_beam_search_fits` takes, and
+    :data:`pydrobert_tpu_torch.config.USE_BEAM_KERNEL` ``"1"`` (or
+    ``"auto"`` with :data:`~pydrobert_tpu_torch.config.DECODE_RENORM` off),
+    the whole search is one :func:`~pydrobert_tpu_torch.ops.kernels.
+    ctc_beam_search` (a Hopper kernel on the card) over raw masses; it
+    returns the unrenormalized scan's results, with probabilities that can
+    differ in the last ulps (the softmax is summed in another order).
+
     Language-model fusion (``lm``) is not ported yet and raises
     :class:`NotImplementedError`. ``beta`` is the LM's weight, kept for the
     JAX package's signature: with no LM it has no effect on the search.
@@ -304,6 +320,19 @@ class CTCPrefixSearch(torch.nn.Module):
             raise NotImplementedError(
                 "shallow LM fusion is not ported to pydrobert_tpu_torch yet"
             )
+
+    def _takes_beam_route(self, T: int, N: int, V: int) -> bool:
+        """Whether a search of this shape takes the whole-loop route: it
+        depends on the config and the shape, never on the device."""
+        mode = str(config.USE_BEAM_KERNEL)
+        W = self.width
+        return (
+            mode != "0"
+            and (mode == "1" or not config.DECODE_RENORM)
+            and T >= 2
+            and 1 < W <= min(32, V)
+            and ctc_beam_search_fits(T, N, V, W)
+        )
 
     def forward(
         self, logits: torch.Tensor, lens: Optional[torch.Tensor] = None
@@ -324,6 +353,18 @@ class CTCPrefixSearch(torch.nn.Module):
                     f"expected dim 0 of lens to be {N}, got {lens.shape[0]}"
                 )
             lens = lens.to(dev, torch.long)
+
+        if self._takes_beam_route(T, N, V):
+            # the JAX package's whole-loop route (decoding.py:1912-1930)
+            lg32 = logits.float()
+            sm_max = lg32.amax(2)
+            sm_den = torch.exp(lg32 - sm_max[..., None]).sum(2)
+            blank_probs = torch.exp(lg32[..., V] - sm_max) / sm_den
+            nonext_probs = torch.exp(lg32[..., :V] - sm_max[..., None]) / sm_den[
+                ..., None
+            ]
+            top = hoisted_top_k(nonext_probs, min(V, 2 * W))
+            return ctc_beam_search(nonext_probs, blank_probs, lens, W, top)
 
         if T == 0:
             y = torch.zeros((0, N, W), dtype=torch.long, device=dev)

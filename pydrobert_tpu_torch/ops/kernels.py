@@ -5,7 +5,8 @@ versions (counterparts of the kernels in :mod:`pydrobert_tpu.ops.pallas`):
   ``decode_prologue_pallas`` and ``top_m_pallas``;
 - :func:`spec_augment_apply` (``csrc/spec_augment.cu``):
   ``spec_augment_apply_kernel``;
-- :func:`edit_distance` (``csrc/edit_distance.cu``): ``edit_distance_kernel``.
+- :func:`edit_distance` (``csrc/edit_distance.cu``): ``edit_distance_kernel``;
+- :func:`ctc_beam_search` (``csrc/ctc_beam.cu``): ``ctc_beam_search_pallas``.
 
 A wrapper given a CPU tensor runs the plain version. Given a CUDA tensor it
 checks dtype, shape and contiguity, launches the kernel on the current
@@ -14,6 +15,7 @@ falls back to the plain version.
 """
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -23,6 +25,9 @@ from .topk import exact_top_k
 
 __all__ = [
     "LAUNCHES",
+    "ctc_beam_search",
+    "ctc_beam_search_fits",
+    "ctc_beam_search_reference",
     "decode_prologue",
     "decode_prologue_reference",
     "edit_distance",
@@ -39,6 +44,7 @@ LAUNCHES = {
     "top_m": 0,
     "spec_augment_apply": 0,
     "edit_distance": 0,
+    "ctc_beam_search": 0,
 }
 """Kernel launches per wrapper since the last :func:`reset_launches`."""
 
@@ -414,3 +420,216 @@ def edit_distance(
     _raise_on(err, "edit_distance")
     LAUNCHES["edit_distance"] += 1
     return out
+
+
+# whole-loop CTC prefix beam search
+
+_BEAM_DUMMY = -1.0e30  # mass of the placeholder beams at t = 0
+_BEAM_SMEM_LIMIT = 232_448  # an H100 block's opt-in shared memory
+
+
+def _beam_smem_bytes(T: int, W: int, M: int) -> int:
+    """Shared memory of one block of ``csrc/ctc_beam.cu`` (its layout, in
+    4-byte words: two (W, T) path buffers, four (W, W) matrices, the
+    (W, M + 2) candidate grid, three M-rows, 20 W-rows and 4 scalars)."""
+    return 4 * (2 * W * T + 4 * W * W + W * (M + 2) + 3 * M + 20 * W + 4)
+
+
+def ctc_beam_search_fits(T: int, N: int, V: int, width: int) -> bool:
+    """Whether :func:`ctc_beam_search`'s kernel takes this shape: its beam
+    state, candidate grid and two ``(width, T)`` path buffers fit one
+    block's 232,448 bytes of shared memory (counterpart of the JAX
+    package's ``ctc_beam_search_vmem_ok``; ``N`` does not matter, one block
+    runs each batch row)."""
+    return _beam_smem_bytes(int(T), int(width), min(int(V), 2 * int(width))) <= (
+        _BEAM_SMEM_LIMIT
+    )
+
+
+def _check_beam_args(nonext_probs, blank_probs, lens, width, top):
+    if nonext_probs.dim() != 3:
+        raise ValueError("nonext_probs must be (T, N, V)")
+    T, N, V = nonext_probs.shape
+    W = int(width)
+    if not 1 <= W <= min(32, V):
+        raise ValueError(f"width must be in [1, min(32, V) = {min(32, V)}], got {W}")
+    M = min(V, 2 * W)
+    if nonext_probs.dtype != torch.float32 or blank_probs.dtype != torch.float32:
+        raise TypeError("nonext_probs and blank_probs must be float32")
+    if tuple(blank_probs.shape) != (T, N) or tuple(lens.shape) != (N,):
+        raise ValueError(
+            f"blank_probs must be ({T}, {N}) and lens ({N},), got "
+            f"{tuple(blank_probs.shape)} and {tuple(lens.shape)}"
+        )
+    if lens.is_floating_point() or lens.dtype == torch.bool:
+        raise TypeError(f"lens must hold integers, got {lens.dtype}")
+    if top is not None:
+        tv, ti = top
+        if tuple(tv.shape) != (T, N, M) or tuple(ti.shape) != (T, N, M):
+            raise ValueError(f"top must be two ({T}, {N}, {M}) tensors")
+        if tv.dtype != torch.float32 or ti.dtype != torch.int32:
+            raise TypeError("top must be (float32 values, int32 indices)")
+    for name, a in (("blank_probs", blank_probs), ("lens", lens)) + (
+        () if top is None else (("top values", top[0]), ("top indices", top[1]))
+    ):
+        if a.device != nonext_probs.device:
+            raise ValueError(f"{name} must be on nonext_probs' device")
+    return T, N, V, W, M
+
+
+def ctc_beam_search_reference(
+    nonext_probs: torch.Tensor,
+    blank_probs: torch.Tensor,
+    lens: torch.Tensor,
+    width: int,
+    top: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`ctc_beam_search`: the JAX package's kernel
+    simulator (``ctc_beam_search_reference`` over ``_ctc_beam_step_math``)
+    in flat form, one frame at a time, with gathers where it has one-hot
+    sums.
+
+    The one-hot sums pick one term and add zeros, so a picked ``-0.0``
+    comes out ``+0.0``; the gathers here add ``0.0`` to match. Candidates
+    rank by value descending with ``-0.0 == +0.0`` (float comparison, as
+    ``_rank_top_w`` does) and ties to the lowest flat index ``k * S + s``.
+    """
+    T, N, V, W, M = _check_beam_args(nonext_probs, blank_probs, lens, width, top)
+    if top is None:
+        top = top_m_reference(nonext_probs, M)
+    tv_all, ti_all = top[0], top[1].long()
+    dev = nonext_probs.device
+    S = M + 2
+    lens = lens.long()
+    beam = torch.arange(W, device=dev)
+    nb = torch.where(beam == 0, 0.0, _BEAM_DUMMY).expand(N, W).contiguous()
+    b = torch.where(beam == 0, 1.0, _BEAM_DUMMY).expand(N, W).contiguous()
+    y_lens = torch.zeros((N, W), dtype=torch.long, device=dev)
+    last = torch.zeros((N, W), dtype=torch.long, device=dev)
+    ip = torch.eye(W, dtype=torch.bool, device=dev).expand(N, W, W)
+    ybuf = torch.zeros((N, W, T), dtype=torch.long, device=dev)
+    t_pos = torch.arange(T, device=dev)
+    for t in range(T):
+        valid = (t < lens)[:, None]  # (N, 1)
+        tv, ti = tv_all[t], ti_all[t]  # (N, M)
+        p_last = torch.gather(nonext_probs[t], 1, last)  # (N, W)
+        tot = nb + b
+        shared_is_last = ti[:, None, :] == last[:, :, None]  # (N, W, M)
+        shared = torch.where(shared_is_last, b[..., None], tot[..., None]) * tv[:, None]
+        last_sc = torch.where(shared_is_last.any(2), -math.inf, b * p_last)
+        b_ne = tot * blank_probs[t][:, None]
+        # exact[n, k, j]: beam j is beam k extended by one token
+        exact = ((y_lens + 1)[:, :, None] == y_lens[:, None, :]) & ip
+        tm = torch.where(
+            last[:, None, :] == last[:, :, None], b[:, :, None], tot[:, :, None]
+        )
+        absorbed = torch.where(exact, tm * p_last[:, None, :], 0.0).sum(1)
+        nb_ne = nb * p_last + absorbed
+        cand_tok = torch.cat([ti[:, None].expand(N, W, M), last[..., None]], 2)
+        removed = (
+            exact[:, :, None, :] & (cand_tok[..., None] == last[:, None, None, :])
+        ).any(3)
+        ext = torch.where(removed, -math.inf, torch.cat([shared, last_sc[..., None]], 2))
+        scores = torch.cat([ext, (nb_ne + b_ne)[..., None]], 2) + 0.0  # (N, W, S)
+        val, ind = exact_top_k(scores.reshape(N, W * S), W)
+
+        slot, src = ind % S, ind // S
+        is_ne = slot == S - 1
+        last_src = torch.gather(last, 1, src)
+        ext_tok = torch.where(
+            slot < M, torch.gather(ti, 1, slot.clamp(max=M - 1)), last_src
+        )
+        q = torch.gather(y_lens, 1, src)
+        nb_n = torch.where(is_ne, torch.gather(nb_ne, 1, src) + 0.0, val)
+        b_n = torch.where(is_ne, torch.gather(b_ne, 1, src) + 0.0, 0.0)
+        lens_n = q + (~is_ne)
+        # ip2[n, k, j] = ip[n, src_k, src_j]
+        ip2 = torch.gather(
+            torch.gather(ip, 1, src[..., None].expand(N, W, W)), 2,
+            src[:, None, :].expand(N, W, W),
+        )
+        p = (lens_n - 1).clamp(min=0)
+        src_eff = torch.where(valid, src, beam[None])
+        pos_eff = torch.where(valid & ~is_ne, q, -1)
+        cols = torch.gather(ybuf, 1, src_eff[..., None].expand(N, W, T))
+        ybuf_n = torch.where(t_pos == pos_eff[..., None], ext_tok[..., None], cols)
+        # old_val[n, k, j]: new beam j's token at position p[n, k]
+        old_val = torch.gather(ybuf_n, 2, p[:, None, :].expand(N, W, W)).transpose(1, 2)
+        to_match = torch.where(
+            p[:, :, None] == q[:, None, :], ext_tok[:, None, :], old_val
+        )
+        ip_n = (
+            ip2
+            & (lens_n[:, :, None] <= lens_n[:, None, :])
+            & (is_ne[:, :, None] | (to_match == ext_tok[:, :, None]))
+        )
+        nb = torch.where(valid, nb_n, nb)
+        b = torch.where(valid, b_n, b)
+        y_lens = torch.where(valid, lens_n, y_lens)
+        last = torch.where(valid, ext_tok, last)
+        ip = torch.where(valid[..., None], ip_n, ip)
+        ybuf = ybuf_n
+    y_probs = nb + b
+    y_probs = torch.where((lens == 0)[:, None] & (beam > 0), -math.inf, y_probs)
+    return ybuf.permute(2, 0, 1), y_lens, y_probs
+
+
+def ctc_beam_search(
+    nonext_probs: torch.Tensor,
+    blank_probs: torch.Tensor,
+    lens: torch.Tensor,
+    width: int,
+    top: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole no-LM CTC prefix beam search over ``T`` frames in one
+    launch.
+
+    ``nonext_probs (T, N, V)`` and ``blank_probs (T, N)`` are float32
+    probabilities (the blank's apart), ``lens (N,)`` the valid frames of
+    each row and ``width`` the number of beams, at most ``min(32, V)``.
+    ``top`` is the exact top-``M`` (``M = min(V, 2 * width)``) of
+    ``nonext_probs`` as :func:`top_m` gives it, taken here when None.
+    Returns ``(y (T, N, W) long, y_lens (N, W) long, y_probs (N, W)
+    float32)``: paths, lengths and raw (not renormalized) masses of the
+    beams, best first; rows with ``lens == 0`` give the empty prefix at
+    probability 1 and the other beams at ``-inf``. Tokens past a beam's
+    length are unspecified.
+    """
+    T, N, V, W, M = _check_beam_args(nonext_probs, blank_probs, lens, width, top)
+    if top is None:
+        top = top_m(nonext_probs, M)
+    if not nonext_probs.is_cuda:
+        return ctc_beam_search_reference(nonext_probs, blank_probs, lens, W, top)
+    if not ctc_beam_search_fits(T, N, V, W):
+        raise ValueError(
+            f"ctc_beam_search: T={T}, width={W} needs "
+            f"{_beam_smem_bytes(T, W, M)} bytes of shared memory, more than "
+            f"{_BEAM_SMEM_LIMIT}"
+        )
+    args = [nonext_probs, blank_probs, top[0], top[1]]
+    if not all(a.is_contiguous() for a in args):
+        raise ValueError("ctc_beam_search: the inputs must be contiguous")
+    dev = nonext_probs.device
+    lens32 = lens.to(torch.int32).contiguous()
+    y = torch.empty((T, N, W), dtype=torch.long, device=dev)
+    y_lens = torch.empty((N, W), dtype=torch.long, device=dev)
+    y_probs = torch.empty((N, W), dtype=torch.float32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        err = lib.pydt_ctc_beam_search(
+            *(ctypes.c_void_p(a.data_ptr()) for a in (top[0], top[1], nonext_probs)),
+            ctypes.c_void_p(blank_probs.data_ptr()),
+            ctypes.c_void_p(lens32.data_ptr()),
+            T,
+            N,
+            V,
+            W,
+            M,
+            ctypes.c_void_p(y.data_ptr()),
+            ctypes.c_void_p(y_lens.data_ptr()),
+            ctypes.c_void_p(y_probs.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        )
+    _raise_on(err, "ctc_beam_search")
+    LAUNCHES["ctc_beam_search"] += 1
+    return y, y_lens, y_probs

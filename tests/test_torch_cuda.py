@@ -11,9 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from pydrobert_tpu_torch import config as pconfig
+from pydrobert_tpu_torch import serving as pserving
 from pydrobert_tpu_torch.models import conformer as pconf
 from pydrobert_tpu_torch.ops import img as pimg
 from pydrobert_tpu_torch.ops import kernels
+from pydrobert_tpu_torch.ops._build import load_library
 from pydrobert_tpu_torch.ops import string as pstr
 from pydrobert_tpu_torch.ops.decoding import CTCPrefixSearch
 from pydrobert_tpu_torch.ops.topk import hoisted_top_k
@@ -64,14 +67,16 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     kernels.decode_prologue(x, 8)
     kernels.top_m(x, 8)
     assert kernels.LAUNCHES == {
-        "decode_prologue": 1, "top_m": 1, "spec_augment_apply": 0, "edit_distance": 0
+        "decode_prologue": 1, "top_m": 1, "spec_augment_apply": 0, "edit_distance": 0,
+        "ctc_beam_search": 0,
     }
     with pytest.raises(ValueError):
         kernels.decode_prologue(x.transpose(0, 1), 8)  # not contiguous
     with pytest.raises(ValueError):
         kernels.decode_prologue(x, 8, torch.zeros(128))  # bias on the CPU
     assert kernels.LAUNCHES == {
-        "decode_prologue": 1, "top_m": 1, "spec_augment_apply": 0, "edit_distance": 0
+        "decode_prologue": 1, "top_m": 1, "spec_augment_apply": 0, "edit_distance": 0,
+        "ctc_beam_search": 0,
     }
 
 
@@ -208,7 +213,8 @@ def test_new_wrappers_count_launches_and_check_inputs(dev, monkeypatch):
     kernels.spec_augment_apply(x, t0, t1, w0, w1, tm, fm)
     kernels.edit_distance(*ed, 1.0, 1.0, 1.0)
     assert kernels.LAUNCHES == {
-        "decode_prologue": 0, "top_m": 0, "spec_augment_apply": 1, "edit_distance": 1
+        "decode_prologue": 0, "top_m": 0, "spec_augment_apply": 1, "edit_distance": 1,
+        "ctc_beam_search": 0,
     }
     with pytest.raises(ValueError):
         kernels.spec_augment_apply(x, t0, t1, w0, w1, tm.cpu(), fm)
@@ -322,3 +328,132 @@ def test_train_step_on_card_matches_cpu(dev):
         torch.testing.assert_close(pc[k].double(), own_c, atol=1e-6, rtol=0, msg=k)
         torch.testing.assert_close(pg[k].double(), own_g, atol=1e-6, rtol=0, msg=k)
     assert held_entries > 0
+
+
+def _beam_inputs(T, N, V, seed, scale, dev):
+    """Softmax probabilities of seeded logits (x2 diffuse: masses go
+    subnormal within some 55 frames; x32 decisive) and ragged lengths with
+    0 and 1."""
+    rng = np.random.RandomState(seed)
+    probs = torch.softmax(torch.from_numpy(rng.randn(T, N, V + 1).astype(np.float32) * scale), 2)
+    lens = torch.from_numpy(rng.randint(0, T + 1, N))
+    lens[0], lens[1] = T, 0
+    if N > 2:
+        lens[2] = 1
+    return probs[..., :V].contiguous().to(dev), probs[..., V].contiguous().to(dev), lens.to(dev)
+
+
+@pytest.mark.parametrize("scale", [2.0, 32.0])
+@pytest.mark.parametrize(
+    "shape",
+    [(64, 8, 128, 8), (32, 4, 64, 4), (12, 3, 9, 4), (500, 32, 1024, 16),
+     (40, 5, 100, 2), (60, 4, 200, 32), (2, 3, 50, 16)],
+)
+def test_beam_kernel_matches_plain_version(dev, shape, scale):
+    """Lengths and the whole path buffer exact, probabilities bit for bit:
+    both round every product and sum alone and keep subnormals."""
+    T, N, V, W = shape
+    nonext, blank, lens = _beam_inputs(T, N, V, sum(shape), scale, dev)
+    top = kernels.top_m(nonext, min(V, 2 * W))
+    got = kernels.ctc_beam_search(nonext, blank, lens, W, top)
+    exp = kernels.ctc_beam_search_reference(nonext, blank, lens, W, top)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], exp[1])
+    assert torch.equal(got[0], exp[0])
+    assert _bits_equal(got[2], exp[2])
+
+
+def test_beam_smem_layout_matches_fit_predicate(dev):
+    lib = load_library()
+    for T, W, M in ((500, 16, 32), (797, 32, 64), (2, 2, 4), (12, 4, 8), (1753, 16, 32)):
+        assert lib.pydt_ctc_beam_smem_bytes(T, W, M) == kernels._beam_smem_bytes(T, W, M)
+
+
+def test_beam_wrapper_launches_or_raises(dev, monkeypatch):
+    """A CUDA tensor launches the kernel and never reaches the plain
+    version; shapes the kernel cannot take raise before any launch."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    nonext, blank, lens = _beam_inputs(20, 4, 40, 0, 2.0, dev)
+    monkeypatch.setattr(kernels, "ctc_beam_search_reference", refuse)
+    kernels.reset_launches()
+    kernels.ctc_beam_search(nonext, blank, lens, 8)
+    assert kernels.LAUNCHES["ctc_beam_search"] == 1 and kernels.LAUNCHES["top_m"] == 1
+    big = torch.zeros((900, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.ctc_beam_search(big, big[..., 0], torch.tensor([900, 9], device=dev), 32)
+    with pytest.raises(ValueError):
+        kernels.ctc_beam_search(nonext, blank, lens.cpu(), 8)
+    assert kernels.LAUNCHES["ctc_beam_search"] == 1
+
+
+def _search_equal(got, exp, rtol):
+    """tests/test_pallas.py's _beam_outputs_equal rule."""
+    (gy, gl, gp), (ey, el, ep) = ([t.cpu() for t in o] for o in (got, exp))
+    assert torch.equal(gl, el)
+    assert torch.equal(torch.isfinite(gp), torch.isfinite(ep))
+    fin = torch.isfinite(ep)
+    torch.testing.assert_close(gp[fin], ep[fin], rtol=rtol, atol=1e-12)
+    for n in range(el.shape[0]):
+        for w in range(el.shape[1]):
+            L = int(el[n, w])
+            assert torch.equal(gy[:L, n, w], ey[:L, n, w])
+
+
+def test_beam_route_on_card(dev, monkeypatch):
+    """The forced route launches top_m and the beam kernel once each and
+    agrees with the card's own scan on raw masses (rtol 1e-4: the softmax
+    and the gathers round differently in the last ulps over T frames)."""
+    x = _logits((60, 6, 129), 5, dev)
+    lens = torch.tensor([60, 41, 30, 7, 1, 0], device=dev)
+    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "1")
+    kernels.reset_launches()
+    got = CTCPrefixSearch(8)(x, lens)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {
+        "decode_prologue": 0, "top_m": 1, "spec_augment_apply": 0, "edit_distance": 0,
+        "ctc_beam_search": 1,
+    }
+    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "0")
+    monkeypatch.setattr(pconfig, "DECODE_RENORM", False)
+    _search_equal(got, CTCPrefixSearch(8)(x, lens), rtol=1e-4)
+
+
+def test_streaming_session_on_card_matches_one_shot(dev, monkeypatch):
+    """A causal float32 model streams on the card through the beam route;
+    every search launches the kernel, and finish equals the one-shot search
+    of the full forward (lengths and tokens exact, probabilities within
+    atol 1e-5, as tests/test_serving.py holds the JAX package's)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "1")
+    cfg = pconf.ConformerConfig(
+        vocab_size=12, num_filts=8, d_model=16, num_layers=2, num_heads=2,
+        subsample_channels=4, conv_kernel=5, dropout=0.0, dtype=torch.float32,
+        attention_context=(4, 0), causal_conv=True,
+    )
+    model = pconf.ConformerCTC(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    feats = torch.randn((3, 45, 8), generator=gen)
+    lens = np.asarray([45, 35, 23])
+    with torch.no_grad():
+        logits, out_lens = model(feats.to(dev), torch.from_numpy(lens).to(dev))
+    exp = CTCPrefixSearch(4)(logits.transpose(0, 1).contiguous(), out_lens)
+    rec = pserving.StreamingCTCRecognizer(model, chunk=4, width=4, decode_pad_multiple=16)
+    sess = rec.start(3)
+    kernels.reset_launches()
+    for t, size in ((0, 3), (3, 30), (33, 12)):
+        rec.push(sess, feats[:, t : t + size], np.clip(lens - t, 0, size), partials=True)
+    got = rec.finish(sess)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ctc_beam_search"] == 4 and kernels.LAUNCHES["top_m"] == 4
+    assert got[0].device.type == "cuda" and got[0].shape[0] == 16
+    gy, gl, gp = (t.cpu() for t in got)
+    ey, el, ep = (t.cpu() for t in exp)
+    assert torch.equal(gl, el)
+    torch.testing.assert_close(gp, ep, atol=1e-5, rtol=0)
+    for n in range(3):
+        for w in range(4):
+            L = int(el[n, w])
+            assert torch.equal(gy[:L, n, w], ey[:L, n, w])

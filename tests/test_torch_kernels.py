@@ -112,7 +112,8 @@ def test_wrappers_use_plain_versions_on_cpu():
     ev, ei = kernels.top_m_reference(x, 8)
     assert torch.equal(gv, ev) and torch.equal(gi, ei)
     assert kernels.LAUNCHES == {
-        "decode_prologue": 0, "top_m": 0, "spec_augment_apply": 0, "edit_distance": 0
+        "decode_prologue": 0, "top_m": 0, "spec_augment_apply": 0, "edit_distance": 0,
+        "ctc_beam_search": 0,
     }
 
 
