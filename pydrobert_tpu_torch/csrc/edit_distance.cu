@@ -136,7 +136,7 @@ cudaError_t allow_smem(int dev, size_t bytes) {
 extern "C" {
 
 // Shared memory of one sequence, (2R + 1) 4-byte words plus R tokens; the
-// wrapper checks it against pydt_max_row_lanes() first.
+// wrapper checks it against pydt_max_warp_words() first.
 int pydt_edit_distance(const int* ref, const int* hyp, const int* ref_lens,
                        const int* hyp_lens, int R, int H, int N, float ins,
                        float del, float sub, int exclude_last, float* out,

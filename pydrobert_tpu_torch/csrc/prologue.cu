@@ -11,11 +11,18 @@
 // Bound: memory. At the headline shape (T=500, N=32, V=1024, M=32, f32) it
 // must read 500*32*1025*4 B = 65.6 MB and write 16,000 rows *
 // (2*32*4 + 3*4) B = 4.3 MB, so the least time is about 21 us at
-// 3.35 TB/s. This simple design (one warp per row, the row staged once in
-// shared memory, M sequential argmax rounds) is probably bound by its
-// selection rounds instead: each round is a 5-step shuffle reduction plus a
-// 32-element rescan of the winner's strip. Async copies, multi-row tiles
-// and a cheaper selection are left for later work.
+// 3.35 TB/s. Design: one warp per row, several rows a block and several
+// blocks an SM, so enough rows are in flight to cover the loads' latency.
+// The warp loads its row with 16-byte loads, all in flight before any is
+// used (rows are only 4-byte aligned at V + 1 = 1,025 f32 lanes, so a
+// scalar head reaches the first aligned address and a scalar tail ends
+// the row), and stages it in shared memory: with stats as f32, taking the
+// max, then one more pass makes the sum and the radix keys; without, as
+// radix keys straight away. A radix select (select.cuh) then picks the top
+// M in one to four passes over shared memory, a few hundred instructions
+// a row in place of M dependent argmax rounds. Those integer instructions
+// and the stats pass, not the memory, keep the kernel at about 3x its
+// bound.
 //
 // Plain C interface for ctypes: each entry returns cudaGetLastError() after
 // its launch, allocates nothing, and runs on the caller's stream.
@@ -31,7 +38,8 @@
 
 namespace pydt {
 
-constexpr int kMaxWarpsPerBlock = 4;
+constexpr int kMaxWarpsPerBlock = 8;
+constexpr int kChunk = 8;  // 16-byte loads a lane keeps in flight
 
 template <typename T>
 __device__ __forceinline__ float load_f32(const T* p);
@@ -47,11 +55,35 @@ __device__ __forceinline__ float load_f32<__nv_bfloat16>(
   return __bfloat162float(*p);
 }
 
+// a 16-byte vector of T as f32 (exact), element e at out[e]
+__device__ __forceinline__ void unpack(uint4 u, float* out, const float*) {
+  out[0] = __uint_as_float(u.x);
+  out[1] = __uint_as_float(u.y);
+  out[2] = __uint_as_float(u.z);
+  out[3] = __uint_as_float(u.w);
+}
+
+__device__ __forceinline__ void unpack(uint4 u, float* out,
+                                       const __nv_bfloat16*) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);  // bf16 is f32's top half
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
 // max that propagates NaN, as torch.amax does
 __device__ __forceinline__ float nan_max(float a, float b) {
   if (a != a) return a;
   if (b != b) return b;
   return a > b ? a : b;
+}
+
+// Shared words of one warp: the staged row, shifted by up to 3 words so
+// that its 16-byte vectors land aligned, then the selection's.
+__host__ __device__ inline int64_t warp_words(int lanes, int M) {
+  return (((int64_t)lanes + 3 + 3) & ~3LL) + select_words(M);
 }
 
 template <typename T, bool STATS>
@@ -60,56 +92,117 @@ __global__ void prologue_kernel(
     int V, int M, float* __restrict__ vals, int* __restrict__ idx,
     float* __restrict__ mx_out, float* __restrict__ den_out,
     float* __restrict__ blank_out) {
-  extern __shared__ int32_t smem[];
+  constexpr int VN = 16 / sizeof(T);  // elements of one 16-byte load
+  extern __shared__ __align__(16) int32_t smem[];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int64_t row = (int64_t)blockIdx.x * (blockDim.x / kWarp) + warp;
   if (row >= rows) return;  // whole warps exit together
   const int L = STATS ? V + 1 : V;  // lanes of one input row
+  const int64_t words = warp_words(L, M);
+  const int row_words = (int)(words - select_words(M));
   const T* xr = x + row * (int64_t)L;
-  float* xs = reinterpret_cast<float*>(smem + (int64_t)warp * L);
+  // h scalar lanes reach a 16-byte boundary, then nv vectors, then a tail
+  int h = (int)(((16 - ((uintptr_t)xr & 15)) & 15) / sizeof(T));
+  h = h < L ? h : L;
+  const int nv = (L - h) / VN;
+  const int tail = h + nv * VN;
+  int32_t* base = smem + warp * words;
+  float* xs = reinterpret_cast<float*>(base + ((4 - (h & 3)) & 3));
+  uint32_t* work = reinterpret_cast<uint32_t*>(base + row_words);
 
-  // pass 1: stage the row (upcast to f32, exact) and take its max
+  // pass 1: stage the row (upcast to f32, exact) and take its max, or
+  // without stats stage its keys
   float m = -INFINITY;
-  for (int j = lane; j < L; j += kWarp) {
+  uint32_t lane_max = 0;  // of this lane's keys
+  for (int q0 = 0; q0 < nv; q0 += kChunk * kWarp) {
+    uint4 u[kChunk];
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const int q = q0 + c * kWarp + lane;
+      if (q < nv) u[c] = __ldg(reinterpret_cast<const uint4*>(xr + h) + q);
+    }
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const int q = q0 + c * kWarp + lane;
+      if (q < nv) {
+        float f[VN];
+        unpack(u[c], f, xr);
+#pragma unroll
+        for (int e = 0; e < VN; e += 4) {
+          if (STATS) {
+            m = nan_max(nan_max(m, nan_max(f[e], f[e + 1])),
+                        nan_max(f[e + 2], f[e + 3]));
+            *reinterpret_cast<float4*>(xs + h + q * VN + e) =
+                make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
+          } else {  // no stats: the keys go straight in
+            const uint4 k =
+                make_uint4(radix_key(f[e]), radix_key(f[e + 1]),
+                           radix_key(f[e + 2]), radix_key(f[e + 3]));
+            lane_max = max(max(lane_max, max(k.x, k.y)), max(k.z, k.w));
+            *reinterpret_cast<uint4*>(xs + h + q * VN + e) = k;
+          }
+        }
+      }
+    }
+  }
+  uint32_t* keys = reinterpret_cast<uint32_t*>(xs);
+  for (int j = lane; j < h; j += kWarp) {
     const float v = load_f32<T>(xr + j);
-    xs[j] = v;
-    if (STATS) m = nan_max(m, v);
+    if (STATS) {
+      xs[j] = v;
+      m = nan_max(m, v);
+    } else {
+      keys[j] = radix_key(v);
+      lane_max = max(lane_max, keys[j]);
+    }
+  }
+  if (lane < L - tail) {
+    const float v = load_f32<T>(xr + tail + lane);
+    if (STATS) {
+      xs[tail + lane] = v;
+      m = nan_max(m, v);
+    } else {
+      keys[tail + lane] = radix_key(v);
+      lane_max = max(lane_max, keys[tail + lane]);
+    }
   }
   __syncwarp();
 
-  // pass 2: sum of expf(x - max) and the blank; the row's f32 values turn
-  // into total-order keys in place (lane V, the blank, is not a candidate)
-  int32_t* keys = reinterpret_cast<int32_t*>(xs);
+  // pass 2, with stats: sum of expf(x - max) and the blank; the row's f32
+  // values turn into radix keys in place (lane V, the blank, is not a
+  // candidate)
   if (STATS) {
 #pragma unroll
     for (int off = kWarp / 2; off > 0; off >>= 1)
-      m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+      m = nan_max(m, __shfl_xor_sync(kFull, m, off));
     float s = 0.f;
-    for (int j = lane; j < L; j += kWarp) s += expf(xs[j] - m);
+    for (int j = lane; j < L; j += kWarp) {
+      const float v = xs[j];
+      s += expf(v - m);
+      if (j < V) {
+        keys[j] = radix_key(bias != nullptr ? v + bias[j] : v);
+        lane_max = max(lane_max, keys[j]);
+      }
+    }
 #pragma unroll
     for (int off = kWarp / 2; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
+      s += __shfl_xor_sync(kFull, s, off);
     if (lane == 0) {
       mx_out[row] = m;
       den_out[row] = s;
       blank_out[row] = xs[V];
     }
+    __syncwarp();
   }
-  __syncwarp();
-  for (int j = lane; j < V; j += kWarp) {
-    const float g = (STATS && bias != nullptr) ? xs[j] + bias[j] : xs[j];
-    keys[j] = total_order_key(g);
-  }
-  __syncwarp();
 
-  select_top_m(keys, V, M, lane, vals + row * (int64_t)M,
+  select_top_m(keys, V, M, lane, lane_max, work, vals + row * (int64_t)M,
                idx + row * (int64_t)M);
 }
 
-// Warps per block that fit the row in shared memory, or 0 if none does.
-inline int warps_per_block(int lanes, int64_t smem_limit) {
-  const int64_t per_warp = (int64_t)lanes * 4;
+// Warps per block whose shared memory fits, or 0 if none does.
+inline int warps_per_block(int lanes, int M, int64_t smem_limit) {
+  const int64_t per_warp = warp_words(lanes, M) * 4;
   int w = kMaxWarpsPerBlock;
   while (w > 0 && per_warp * w > smem_limit) --w;
   return w;
@@ -155,9 +248,9 @@ int launch(const void* x, const float* bias, int64_t rows, int V, int M,
   if (err != cudaSuccess) return (int)err;
   const int64_t limit = smem_limit_bytes(dev);
   const int lanes = STATS ? V + 1 : V;
-  const int w = warps_per_block(lanes, limit);
+  const int w = warps_per_block(lanes, M, limit);
   if (w == 0) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = (size_t)lanes * 4 * w;
+  const size_t smem = (size_t)warp_words(lanes, M) * 4 * w;
   err = allow_smem<T, STATS>(dev, limit);
   if (err != cudaSuccess) return (int)err;
   if (rows == 0) return (int)cudaSuccess;
@@ -197,8 +290,13 @@ int pydt_top_m(const void* x, int dtype, int64_t rows, int V, int M,
   return (int)cudaErrorInvalidValue;
 }
 
-// Largest row (in lanes) one warp can stage, for the wrappers' checks.
-int pydt_max_row_lanes() {
+// Shared words one warp takes for a row of `lanes` and a top-M, and the
+// most one warp can take, for the wrappers' checks.
+int64_t pydt_prologue_warp_words(int lanes, int M) {
+  return pydt::warp_words(lanes, M);
+}
+
+int pydt_max_warp_words() {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   return (int)(pydt::smem_limit_bytes(dev) / 4);

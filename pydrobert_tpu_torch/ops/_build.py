@@ -76,14 +76,16 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p, p, i32, i32, i32, f32, f32, f32, i32, p, p,
     ]
     lib.pydt_edit_distance.restype = i32
+    lib.pydt_prologue_warp_words.argtypes = [i32, i32]
+    lib.pydt_prologue_warp_words.restype = i64
+    lib.pydt_max_warp_words.argtypes = []
+    lib.pydt_max_warp_words.restype = i32
     lib.pydt_ctc_beam_search.argtypes = [
         p, p, p, p, p, i32, i32, i32, i32, i32, p, p, p, p,
     ]
     lib.pydt_ctc_beam_search.restype = i32
     lib.pydt_ctc_beam_smem_bytes.argtypes = [i32, i32, i32]
     lib.pydt_ctc_beam_smem_bytes.restype = i64
-    lib.pydt_max_row_lanes.argtypes = []
-    lib.pydt_max_row_lanes.restype = i32
     return lib
 
 

@@ -49,7 +49,7 @@ LAUNCHES = {
 """Kernel launches per wrapper since the last :func:`reset_launches`."""
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_LANES = {}  # device index -> longest row one warp can stage
+_MAX_WORDS = {}  # device index -> shared words one warp can take
 
 
 def reset_launches() -> None:
@@ -69,22 +69,29 @@ def _check_input(x: torch.Tensor, name: str) -> None:
         raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
 
 
-def _launch_args(x: torch.Tensor, lanes: int, name: str):
-    """The library, checked for a CUDA tensor the kernel can take."""
+def _launch_args(x: torch.Tensor, words: int, name: str):
+    """The library, checked for a CUDA tensor the kernel can take: ``words``
+    of shared memory for one warp."""
     if not x.is_contiguous():
         raise ValueError(f"{name}: the input must be contiguous")
     lib = load_library()
     dev = x.device.index
-    if dev not in _MAX_LANES:
+    if dev not in _MAX_WORDS:
         with torch.cuda.device(dev):
-            _MAX_LANES[dev] = lib.pydt_max_row_lanes()
-    max_lanes = _MAX_LANES[dev]
-    if lanes > max_lanes:
+            _MAX_WORDS[dev] = lib.pydt_max_warp_words()
+    if words > _MAX_WORDS[dev]:
         raise ValueError(
-            f"{name}: a row of {lanes} lanes does not fit in shared memory "
-            f"({max_lanes} lanes at most)"
+            f"{name}: a row needs {words} words of shared memory, more than "
+            f"the {_MAX_WORDS[dev]} one warp can take"
         )
     return lib
+
+
+def _prologue_args(x: torch.Tensor, lanes: int, m: int, name: str):
+    """:func:`_launch_args` for ``csrc/prologue.cu``, whose warp takes the
+    shared words ``pydt_prologue_warp_words`` gives for a row of ``lanes``
+    and a top-``m``."""
+    return _launch_args(x, load_library().pydt_prologue_warp_words(lanes, m), name)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -130,7 +137,7 @@ def decode_prologue(
         raise ValueError(f"g_bias must have shape ({V},), got {g_bias.shape}")
     if not logits.is_cuda:
         return decode_prologue_reference(logits, m, g_bias)
-    lib = _launch_args(logits, Vp1, "decode_prologue")
+    lib = _prologue_args(logits, Vp1, m, "decode_prologue")
     if g_bias is not None:
         if (
             g_bias.dtype != torch.float32
@@ -183,7 +190,7 @@ def top_m(x: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     m = _check_m(m, V)
     if not x.is_cuda:
         return top_m_reference(x, m)
-    lib = _launch_args(x, V, "top_m")
+    lib = _prologue_args(x, V, m, "top_m")
     lead = x.shape[:-1]
     dev = x.device
     vals = torch.empty(lead + (m,), dtype=torch.float32, device=dev)
@@ -430,9 +437,13 @@ _BEAM_SMEM_LIMIT = 232_448  # an H100 block's opt-in shared memory
 
 def _beam_smem_bytes(T: int, W: int, M: int) -> int:
     """Shared memory of one block of ``csrc/ctc_beam.cu`` (its layout, in
-    4-byte words: two (W, T) path buffers, four (W, W) matrices, the
-    (W, M + 2) candidate grid, three M-rows, 20 W-rows and 4 scalars)."""
-    return 4 * (2 * W * T + 4 * W * W + W * (M + 2) + 3 * M + 20 * W + 4)
+    4-byte words: two (W, T) path buffers, T rounded up to a multiple of 4,
+    the (W, pad) top-W keys, ``pad`` being W rounded up to a power of two of
+    at least 8, three (W, W) matrices, three M-rows, 14 W-rows and the
+    blank)."""
+    pad = max(8, 1 << max(int(W) - 1, 0).bit_length())
+    stride = -(-int(T) // 4) * 4
+    return 4 * (2 * W * stride + 3 * W * W + W * pad + 3 * M + 14 * W + 1)
 
 
 def ctc_beam_search_fits(T: int, N: int, V: int, width: int) -> bool:

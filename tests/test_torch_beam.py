@@ -19,9 +19,11 @@ from pydrobert_tpu_torch.ops import decoding as pdec
 from pydrobert_tpu_torch.ops import kernels
 
 
-def _probs(T, N, V, seed, scale):
+def _probs(T, N, V, seed, scale, ties=False):
     rng = np.random.RandomState(seed)
     logits = (rng.randn(T, N, V + 1) * scale).astype(np.float32)
+    if ties:  # quarter steps: many probabilities, and so masses, tie
+        logits = np.round(logits * 4) / 4
     probs = np.asarray(jax.nn.softmax(jnp.asarray(logits), 2))
     lens = rng.randint(0, T + 1, (N,)).astype(np.int32)
     lens[0], lens[1] = T, 0
@@ -75,6 +77,21 @@ def test_beam_reference_matches_jax_simulator(shape):
     assert got[2][1, 0] == 1.0 and bool(torch.isinf(got[2][1, 1:]).all())
 
 
+@pytest.mark.parametrize("shape", [(64, 8, 128, 8), (32, 4, 64, 4)])
+def test_beam_reference_matches_jax_simulator_on_ties(shape):
+    """x3 logits on quarter steps (normal masses, as above): candidates tie
+    within and across beams, and both rank them to the lowest flat index."""
+    T, N, V, W = shape
+    _, nonext, blank, lens = _probs(T, N, V, sum(shape) + 1, 3.0, ties=True)
+    exp = jax.jit(jax_beam_reference, static_argnums=3)(
+        jnp.asarray(nonext), jnp.asarray(blank), jnp.asarray(lens), W
+    )
+    got = kernels.ctc_beam_search_reference(
+        torch.from_numpy(nonext), torch.from_numpy(blank), torch.from_numpy(lens), W
+    )
+    _beam_outputs_equal([t.numpy() for t in got], exp, rtol=1e-6)
+
+
 def test_beam_wrapper_takes_plain_version_on_cpu():
     _, nonext, blank, lens = _probs(20, 5, 40, 1, 2.0)
     args = (torch.from_numpy(nonext), torch.from_numpy(blank), torch.from_numpy(lens))
@@ -104,9 +121,9 @@ def test_beam_wrapper_checks_arguments():
 
 
 def test_beam_fits_follows_shared_memory():
-    """Two (W, T) int32 path buffers dominate: at W=16 up to 1,753 frames
-    fit a block's 232,448 bytes, at W=32 up to 797."""
-    for W, T_max in ((16, 1753), (32, 797)):
+    """Two (W, T) int32 path buffers dominate: at W=16 up to 1,772 frames
+    fit a block's 232,448 bytes, at W=32 up to 832."""
+    for W, T_max in ((16, 1772), (32, 832)):
         assert kernels.ctc_beam_search_fits(T_max, 32, 1024, W)
         assert not kernels.ctc_beam_search_fits(T_max + 1, 32, 1024, W)
     assert kernels.ctc_beam_search_fits(500, 32, 1024, 16)
@@ -185,5 +202,5 @@ def test_beam_route_gate_shapes(T, V, W, monkeypatch):
 def test_beam_route_gate_needs_shared_memory(monkeypatch):
     monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "1")
     search = pdec.CTCPrefixSearch(32)
-    assert search._takes_beam_route(797, 4, 1024)
-    assert not search._takes_beam_route(798, 4, 1024)
+    assert search._takes_beam_route(832, 4, 1024)
+    assert not search._takes_beam_route(833, 4, 1024)

@@ -61,6 +61,46 @@ def test_kernels_match_plain_versions(dev, dtype, shape, m):
     assert _bits_equal(gv, ev) and torch.equal(gi, ei)
 
 
+def _signed_zero_rows(shape, seed):
+    """Rows of -0.0 and +0.0 mixed, with a few nonzero logits among them."""
+    rng = np.random.RandomState(seed)
+    z = rng.rand(*shape)
+    x = np.where(z < 0.45, np.float32(-0.0), np.float32(0.0))
+    return np.where(z > 0.97, rng.randn(*shape).astype(np.float32), x).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["signed_zeros", "all_tie"])
+def test_kernels_match_plain_versions_on_degenerate_rows(dev, dtype, kind):
+    """Rows of mixed signed zeros (+0.0 ranks above -0.0) and rows whose
+    keys all tie (lowest indices first): bit-exact values and indices."""
+    shape, m = (20, 8, 1025), 32
+    if kind == "signed_zeros":
+        x = _signed_zero_rows(shape, 5)
+    else:
+        x = np.full(shape, 0.75, np.float32)
+        x[::2] = -1.5  # every other frame ties on another value
+    x = torch.from_numpy(x).to(dev, dtype)
+    tv, ti, mx, den, blank = kernels.decode_prologue(x, m)
+    ev, ei, emx, eden, eblank = kernels.decode_prologue_reference(x, m)
+    assert _bits_equal(tv, ev) and torch.equal(ti, ei)
+    assert torch.equal(mx, emx) and torch.equal(blank, eblank)
+    torch.testing.assert_close(den, eden, rtol=2e-6, atol=0)
+    gv, gi = kernels.top_m(x, m)
+    ev, ei = kernels.top_m_reference(x, m)
+    assert _bits_equal(gv, ev) and torch.equal(gi, ei)
+
+
+@pytest.mark.parametrize("m", [64, 33, 1024])
+def test_top_m_kernel_above_a_warp(dev, m):
+    """M past 32 sorts the winners in shared memory: M=64 on V=1,024 rows
+    (the beam route's top-M at width 32), an M one past a warp, and M=V."""
+    x = _logits((12, 4, 1024), m, dev, ties=True)
+    gv, gi = kernels.top_m(x, m)
+    ev, ei = kernels.top_m_reference(x, m)
+    assert _bits_equal(gv, ev) and torch.equal(gi, ei)
+
+
 def test_wrappers_count_launches_and_check_inputs(dev):
     x = _logits((6, 4, 129), 1, dev)
     kernels.reset_launches()
@@ -330,12 +370,16 @@ def test_train_step_on_card_matches_cpu(dev):
     assert held_entries > 0
 
 
-def _beam_inputs(T, N, V, seed, scale, dev):
+def _beam_inputs(T, N, V, seed, scale, dev, ties=False):
     """Softmax probabilities of seeded logits (x2 diffuse: masses go
-    subnormal within some 55 frames; x32 decisive) and ragged lengths with
-    0 and 1."""
+    subnormal within some 55 frames; x32 decisive; with ``ties`` rounded to
+    quarter steps, so that many probabilities and masses tie) and ragged
+    lengths with 0 and 1."""
     rng = np.random.RandomState(seed)
-    probs = torch.softmax(torch.from_numpy(rng.randn(T, N, V + 1).astype(np.float32) * scale), 2)
+    logits = rng.randn(T, N, V + 1).astype(np.float32) * scale
+    if ties:
+        logits = np.round(logits * 4) / 4
+    probs = torch.softmax(torch.from_numpy(logits), 2)
     lens = torch.from_numpy(rng.randint(0, T + 1, N))
     lens[0], lens[1] = T, 0
     if N > 2:
@@ -347,7 +391,8 @@ def _beam_inputs(T, N, V, seed, scale, dev):
 @pytest.mark.parametrize(
     "shape",
     [(64, 8, 128, 8), (32, 4, 64, 4), (12, 3, 9, 4), (500, 32, 1024, 16),
-     (40, 5, 100, 2), (60, 4, 200, 32), (2, 3, 50, 16)],
+     (40, 5, 100, 2), (60, 4, 200, 32), (2, 3, 50, 16), (1771, 2, 64, 16),
+     (831, 2, 80, 32)],
 )
 def test_beam_kernel_matches_plain_version(dev, shape, scale):
     """Lengths and the whole path buffer exact, probabilities bit for bit:
@@ -363,9 +408,26 @@ def test_beam_kernel_matches_plain_version(dev, shape, scale):
     assert _bits_equal(got[2], exp[2])
 
 
+@pytest.mark.parametrize(
+    "shape", [(500, 32, 1024, 16), (500, 32, 1024, 8), (64, 8, 128, 8), (40, 5, 30, 3)]
+)
+def test_beam_kernel_matches_plain_version_on_ties(dev, shape):
+    """Logits on quarter steps (x3) make many candidates tie within and
+    across beams: ranks must follow the lowest flat index, bit for bit."""
+    T, N, V, W = shape
+    nonext, blank, lens = _beam_inputs(T, N, V, sum(shape), 3.0, dev, ties=True)
+    top = kernels.top_m(nonext, min(V, 2 * W))
+    got = kernels.ctc_beam_search(nonext, blank, lens, W, top)
+    exp = kernels.ctc_beam_search_reference(nonext, blank, lens, W, top)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], exp[1])
+    assert torch.equal(got[0], exp[0])
+    assert _bits_equal(got[2], exp[2])
+
+
 def test_beam_smem_layout_matches_fit_predicate(dev):
     lib = load_library()
-    for T, W, M in ((500, 16, 32), (797, 32, 64), (2, 2, 4), (12, 4, 8), (1753, 16, 32)):
+    for T, W, M in ((500, 16, 32), (832, 32, 64), (2, 2, 4), (12, 4, 8), (1772, 16, 32), (9, 3, 6)):
         assert lib.pydt_ctc_beam_smem_bytes(T, W, M) == kernels._beam_smem_bytes(T, W, M)
 
 

@@ -79,6 +79,53 @@ def test_top_m_reference_matches_pallas_interpret(dtype, shape, m):
     np.testing.assert_array_equal(gi.numpy(), np.asarray(ei))
 
 
+def _degenerate(shape, kind, seed):
+    """Rows of mixed -0.0 and +0.0 with a few logits among them, or rows
+    whose keys all tie (on every other frame at another value)."""
+    if kind == "signed_zeros":
+        return _logits(shape, seed, signed_zeros=True) * (
+            np.random.RandomState(seed + 1).rand(*shape) < 0.1
+        )
+    x = np.full(shape, 0.75, np.float32)
+    x[::2] = -1.5
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["signed_zeros", "all_tie"])
+def test_top_m_reference_matches_pallas_interpret_on_degenerate_rows(dtype, kind):
+    """+0.0 ranks above -0.0 and tied keys go lowest index first, as
+    ``jax.lax.top_k`` orders them."""
+    x = _degenerate((6, 4, 300), kind, 17)
+    ev, ei = top_m_pallas(jnp.asarray(x).astype(dtype), 32, interpret=True)
+    gv, gi = kernels.top_m_reference(torch.from_numpy(x).to(getattr(torch, dtype)), 32)
+    np.testing.assert_array_equal(
+        gv.numpy().view(np.uint32), np.asarray(ev).view(np.uint32)
+    )
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(ei))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["signed_zeros", "all_tie"])
+def test_decode_prologue_reference_matches_pallas_interpret_on_degenerate_rows(
+    dtype, kind
+):
+    """With a bias, as the Pallas kernel always adds one: signed zeros then
+    rank by the bias alone, tied rows keep their ties."""
+    shape, M = (6, 4, 301), 32
+    x = _degenerate(shape, kind, 23)
+    g = np.random.RandomState(9).randn(shape[-1] - 1).astype(np.float32)
+    if kind == "all_tie":
+        g = np.zeros_like(g)  # +0.0: every key of a row still ties
+    exp = decode_prologue_pallas(
+        jnp.asarray(x).astype(dtype), M, jnp.asarray(g), interpret=True
+    )
+    got = kernels.decode_prologue_reference(
+        torch.from_numpy(x).to(getattr(torch, dtype)), M, torch.from_numpy(g)
+    )
+    _check_prologue([t.numpy() for t in got], exp)
+
+
 @pytest.mark.parametrize("bias", [False, True])
 def test_decode_prologue_matches_xla_path_with_signed_zeros(bias):
     """With -0.0 in the logits the reference is the JAX XLA prologue (it
