@@ -76,6 +76,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p, p, i32, i32, i32, f32, f32, f32, i32, p, p,
     ]
     lib.pydt_edit_distance.restype = i32
+    lib.pydt_edit_distance_warp_words.argtypes = [i32]
+    lib.pydt_edit_distance_warp_words.restype = i32
+    lib.pydt_edit_distance_strip.argtypes = [i32]
+    lib.pydt_edit_distance_strip.restype = i32
     lib.pydt_prologue_warp_words.argtypes = [i32, i32]
     lib.pydt_prologue_warp_words.restype = i64
     lib.pydt_max_warp_words.argtypes = []

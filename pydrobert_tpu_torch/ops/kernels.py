@@ -408,8 +408,12 @@ def edit_distance(
     args = [
         a.to(torch.int32).contiguous() for a in (ref, hyp, ref_lens, hyp_lens)
     ]
-    # one sequence's shared memory: R tokens and two rows of R + 1
-    lib = _launch_args(args[0], 3 * R + 2, "edit_distance")
+    # one sequence's shared memory: none while a lane's strip of the row
+    # fits its registers, else the strips, their reference tokens and the
+    # hypothesis tokens' ring
+    lib = _launch_args(
+        args[0], load_library().pydt_edit_distance_warp_words(R), "edit_distance"
+    )
     out = torch.empty((N,), dtype=torch.float32, device=ref.device)
     with torch.cuda.device(ref.device):
         err = lib.pydt_edit_distance(

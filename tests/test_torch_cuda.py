@@ -157,46 +157,85 @@ def _same_bits(a, b):
     return bool(((a.view(view) == b.view(view)) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
-def _sa_inputs(dev, dtype, N=6, T=200, F=80, seed=0):
+def _fmask(kind, N, F, gen):
+    """Frequency masks that start and end inside a 16-byte vector ("span":
+    columns 2-6), cover whole vectors of 4 and of 8 ("whole": columns 8-23),
+    or are no span at all ("scattered": random columns with 16-23 whole)."""
+    cols = torch.arange(F)
+    if kind == "span":
+        return ((cols >= 2) & (cols < 7)).expand(N, F).clone()
+    if kind == "whole":
+        return ((cols >= 8) & (cols < 24)).expand(N, F).clone()
+    m = torch.rand((N, F), generator=gen) < 0.3
+    m[:, 16:24] = True
+    return m
+
+
+def _sa_inputs(dev, dtype, N=6, T=200, F=80, seed=0, fmask="span"):
     """Ragged lengths, a time warp clamped at the borders (t0 == t1 there),
-    masks that cross each length, and inf/NaN in masked columns."""
+    masks that cross each length (the drawn frequency mask or'd with
+    ``_fmask(fmask)``), and inf/NaN in every masked column."""
     gen = torch.Generator().manual_seed(seed)
     feats = torch.randn((N, T, F), generator=gen)
-    feats[:, :, 3] = float("inf")
-    feats[:, :, 4] = float("nan")
-    feats[:, :, 5] = -float("inf")
-    lens = torch.randint(T // 2, T + 1, (N,), generator=gen)
+    lens = torch.randint((T + 1) // 2, T + 1, (N,), generator=gen)
     lens[0] = T
     params = list(pimg.spec_augment_draw_parameters(
         gen, feats, 20.0, 0.0, 30, 10, 0.5, 4, 0.2, 2, lengths=lens
     ))
-    params[6][:, 0] = 2  # one frequency mask always over columns 2..6
-    params[7][:, 0] = 5
     grid = pimg.warp_1d_grid(params[0], params[1], lens, T)
     t0, t1, w0, w1 = pimg._axis_lerp_weights(grid, T)
     tmask = pimg._span_mask(params[4], params[5], T)
-    fmask = pimg._span_mask(params[6], params[7], F)
+    fmask = pimg._span_mask(params[6], params[7], F) | _fmask(fmask, N, F, gen)
+    special = torch.tensor([float("inf"), float("nan"), -float("inf")])
+    poison = special[torch.arange(F) % 3].expand(N, T, F)
+    feats = torch.where(fmask[:, None, :], poison, feats)
     args = [a.to(dev) for a in (feats.to(dtype), t0, t1, w0, w1, tmask, fmask)]
     return args, params, lens
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("warp", [True, False])
-@pytest.mark.parametrize("F", [80, 13])
-def test_spec_augment_kernel_matches_plain_version(dev, dtype, warp, F):
-    """Bit-exact (NaN equal to NaN), masked outputs +0.0, with vector and
-    scalar rows (F=13 takes 1 element a thread)."""
-    (x, t0, t1, w0, w1, tm, fm), _, _ = _sa_inputs(dev, dtype, F=F)
-    if not warp:
-        t0 = t1 = w0 = w1 = None
-    got = kernels.spec_augment_apply(x, t0, t1, w0, w1, tm, fm)
-    exp = kernels.spec_augment_apply_reference(x, t0, t1, w0, w1, tm, fm)
+def _sa_check(got, exp, tm, fm):
+    """Bit-exact (NaN equal to NaN) and every masked output +0.0."""
     torch.cuda.synchronize()
     assert _same_bits(got, exp)
     masked = tm[:, :, None] | fm[:, None, :]
     zeros = got[masked.expand_as(got)].float()
     assert bool((zeros == 0).all()) and not bool(torch.signbit(zeros).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("warp", [True, False])
+@pytest.mark.parametrize("F", [80, 13, 8, 7])
+@pytest.mark.parametrize("fmask", ["span", "whole", "scattered"])
+def test_spec_augment_kernel_matches_plain_version(dev, dtype, warp, F, fmask):
+    """Bit-exact, masked outputs +0.0, with vector rows (F=80 and F=8: 4
+    floats or 8 bfloat16 a vector) and scalar rows (F=13, F=7), masks cut
+    inside a vector, over whole vectors and scattered."""
+    (x, t0, t1, w0, w1, tm, fm), _, _ = _sa_inputs(dev, dtype, F=F, fmask=fmask)
+    if not warp:
+        t0 = t1 = w0 = w1 = None
+    got = kernels.spec_augment_apply(x, t0, t1, w0, w1, tm, fm)
+    exp = kernels.spec_augment_apply_reference(x, t0, t1, w0, w1, tm, fm)
+    _sa_check(got, exp, tm, fm)
     assert t0 is None or bool((t0 == t1).any())  # a border case was exercised
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,T,F", [(1, 1, 80), (1, 1, 8), (3, 1, 16), (1, 300, 80), (40, 7, 80)])
+def test_spec_augment_kernel_small_and_odd_shapes(dev, dtype, N, T, F):
+    """One frame, one utterance, and many utterances of a few frames."""
+    (x, t0, t1, w0, w1, tm, fm), _, _ = _sa_inputs(
+        dev, dtype, N=N, T=T, F=F, seed=N + T, fmask="scattered"
+    )
+    for warp in (True, False):
+        args = (t0, t1, w0, w1) if warp else (None,) * 4
+        got = kernels.spec_augment_apply(x, *args, tm, fm)
+        exp = kernels.spec_augment_apply_reference(x, *args, tm, fm)
+        _sa_check(got, exp, tm, fm)
+        for masks in ((None, fm), (tm, None), (None, None)):
+            got = kernels.spec_augment_apply(x, *args, *masks)
+            exp = kernels.spec_augment_apply_reference(x, *args, *masks)
+            torch.cuda.synchronize()
+            assert _same_bits(got, exp)
 
 
 def test_spec_augment_kernel_other_dtypes_and_views(dev):
@@ -211,6 +250,13 @@ def test_spec_augment_kernel_other_dtypes_and_views(dev):
         got = kernels.spec_augment_apply(feats, t0, t1, w0, w1, tm, fm)
         exp = kernels.spec_augment_apply_reference(feats, t0, t1, w0, w1, tm, fm)
         assert got.dtype == feats.dtype and _same_bits(got, exp)
+    # a frequency mask that starts one byte past its allocation's alignment
+    fm_shifted = torch.zeros(fm.numel() + 1, dtype=torch.bool, device=dev)[1:].view(fm.shape)
+    fm_shifted.copy_(fm)
+    assert fm_shifted.is_contiguous() and fm_shifted.data_ptr() % 4
+    got = kernels.spec_augment_apply(x, t0, t1, w0, w1, tm, fm_shifted)
+    exp = kernels.spec_augment_apply_reference(x, t0, t1, w0, w1, tm, fm)
+    _sa_check(got, exp, tm, fm)
 
 
 def _ed_inputs(dev, R, H, N, seed, V=6):
@@ -224,19 +270,65 @@ def _ed_inputs(dev, R, H, N, seed, V=6):
 
 
 @pytest.mark.parametrize(
-    "costs", [(1.0, 1.0, 1.0), (3.0, 3.0, 4.0), (0.5, 1.25, 2.0)]
+    "costs",
+    [(1.0, 1.0, 1.0), (3.0, 3.0, 4.0), (0.5, 1.25, 2.0),
+     (1.0, 1.0, float("inf")), (float("nan"), 1.0, 1.0)],
 )
 @pytest.mark.parametrize(
-    "shape", [(40, 500, 32), (100, 250, 32), (1, 1, 3), (31, 33, 5), (64, 7, 70)]
+    "shape",
+    [(40, 500, 32), (100, 250, 32), (1, 1, 3), (31, 33, 5), (64, 7, 70), (0, 9, 7),
+     (31, 500, 32), (32, 250, 9), (63, 100, 16), (64, 500, 8), (300, 120, 5),
+     (1000, 500, 8), (1024, 60, 4)],
 )
 @pytest.mark.parametrize("exclude_last", [False, True])
 def test_edit_distance_kernel_matches_plain_version(dev, costs, shape, exclude_last):
-    """Bit-exact, at the scoring shapes and at row sizes around a warp's."""
+    """Bit-exact (or NaN in both), at the scoring shapes and at every strip
+    width's edges: 1, 2, 4, 16 and 32 columns a lane in registers, 33 in
+    shared memory. sub=inf (a match costs inf * 0 = NaN) and a NaN cost
+    take the kernels' NaN-aware instantiations."""
     args = _ed_inputs(dev, *shape, seed=sum(shape))
     got = kernels.edit_distance(*args, *costs, exclude_last=exclude_last)
     exp = kernels.edit_distance_reference(*args, *costs, exclude_last=exclude_last)
     torch.cuda.synchronize()
+    assert _same_bits(got, exp)
+    if not all(np.isfinite(costs)) and shape[0] > 1:
+        assert bool(torch.isnan(got).any())  # the NaN path ran
+
+
+def test_edit_distance_strip_widths(dev):
+    """The kernel library's columns a lane, at every strip bucket's edges:
+    test_torch_string.py's table, against which the CPU model of the
+    kernel's order is held."""
+    lib = load_library()
+    widths = [
+        (0, 1), (31, 1), (32, 2), (63, 2), (64, 4), (127, 4), (128, 8), (255, 8),
+        (256, 16), (511, 16), (512, 32), (1023, 32), (1024, 33), (2000, 63),
+    ]
+    assert [(R, lib.pydt_edit_distance_strip(R)) for R, _ in widths] == widths
+
+
+def test_edit_distance_kernel_at_the_largest_reference(dev):
+    """The largest R whose strips fit one block's shared memory runs
+    bit-exact; one more raises before any launch."""
+    lib = load_library()
+    words = lib.pydt_max_warp_words()
+    R = 1023
+    while lib.pydt_edit_distance_warp_words(R + 32) <= words:
+        R += 32
+    assert lib.pydt_edit_distance_warp_words(R) <= words
+    assert lib.pydt_edit_distance_warp_words(R + 1) > words
+    assert R >= 19370  # every reference the row-in-shared-memory layout took
+    args = _ed_inputs(dev, R, 40, 3, seed=5)
+    args[2][2] = R
+    got = kernels.edit_distance(*args, 0.5, 1.25, 2.0)
+    exp = kernels.edit_distance_reference(*args, 0.5, 1.25, 2.0)
+    torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+    big = _ed_inputs(dev, R + 1, 4, 2, seed=6)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.edit_distance(*big, 1.0, 1.0, 1.0)
+    assert kernels.LAUNCHES["edit_distance"] == 0
 
 
 def test_new_wrappers_count_launches_and_check_inputs(dev, monkeypatch):

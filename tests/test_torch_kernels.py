@@ -37,11 +37,11 @@ def _check_prologue(got, exp):
     """top values/indices bit-exact, max and blank exact, den rtol 2e-6."""
     gv, gi, gmx, gden, gblank = (np.asarray(g) for g in got)
     ev, ei, emx, eden, eblank = (np.asarray(e) for e in exp)
-    np.testing.assert_array_equal(gv.view(np.uint32), ev.view(np.uint32))
-    np.testing.assert_array_equal(gi, ei)
-    np.testing.assert_array_equal(gmx, emx)
-    np.testing.assert_array_equal(gblank, eblank)
-    np.testing.assert_allclose(gden, eden, rtol=2e-6)
+    np.testing.assert_array_equal(gv.view(np.uint32), ev.view(np.uint32), err_msg="top values")
+    np.testing.assert_array_equal(gi, ei, err_msg="top indices")
+    np.testing.assert_array_equal(gmx, emx, err_msg="sm_max")
+    np.testing.assert_array_equal(gblank, eblank, err_msg="blank logit")
+    np.testing.assert_allclose(gden, eden, rtol=2e-6, err_msg="sm_den")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

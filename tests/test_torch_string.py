@@ -161,3 +161,158 @@ def test_arrays_go_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         pstr.edit_distance(ref, hyp)
+
+
+# The edit-distance kernel's wavefront order (csrc/edit_distance.cu),
+# evaluated here in numpy float32, one rounding per operation as the kernel
+# does, so that its indexing is held before any card runs it.
+
+_WARP = 32
+
+
+def _strip_of(R):
+    """Columns per lane: ceil((R + 1) / 32), rounded up to a power of two
+    while at most 32 (registers), else as it is (shared memory)."""
+    k = (R + _WARP) // _WARP
+    return k if k > 32 else 1 << (k - 1).bit_length()
+
+
+# (R, columns a lane): every strip bucket's edges; test_torch_cuda.py holds
+# the kernel library's own strip width to the same table
+STRIP_WIDTHS = [
+    (0, 1), (31, 1), (32, 2), (63, 2), (64, 4), (127, 4), (128, 8), (255, 8),
+    (256, 16), (511, 16), (512, 32), (1023, 32), (1024, 33), (2000, 63),
+]
+
+
+@pytest.mark.parametrize("R,K", STRIP_WIDTHS)
+def test_strip_widths(R, K):
+    assert _strip_of(R) == K
+
+
+def _nan_min(a, b):
+    """torch.minimum's choice: NaN wins, else the smaller, the first on
+    ties."""
+    return np.where(np.isnan(a), a, np.where(np.isnan(b), b, np.where(b < a, b, a)))
+
+
+def _wavefront_edit_distance(ref, hyp, ref_lens, hyp_lens, ins, dl, sub, exclude_last):
+    """The DP as the kernel's warp runs it: lane l owns columns [l*K,
+    l*K + K) and at step s makes row t = s - l of its strip, with token
+    t - 1, from the left lane's running minimum of row t and last column of
+    row t - 1, both handed over one step earlier. Register strips take
+    their prefix minima, then one minimum from the left; shared memory
+    strips fold the running minimum cell by cell."""
+    f32 = np.float32
+    ins, dl, sub = f32(ins), f32(dl), f32(sub)
+    R, N = ref.shape
+    H = hyp.shape[0]
+    off = 0 if exclude_last else 1
+    K = _strip_of(R)
+    lanes = (R + K) // K
+    hl = hyp_lens.astype(np.int64)
+    steps = np.minimum(H + off - 1, hl + off - 1)
+    col = np.clip(ref_lens, 0, R)
+    lane = np.arange(_WARP)[:, None]  # (32, 1)
+    i = lane * K + np.arange(K)[None, :]  # (32, K) column of each cell
+    idel = i.astype(f32) * dl
+    rtok = np.zeros((_WARP, K, N), np.int64)
+    has = (i >= 1) & (i <= R)
+    rtok[has] = ref[i[has] - 1]
+    row = np.broadcast_to(idel[..., None], (_WARP, K, N)).astype(f32)
+    run_out = np.full((_WARP, N), np.inf, f32)
+    last_out = row[:, K - 1].copy()
+    diag = np.zeros((_WARP, N), f32)
+
+    def from_left(a):  # __shfl_up_sync(.., 1): lane 0 keeps its own
+        return np.concatenate([a[:1], a[:-1]], 0)
+
+    total = int(steps.max()) + lanes - 1 if N and steps.max() > 0 else 0
+    for s in range(1, total + 1):
+        run_in, last_in = from_left(run_out), from_left(last_out)
+        run_in = np.where(lane == 0, f32(np.inf), run_in)
+        t = s - lane  # (32, 1)
+        tok = hyp[np.clip(t[:, 0] - 1, 0, max(H - 1, 0))] if H else np.zeros((_WARP, N), np.int64)
+        active = (t >= 1) & (t <= steps[None]) & (lane < lanes)  # (32, N)
+        ins_t = ins * (hl[None] >= t).astype(f32)  # (32, N)
+        us = []
+        for j in range(K):
+            v = row[:, j] + ins_t
+            left = diag if j == 0 else row[:, j - 1]
+            s_ = left + sub * (rtok[:, j] != tok).astype(f32)
+            v = np.where(i[:, j, None] > 0, _nan_min(v, s_), v)
+            us.append(v - idel[:, j, None])
+        new = np.empty_like(row)
+        if K <= 32:
+            pre = us[0]
+            for j in range(K):
+                pre = us[0] if j == 0 else _nan_min(pre, us[j])
+                new[:, j] = _nan_min(run_in, pre) + idel[:, j, None]
+            out_run = _nan_min(run_in, pre)
+        else:
+            run = run_in
+            for j in range(K):
+                run = _nan_min(run, us[j])
+                new[:, j] = run + idel[:, j, None]
+            out_run = run
+        row = np.where(active[:, None], new, row)
+        run_out = np.where(active, out_run, run_out)
+        last_out = np.where(active, new[:, K - 1], last_out)
+        diag = last_in
+    n = np.arange(N)
+    done = row[col // K, col % K, n]
+    return np.where(steps > 0, done, col.astype(f32) * dl).astype(f32)
+
+
+# sub=inf makes a match cost inf * 0 = NaN; a NaN cost spreads everywhere
+WAVE_COSTS = COSTS + [(0.5, 1.25, 2.0), (0.3, 0.7, 0.1), (1.0, 1.0, np.inf), (np.nan, 1.0, 1.0)]
+
+
+def _same_or_nan(got, exp):
+    """Equal bit patterns, or NaN in both."""
+    same = (got.view(np.uint32) == exp.view(np.uint32)) | (np.isnan(got) & np.isnan(exp))
+    assert same.all(), (got, exp)
+
+
+def _wave_case(R, H, N=11):
+    ref, hyp = _tokens(R * 5 + H + 1, R, H, N)
+    rng = np.random.RandomState(R + H)
+    ref_lens = rng.randint(0, R + 1, (N,)).astype(np.int32)
+    hyp_lens = rng.randint(0, H + 1, (N,)).astype(np.int32)
+    ref_lens[:3] = 0, R, R + 3  # empty, full, past the end
+    hyp_lens[:3] = H, 0, H
+    return ref, hyp, ref_lens, hyp_lens
+
+
+@pytest.mark.parametrize("exclude_last", [False, True])
+@pytest.mark.parametrize("costs", WAVE_COSTS)
+@pytest.mark.parametrize("H", [0, 1, 250])
+@pytest.mark.parametrize("R", [0, 1, 30, 31, 32, 63, 64, 100, 300, 1030])
+def test_wavefront_order_matches_reference(R, H, costs, exclude_last):
+    """The kernel's order, bit for bit (or NaN in both), against the plain
+    version at strip widths 1, 2, 4, 16 and 33 (shared memory) and their
+    edges, ragged lengths with 0 and a reference length past R, finite,
+    infinite and NaN costs."""
+    args = _wave_case(R, H)
+    with np.errstate(invalid="ignore"):
+        got = _wavefront_edit_distance(*args, *costs, exclude_last)
+    exp = kernels.edit_distance_reference(
+        *(torch.from_numpy(a) for a in args), *costs, exclude_last=exclude_last
+    )
+    _same_or_nan(got, exp.numpy())
+
+
+@pytest.mark.parametrize("exclude_last", [False, True])
+@pytest.mark.parametrize("R", [31, 64])
+def test_wavefront_order_matches_pallas_interpret(R, exclude_last):
+    """Against the Pallas kernel too, at two strip widths; it reads no row
+    past R, so every reference length stays within it."""
+    costs = (0.5, 1.25, 2.0)
+    args = _wave_case(R, 250, N=9)
+    args[2][2] = R
+    got = _wavefront_edit_distance(*args, *costs, exclude_last)
+    exp = edit_distance_kernel(
+        *(jnp.asarray(a) for a in args), *costs, exclude_last=exclude_last,
+        interpret=True,
+    )
+    np.testing.assert_array_equal(got.view(np.uint32), np.asarray(exp).view(np.uint32))
