@@ -17,8 +17,9 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    cut inside a vector at both ends, inf/NaN only where masked outputs
    read them and every masked output +0.0; the edit distance exact at
    R=40, H=500, R=100, H=250, R=31, H=500 and R=1000, H=500 (N=32) for
-   three sets of finite costs, sub=inf and a NaN cost (bits equal, or NaN
-   in both) and both values of exclude_last; the whole-loop beam
+   three sets of finite costs, sub=inf (every distance finite: a match
+   adds 0) and a NaN cost (bits equal, or NaN in both) and both values of
+   exclude_last; the whole-loop beam
    search at (T=500, N=32, V=1024, W=16) with diffuse, decisive and
    tie-heavy logits, at W=2, W=8 and W=32 and at T=2, ragged lengths with
    0 and 1, lengths, the whole path buffer and probabilities bit-exact;
@@ -928,10 +929,13 @@ def phase_new_kernels(kernels, img):
                 exp = kernels.edit_distance_reference(*args, exclude_last=exclude_last)
                 torch.cuda.synchronize()
                 ok = same_bits(got, exp)
+                # a match adds 0 at sub=inf, so those distances stay finite
+                finite_ok = not math.isinf(costs[2]) or bool(torch.isfinite(got).all())
                 emit({"phase": "kernels", "kernel": "edit_distance", "shape": [R, H, N],
                       "costs": [str(c) for c in costs], "exclude_last": exclude_last,
-                      "exact": ok, "nan_outputs": int(torch.isnan(got).sum())})
-                if not ok:
+                      "exact": ok, "nan_outputs": int(torch.isnan(got).sum()),
+                      "finite_at_sub_inf": finite_ok})
+                if not (ok and finite_ok):
                     raise AssertionError(f"edit_distance parity failed at {(R, H, N, costs)}")
                 worst["edit_distance"] = max(worst["edit_distance"], max_abs_err([(got, exp)]))
     return worst

@@ -9,7 +9,7 @@
 // min(H, hyp_len) + off - 1, off = 0 with exclude_last, else 1) does
 //
 //   up[i]  = row[i] + ins * (hyp_len >= t)
-//   new[0] = up[0],  new[i] = min(up[i], row[i-1] + sub * (ref[i-1] != tok))
+//   new[0] = up[0], new[i] = min(up[i], row[i-1] + (ref[i-1] != tok ? sub : 0))
 //   row[i] = cummin_j<=i (new[j] - j*del) + i*del      (the deletions)
 //
 // and the distance is row[min(ref_len, R)].
@@ -151,10 +151,11 @@ __global__ void __launch_bounds__(kWarp, 1)
     row[j] = idel[j];
     rtok[j] = (i >= 1 && i <= R) ? ref[(int64_t)(i - 1) * N + n] : 0;
   }
-  // ins * (hyp_len >= t) and sub * (ref != tok), rounded as the plain
-  // version rounds them; hyp_len >= t holds at every row a lane makes
+  // ins * (hyp_len >= t), rounded as the plain version rounds it (hyp_len
+  // >= t holds at every row a lane makes); a match adds exactly 0, also
+  // at sub = inf, as XLA's select does (not sub * 0, which is NaN there)
   const float ins_t = __fmul_rn(ins, 1.f);
-  const float sub_ne = __fmul_rn(sub, 1.f), sub_eq = __fmul_rn(sub, 0.f);
+  const float sub_ne = sub, sub_eq = 0.f;
   const int lanes = (R + K) / K;  // strips holding a column, ceil((R+1)/K)
   TokenRing toks;
   toks.init(ring_s, hyp, N, n, q.steps, lane);
@@ -228,7 +229,7 @@ __global__ void __launch_bounds__(kWarp, 1)
         (i >= 1 && i <= R) ? ref[(int64_t)(i - 1) * N + n] : 0;
   }
   const float ins_t = __fmul_rn(ins, 1.f);
-  const float sub_ne = __fmul_rn(sub, 1.f), sub_eq = __fmul_rn(sub, 0.f);
+  const float sub_ne = sub, sub_eq = 0.f;
   const int lanes = (R + k) / k;
   TokenRing toks;
   toks.init(rtok + k * kWarp, hyp, N, n, q.steps, lane);

@@ -29,6 +29,12 @@
 // where F allows it. A frame that is masked in time reads nothing; the
 // masked columns of a kept frame are still read.
 //
+// A one-wave design, persistent blocks that stage each tile's parameters
+// and the source rows its kept frames read in shared memory by
+// cp.async.bulk on mbarriers, was bit-exact but slower at the training
+// shape in both dtypes: it pays the two round trips in every block before
+// the first store, where this grid's later waves hide them (PERF.md).
+//
 // Plain C interface for ctypes: the entry returns cudaGetLastError() after
 // its launch, allocates nothing, and runs on the caller's stream.
 

@@ -79,11 +79,17 @@ def ctc_greedy_search(
             f"[-{V},{V-1}], but got {blank_idx})"
         )
     blank_idx = (blank_idx + V) % V
-    if logits.dtype in (torch.bfloat16, torch.float16):
+    if logits.dtype == torch.bfloat16:
+        # only bfloat16 is upcast; float16 stays float16, as in the JAX
+        # package, whose float16 rounding can tie tokens that float32 parts
         logits = logits.float()
     if not batch_first:
         logits = logits.transpose(0, 1)
-    if not is_probs:
+    if not is_probs and logits.dtype == torch.float16:
+        # jax.nn.log_softmax's steps, each rounded to float16
+        shifted = logits - logits.amax(2, keepdim=True)
+        logits = shifted - torch.log(torch.exp(shifted).sum(2, keepdim=True))
+    elif not is_probs:
         logits = torch.log_softmax(logits, 2)
     max_, argmax = logits.amax(2), logits.argmax(2)  # first max on ties
     keep = argmax != blank_idx
@@ -297,6 +303,8 @@ class CTCPrefixSearch(torch.nn.Module):
     y_lens (N, W), y_probs (N, W))`` with beams in descending order of
     probability and dummy beams (when fewer than ``W`` prefixes exist) at
     probability ``-inf``. Rows with ``lens == 0`` return the empty prefix.
+    float32 and bfloat16 logits are read as they are; any other float
+    dtype is upcast to float32 first, as the JAX package's prologue does.
 
     With no LM, ``T >= 2``, ``1 < W <= min(32, V)``, a shape that
     :func:`~pydrobert_tpu_torch.ops.kernels.ctc_beam_search_fits` takes, and
@@ -339,6 +347,9 @@ class CTCPrefixSearch(torch.nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         if logits.dim() != 3:
             raise RuntimeError("logits must be 3 dimensional")
+        if logits.dtype not in (torch.float32, torch.bfloat16):
+            # the JAX package's prologue upcasts them (decoding.py:103)
+            logits = logits.float()
         T, N, Vp1 = logits.shape
         V = Vp1 - 1
         W = self.width

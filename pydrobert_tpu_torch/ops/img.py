@@ -308,7 +308,9 @@ def spec_augment_apply_parameters(
     lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Apply drawn SpecAugment parameters: warp, then mask. Disabled steps
-    may be None or empty. The result has ``feats``' shape and dtype."""
+    may be None or empty. The result has ``feats``' shape and dtype, except
+    that a warp of feats other than bfloat16 returns float32, as the JAX
+    package's XLA route does."""
     _check_spec_augment_input(feats, lengths)
     N, T, F = feats.shape
     dev = feats.device

@@ -215,6 +215,12 @@ def _sa_io_dtype(feats: torch.Tensor) -> torch.dtype:
     return torch.bfloat16 if feats.dtype == torch.bfloat16 else torch.float32
 
 
+def _sa_out_dtype(feats: torch.Tensor, warp: bool) -> torch.dtype:
+    """The JAX package's XLA route: a time warp's lerp is float32 and only
+    bfloat16 is cast back (``img.py:452-457``); masks keep the dtype."""
+    return _sa_io_dtype(feats) if warp else feats.dtype
+
+
 def _check_sa_args(feats, t0, t1, w0, w1, tmask, fmask):
     if feats.dim() != 3:
         raise ValueError("feats must be (N, T, F)")
@@ -265,7 +271,7 @@ def spec_augment_apply_reference(
         mask = fmask[:, None, :] if mask is None else mask | fmask[:, None, :]
     if mask is not None:
         out = torch.where(mask, 0.0, out)
-    return out.to(io).to(feats.dtype)
+    return out.to(io).to(_sa_out_dtype(feats, t0 is not None))
 
 
 def spec_augment_apply(
@@ -285,8 +291,9 @@ def spec_augment_apply(
     ``[0, T)`` and ``w0, w1 (N, T)`` float weights, all four None for no
     warp; ``tmask (N, T)`` and ``fmask (N, F)`` are bool or None. The
     arithmetic is float32 on bfloat16 or float32 I/O (bfloat16 feats stay
-    bfloat16, anything else goes through float32), and the result has
-    ``feats``' dtype.
+    bfloat16, anything else goes through float32). The result has
+    ``feats``' dtype, but float32 for feats other than bfloat16 when there
+    is a warp, as the JAX package's XLA route returns.
     """
     _check_sa_args(feats, t0, t1, w0, w1, tmask, fmask)
     if not feats.is_cuda:
@@ -327,7 +334,7 @@ def spec_augment_apply(
         )
     _raise_on(err, "spec_augment_apply")
     LAUNCHES["spec_augment_apply"] += 1
-    return out.to(feats.dtype)
+    return out.to(_sa_out_dtype(feats, t0 is not None))
 
 
 def _check_ed_args(ref, hyp, ref_lens, hyp_lens):
@@ -373,9 +380,10 @@ def edit_distance_reference(
     for t in range(1, H + off):
         not_done = (t - off) < hyp_lens
         ins_mask = (hyp_lens >= t).float()
-        neq = (ref != hyp[t - 1][None]).float()
         up = row + float(ins_cost) * ins_mask[None]
-        sub = row[:-1] + float(sub_cost) * neq
+        # a match adds exactly 0, also at sub_cost=inf: XLA compiles the
+        # JAX package's sub_cost * neq as a select
+        sub = row[:-1] + torch.where(ref != hyp[t - 1][None], float(sub_cost), 0.0)
         new = torch.cat([up[:1], torch.minimum(up[1:], sub)], 0)
         new = torch.cummin(new - shift, 0).values + shift
         row = torch.where(not_done[None], new, row)

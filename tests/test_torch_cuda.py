@@ -239,9 +239,10 @@ def test_spec_augment_kernel_small_and_odd_shapes(dev, dtype, N, T, F):
 
 
 def test_spec_augment_kernel_other_dtypes_and_views(dev):
-    """float16 goes through float32 I/O and comes back float16; a
-    contiguous tensor that starts 4 bytes past an alignment takes the
-    scalar path; both match the plain version."""
+    """float16 goes through float32 I/O and comes back float32 with a
+    warp (the JAX package's XLA route), float16 without; a contiguous
+    tensor that starts 4 bytes past an alignment takes the direct-load
+    path; all match the plain version."""
     (x, t0, t1, w0, w1, tm, fm), _, _ = _sa_inputs(dev, torch.float32, F=80)
     shifted = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
     shifted.copy_(x)
@@ -249,7 +250,10 @@ def test_spec_augment_kernel_other_dtypes_and_views(dev):
     for feats in (x.half(), shifted):
         got = kernels.spec_augment_apply(feats, t0, t1, w0, w1, tm, fm)
         exp = kernels.spec_augment_apply_reference(feats, t0, t1, w0, w1, tm, fm)
-        assert got.dtype == feats.dtype and _same_bits(got, exp)
+        assert got.dtype == torch.float32 and _same_bits(got, exp)
+    got = kernels.spec_augment_apply(x.half(), None, None, None, None, tm, fm)
+    exp = kernels.spec_augment_apply_reference(x.half(), None, None, None, None, tm, fm)
+    assert got.dtype == torch.float16 and _same_bits(got, exp)
     # a frequency mask that starts one byte past its allocation's alignment
     fm_shifted = torch.zeros(fm.numel() + 1, dtype=torch.bool, device=dev)[1:].view(fm.shape)
     fm_shifted.copy_(fm)
@@ -257,6 +261,72 @@ def test_spec_augment_kernel_other_dtypes_and_views(dev):
     got = kernels.spec_augment_apply(x, t0, t1, w0, w1, tm, fm_shifted)
     exp = kernels.spec_augment_apply_reference(x, t0, t1, w0, w1, tm, fm)
     _sa_check(got, exp, tm, fm)
+
+
+SA_DRAW = (80.0, 0.0, 100, 27, 0.04, 20, 0.04, 2)  # the training cell's draw
+
+
+def _sa_draw(dev, N, T, F, seed):
+    """The training cell's SpecAugment draw on ragged lengths, inf and NaN
+    in the masked columns."""
+    gen = torch.Generator().manual_seed(seed)
+    feats = torch.randn((N, T, F), generator=gen)
+    lens = torch.randint(max(T // 2, 1), T + 1, (N,), generator=gen)
+    lens[0] = T
+    p = list(pimg.spec_augment_draw_parameters(gen, feats, *SA_DRAW, lengths=lens))
+    t0, t1, w0, w1 = pimg._axis_lerp_weights(pimg.warp_1d_grid(p[0], p[1], lens, T), T)
+    tm, fm = pimg._span_mask(p[4], p[5], T), pimg._span_mask(p[6], p[7], F)
+    special = torch.tensor([float("inf"), float("nan"), -float("inf")])
+    feats = torch.where(fm[:, None, :], special[torch.arange(F) % 3], feats)
+    return [a.to(dev) for a in (feats, t0, t1, w0, w1, tm, fm)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "N,T,F",
+    [(32, 1000, 80), (1, 1000, 80), (5, 113, 80), (40, 7, 80), (3, 300, 83), (2, 90, 640)],
+)
+def test_spec_augment_kernel_at_the_training_draw(dev, dtype, N, T, F):
+    """Bit-exact at the training cell's draw, inf and NaN in the masked
+    columns: the training shape, one utterance, T not a multiple of 16,
+    many short utterances, rows not whole 16-byte vectors (F=83) and wide
+    rows (F=640)."""
+    x, *args = _sa_draw(dev, N, T, F, seed=N + T + F)
+    x = x.to(dtype)
+    exp = kernels.spec_augment_apply_reference(x, *args)
+    _sa_check(kernels.spec_augment_apply(x, *args), exp, args[4], args[5])
+
+
+def test_spec_augment_kernel_on_masked_spans_and_extreme_warps(dev):
+    """A long time-masked span, a map stretched near the start, a scrambled
+    map and a shrinking one, in both dtypes; and parameters in views that
+    start 4 bytes past an alignment."""
+    N, T, F = 3, 400, 80
+    x, *args = _sa_draw(dev, N, T, F, seed=9)
+    t = torch.arange(T, dtype=torch.float32)
+    src = torch.stack([
+        torch.where(t < 8, t * 20, 160 + (t - 8) * (T - 161) / (T - 9)),
+        torch.rand(T, generator=torch.Generator().manual_seed(0)) * (T - 1),
+        t * 0.25,
+    ])
+    t0 = src.floor().int().clamp(0, T - 1)
+    t1 = (t0 + 1).clamp(max=T - 1)
+    w1 = src - src.floor()
+    args[:4] = [a.to(dev) for a in (t0, t1, 1 - w1, w1)]
+    args[4][:, 64:160] = True
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        exp = kernels.spec_augment_apply_reference(xd, *args)
+        _sa_check(kernels.spec_augment_apply(xd, *args), exp, args[4], args[5])
+
+    def shifted(a):
+        b = torch.empty(a.numel() + 4, dtype=a.dtype, device=dev)[1:a.numel() + 1]
+        return b.view(a.shape).copy_(a)
+
+    moved = [shifted(a) for a in args[:5]] + [args[5]]
+    assert all(a.data_ptr() % 16 for a in moved[:5])
+    exp = kernels.spec_augment_apply_reference(x, *args)
+    _sa_check(kernels.spec_augment_apply(x, *moved), exp, args[4], args[5])
 
 
 def _ed_inputs(dev, R, H, N, seed, V=6):
@@ -284,15 +354,18 @@ def _ed_inputs(dev, R, H, N, seed, V=6):
 def test_edit_distance_kernel_matches_plain_version(dev, costs, shape, exclude_last):
     """Bit-exact (or NaN in both), at the scoring shapes and at every strip
     width's edges: 1, 2, 4, 16 and 32 columns a lane in registers, 33 in
-    shared memory. sub=inf (a match costs inf * 0 = NaN) and a NaN cost
-    take the kernels' NaN-aware instantiations."""
+    shared memory. sub=inf and a NaN cost take the kernels' NaN-aware
+    instantiations; with sub=inf a match adds 0, so every distance stays
+    finite."""
     args = _ed_inputs(dev, *shape, seed=sum(shape))
     got = kernels.edit_distance(*args, *costs, exclude_last=exclude_last)
     exp = kernels.edit_distance_reference(*args, *costs, exclude_last=exclude_last)
     torch.cuda.synchronize()
     assert _same_bits(got, exp)
-    if not all(np.isfinite(costs)) and shape[0] > 1:
+    if np.isnan(costs).any() and shape[0] > 1:
         assert bool(torch.isnan(got).any())  # the NaN path ran
+    if np.isposinf(costs[2]):
+        assert bool(torch.isfinite(got).all())  # a match adds 0, not inf * 0
 
 
 def test_edit_distance_strip_widths(dev):

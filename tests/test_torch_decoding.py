@@ -156,3 +156,46 @@ def test_ctc_greedy_search(batch_first, is_probs, with_lens):
         mod(torch.from_numpy(x), None if lens is None else torch.from_numpy(lens))[1],
         gp,
     )
+
+
+def test_ctc_greedy_search_float16_matches_jax():
+    """float16 logits stay float16 through the log-softmax, as in the JAX
+    package: at this input float16 rounding ties tokens that float32 keeps
+    apart (89 of 1,600 frames pick another token in float32), and JAX
+    takes the first. Tokens, lengths and the float16 ``max_`` exact."""
+    x = (np.random.RandomState(0).randn(200, 8, 1025) * 0.05).astype(np.float16)
+    em, ep, el = jdec.ctc_greedy_search(jnp.asarray(x))
+    gm, gp, gl = pdec.ctc_greedy_search(torch.from_numpy(x))
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(ep))
+    np.testing.assert_array_equal(gl.numpy(), np.asarray(el))
+    assert gm.dtype == torch.float16 and em.dtype == jnp.float16
+    np.testing.assert_array_equal(gm.numpy(), np.asarray(em))
+    # the float32 route picks other tokens here, so the case can tell them apart
+    f32 = pdec.ctc_greedy_search(torch.from_numpy(x).float())[1]
+    assert not torch.equal(f32, gp)
+
+
+def test_ctc_prefix_search_float16_matches_jax():
+    """float16 logits are upcast to float32 before the prologue, as the
+    JAX package's XLA prologue does, and decode to JAX's hypotheses."""
+    rng = np.random.RandomState(0)
+    logits = rng.randn(20, 2, 65).astype(np.float16)
+    lens = np.array([20, 14], np.int32)
+    exp = jax.jit(jdec.CTCPrefixSearch(4))(jnp.asarray(logits), jnp.asarray(lens))
+    got = pdec.CTCPrefixSearch(4)(torch.from_numpy(logits), torch.from_numpy(lens))
+    _compare_search(*got, *exp)
+    assert got[2].dtype == torch.float32
+
+
+def test_ctc_greedy_search_bfloat16_matches_jax():
+    """bfloat16 logits are upcast to float32 before the log-softmax, as in
+    the JAX package: the same tokens and lengths, and a float32 ``max_``
+    within float32 rounding of JAX's."""
+    x = (np.random.RandomState(1).randn(200, 8, 1025) * 0.05).astype(np.float32)
+    xb = torch.from_numpy(x).bfloat16()
+    em, ep, el = jdec.ctc_greedy_search(jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16))
+    gm, gp, gl = pdec.ctc_greedy_search(xb)
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(ep))
+    np.testing.assert_array_equal(gl.numpy(), np.asarray(el))
+    assert gm.dtype == torch.float32 and em.dtype == jnp.float32
+    np.testing.assert_allclose(gm.numpy(), np.asarray(em), rtol=1e-5, atol=1e-6)

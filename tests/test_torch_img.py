@@ -128,13 +128,15 @@ def test_polyharmonic_spline_matches_jax(full_matrix, order, reg):
     assert np.abs(got.numpy() - truth).max() <= 2 * np.abs(exp - truth).max() + 1e-6
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_spec_augment_apply_parameters_matches_jax(dtype):
     """Same JAX-drawn parameters through the JAX public path (its XLA route
-    on the CPU) and the port. float32 within atol 1e-4: the warp grid
-    differs by an ulp or two (test above), which moves a lerp by at most
-    that times T/2 frames times the step between neighbouring frames;
-    bfloat16 within the JAX package's own 2e-2."""
+    on the CPU) and the port. float32 and float16 within atol 1e-4: the
+    warp grid differs by an ulp or two (test above), which moves a lerp by
+    at most that times T/2 frames times the step between neighbouring
+    frames; bfloat16 within the JAX package's own 2e-2. A time warp of
+    float16 feats returns float32, as JAX's XLA route does (only bfloat16
+    is cast back); masks alone keep float16, bit-exact."""
     feats = _feats(0)
     params = _jax_params(feats, LENS)
     jf = jnp.asarray(feats).astype(dtype)
@@ -143,11 +145,21 @@ def test_spec_augment_apply_parameters_matches_jax(dtype):
         torch.from_numpy(feats).to(getattr(torch, dtype)), _torch(params),
         lengths=torch.from_numpy(LENS),
     )
-    assert got.dtype == getattr(torch, dtype) and got.shape == (N, T, F)
+    out_dtype = "float32" if dtype == "float16" else dtype
+    assert str(exp.dtype) == out_dtype
+    assert got.dtype == getattr(torch, out_dtype) and got.shape == (N, T, F)
     tol = 2e-2 if dtype == "bfloat16" else 1e-4
     np.testing.assert_allclose(
         got.float().numpy(), np.asarray(exp.astype(jnp.float32)), atol=tol, rtol=tol
     )
+    params[0] = params[1] = None  # masks only
+    exp = jimg.spec_augment_apply_parameters(jf, params, lengths=jnp.asarray(LENS))
+    got = pimg.spec_augment_apply_parameters(
+        torch.from_numpy(feats).to(getattr(torch, dtype)), _torch(params),
+        lengths=torch.from_numpy(LENS),
+    )
+    assert str(exp.dtype) == dtype and got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(exp.astype(jnp.float32)))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -41,6 +41,30 @@ def test_edit_distance_matches_jax(costs, shape):
         _same(got, exp)
 
 
+@pytest.mark.parametrize(
+    "costs,expect",
+    [((1.0, 1.0, np.inf), "finite"), ((np.inf, 1.0, 1.0), "inf"), ((1.0, np.inf, 1.0), "nan")],
+)
+def test_edit_distance_infinite_cost_matches_jax(costs, expect):
+    """An infinite cost, through the public path and the kernel's plain
+    version: with sub=inf a match still adds 0 (XLA compiles the JAX
+    package's sub_cost * neq as a select), so distances stay finite sums of
+    insertions and deletions; ins=inf gives inf and del=inf NaN in both."""
+    ref, hyp = _tokens(3, 12, 15, 16)
+    kw = dict(ins_cost=costs[0], del_cost=costs[1], sub_cost=costs[2])
+    exp = np.asarray(jstr.edit_distance(ref, hyp, **kw))
+    got = pstr.edit_distance(torch.from_numpy(ref), torch.from_numpy(hyp), **kw).numpy()
+    lens = (torch.full((16,), 12, dtype=torch.int32), torch.full((16,), 15, dtype=torch.int32))
+    plain = kernels.edit_distance_reference(
+        torch.from_numpy(ref), torch.from_numpy(hyp), *lens, *costs
+    ).numpy()
+    check = {"finite": np.isfinite, "inf": np.isposinf, "nan": np.isnan}[expect]
+    assert check(exp).all()
+    for a in (got, plain):
+        assert check(a).all()
+        _same_or_nan(a, exp)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("scale", [1.0, 2.5])
 def test_error_rate_matches_jax(shape, scale):
@@ -239,7 +263,7 @@ def _wavefront_edit_distance(ref, hyp, ref_lens, hyp_lens, ins, dl, sub, exclude
         for j in range(K):
             v = row[:, j] + ins_t
             left = diag if j == 0 else row[:, j - 1]
-            s_ = left + sub * (rtok[:, j] != tok).astype(f32)
+            s_ = left + np.where(rtok[:, j] != tok, sub, f32(0))
             v = np.where(i[:, j, None] > 0, _nan_min(v, s_), v)
             us.append(v - idel[:, j, None])
         new = np.empty_like(row)
@@ -264,7 +288,8 @@ def _wavefront_edit_distance(ref, hyp, ref_lens, hyp_lens, ins, dl, sub, exclude
     return np.where(steps > 0, done, col.astype(f32) * dl).astype(f32)
 
 
-# sub=inf makes a match cost inf * 0 = NaN; a NaN cost spreads everywhere
+# sub=inf leaves a match costing 0 and a substitution inf; a NaN cost
+# spreads everywhere
 WAVE_COSTS = COSTS + [(0.5, 1.25, 2.0), (0.3, 0.7, 0.1), (1.0, 1.0, np.inf), (np.nan, 1.0, 1.0)]
 
 
