@@ -9,7 +9,9 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    (one nvcc per source, all started together) and ptxas' report;
 2. kernels vs their plain PyTorch versions on the card: the decode prologue
    and the top-M at the headline shape and edge cases (ties, infinities,
-   mixed signed zeros, rows whose keys all tie, M=64 on V=1024), bit-exact
+   mixed signed zeros, rows whose keys all tie, M=64 on V=1024, and the
+   ``lm_bias`` cases: M=55 with bench.py's 3-gram LM's ``0.5 * uni`` as the
+   bias, float32 and bfloat16), bit-exact
    top values and indices, exact max and blank, ``sm_den`` within rtol
    2e-6;
    SpecAugment's apply bit-exact at (32, 1000, 80) in float32 and bfloat16,
@@ -44,15 +46,32 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    partials every 16th push, the beam route forced; push latency, finish
    latency and launches; a float32 copy's finish on 4 streams equals the
    one-shot search of its full forward;
+4d. LM serving (BASELINE config #3): bench.py's random 3-gram over V=1024,
+   built with the port's own code, fused at beta 0.5 into the serve
+   phase's three requests through ``ctc_recognizer(model, 16, beta=0.5,
+   lm=lm)``: the sparse route, one ``decode_prologue`` launch a request at
+   M = 2 * 16 + 23 = 55 with the LM's unigram bias; every utterance's
+   hypotheses and lengths equal to a CPU decode of the same logits with a
+   CPU copy of the LM (probabilities within rtol 1e-4), the prologue on the
+   served logits bit-exact; encoder, decode and request wall times in
+   turn, launches a frame, and the prologue's own time at M=55 beside its
+   bound;
+4e. probing tables: ``tests/fixtures/big5.arpa.gz`` (5-gram, V=10,240)
+   parsed with the port's ``parse_arpa_lm`` and built on the card, whose
+   orders 2-4 have only hash-probing tables: full log-probs and sequence
+   scores for 64 histories equal to a CPU copy's; the decode route that
+   LM takes (its 3,038 corrections are more than the sparse route's 128);
 5. training: the same model with dropout 0.1 takes 5 steps of SpecAugment,
    forward, CTC loss, backward and AdamW at bench_train_mfu's shape (B=32,
    T=1000, U=100), which must launch the SpecAugment kernel 5 times and
    end below the first loss; a float32, dropout-0, 2-layer copy of its
    trained weights, and the seeded weights of that configuration, each
    take one step on the card (twice), one on the CPU and one in float64 on
-   the CPU, the witness of the true gradient: the card's gradients must lie
-   within 1e-3 of each tensor's largest from the witness's (and from the
-   CPU's at the seeded weights), its loss and updates agree; then the step's
+   the CPU, the witness of the true gradient: each of the card's gradients
+   must lie no farther from the witness's than 2.5 times the CPU's float32
+   gradient does (or 1e-3, if more), over the tensor's largest witness
+   entry (and within 1e-3 of the CPU's at the seeded weights), its loss
+   and updates agree; then the step's
    wall time (median of 7), its FLOPs by ``FlopCounterMode`` and the
    SpecAugment kernel's times;
 6. scoring: the greedy decode of the first served request's logits (32
@@ -269,12 +288,17 @@ def check_prologue(kernels, x, m, bias):
     }
 
 
-def phase_kernels(kernels):
+def phase_kernels(kernels, lm_bias, lm_m):
+    """The prologue and the top-M against their plain versions. ``lm_bias``
+    is the bench LM's ``0.5 * uni`` and ``lm_m`` its sparse route's M: the
+    ``lm_bias`` cases take them at the headline shape, the others a random
+    bias where they take one."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for with_bias in (False, True):
             cases.append(("headline", HEADLINE, M_HEADLINE, dtype, with_bias, "normal"))
+        cases.append(("lm_bias", HEADLINE, lm_m, dtype, "lm", "normal"))
     cases += [
         ("serving_b256", (500, 256, 1025), M_HEADLINE, torch.float32, False, "normal"),
         ("v1000", (500, 32, 1001), M_HEADLINE, torch.float32, True, "normal"),
@@ -290,15 +314,18 @@ def phase_kernels(kernels):
     worst = {"decode_prologue": 0.0, "top_m": 0.0}
     for name, shape, m, dtype, with_bias, kind in cases:
         x = make_logits(shape, gen, kind, dtype)
-        bias = (
-            torch.randn(shape[-1] - 1, generator=gen, device="cuda")
-            if with_bias else None
-        )
+        if with_bias == "lm":
+            bias = lm_bias
+        elif with_bias:
+            bias = torch.randn(shape[-1] - 1, generator=gen, device="cuda")
+        else:
+            bias = None
         res = check_prologue(kernels, x, m, bias)
         torch.cuda.synchronize()
         emit({
             "phase": "kernels", "case": name, "shape": list(shape), "m": m,
-            "dtype": str(dtype).replace("torch.", ""), "bias": with_bias, **res,
+            "dtype": str(dtype).replace("torch.", ""),
+            "bias": "0.5 * uni of the bench LM" if with_bias == "lm" else with_bias, **res,
         })
         if not (res["prologue_ok"] and res["top_m_ok"]):
             raise AssertionError(f"kernel parity failed for case {name}: {res}")
@@ -450,10 +477,13 @@ def phase_profile(config, ConformerConfig, ConformerCTC, ctc_recognizer, CTCPref
     })
 
 
-def prologue_bound_ms(T, N, Vp1, m, itemsize):
+def prologue_bound_ms(T, N, Vp1, m, itemsize, bias_bytes=0):
+    """The logits (and the bias, once) in, top-M values and indices and
+    three stats out; six operations a lane, one more with a bias."""
     rows = T * N
-    bytes_ = rows * Vp1 * itemsize + rows * (2 * m * 4 + 3 * 4)
-    ops = rows * Vp1 * 6  # max, subtract, exp, add, key, compare per lane
+    bytes_ = rows * Vp1 * itemsize + bias_bytes + rows * (2 * m * 4 + 3 * 4)
+    # max, subtract, exp, add, key, compare per lane; the bias's add
+    ops = rows * Vp1 * 6 + (rows * (Vp1 - 1) if bias_bytes else 0)
     return max(bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3, (
         "bytes" if bytes_ / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
     )
@@ -831,6 +861,197 @@ def phase_stream(pkg, kernels):
 
 
 # ---------------------------------------------------------------------------
+# LM-fused serving (BASELINE config #3): the prologue's g_bias route.
+
+LM_BETA = 0.5
+BIG5 = os.path.join("tests", "fixtures", "big5.arpa.gz")
+BIG5_V = 10240  # tests/fixtures/gen_big_arpa.py: ids 0..V-1, <s> is V
+
+
+def bench_lm(LookupLanguageModel, V=1024, seed=2, device="cuda"):
+    """bench.py's random backoff 3-gram over V=1024 (``_bench_lm``,
+    bench.py:425-440), built with the port's own code: the unigrams, 10,000
+    bigrams and 15,000 trigrams drawn from ``RandomState(seed)``, sos = V."""
+    rng = np.random.RandomState(seed)
+    uni = {w: (float(-rng.rand() * 5 - 0.1), float(-rng.rand())) for w in range(V)}
+    uni[V] = (float("-inf"), float(-rng.rand()))  # sos
+    bi, tri = {}, {}
+    ctx = list(range(V)) + [V]
+    for _ in range(10000):
+        key2 = (int(rng.choice(ctx)), int(rng.randint(V)))
+        bi[key2] = (float(-rng.rand() * 5 - 0.1), float(-rng.rand()))
+    for _ in range(15000):
+        key3 = (int(rng.choice(ctx)), int(rng.randint(V)), int(rng.randint(V)))
+        tri[key3] = float(-rng.rand() * 5 - 0.1)
+    return LookupLanguageModel(V, sos=V, prob_dicts=[uni, bi, tri], device=device)
+
+
+def cpu_copy(LookupLanguageModel, lm):
+    """The same LM on the CPU, carried by its state dict."""
+    out = LookupLanguageModel(lm.vocab_size, sos=lm.sos, device="cpu")
+    out.load_state_dict(lm.state_dict())
+    return out
+
+
+def phase_lm_serve(pkg, kernels, model, requests, lm):
+    """The serve cell's three requests through ``ctc_recognizer(model, 16,
+    beta=0.5, lm=lm)`` with bench.py's 3-gram: the sparse route, one
+    ``decode_prologue`` launch a request at M = 2W + 23 = 55 with the LM's
+    unigram bias. The card's hypotheses and lengths for every utterance
+    must equal a CPU decode of the same logits with a CPU copy of the LM,
+    probabilities within rtol 1e-4; the prologue on the served logits with
+    that bias bit-exact against its plain version. Then the encoder, decode
+    and request wall times in turn, the decode's launches a frame from a
+    trace, and the prologue's own time at M=55 beside its bound."""
+    LookupLanguageModel, ctc_recognizer, CTCPrefixSearch, lm_bias = pkg
+    V = lm.vocab_size
+    search = CTCPrefixSearch(WIDTH, beta=LM_BETA, lm=lm)
+    route = search.lm_route()
+    M = min(V, 2 * WIDTH + lm.max_corrections)
+    if route != "sparse":
+        raise AssertionError(f"the bench LM takes the {route} route, not sparse")
+    recognize = ctc_recognizer(model, WIDTH, beta=LM_BETA, lm=lm)
+    captured = []
+    hook = model.register_forward_hook(lambda mod, inp, out: captured.append(out))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    outputs = [recognize(f, l) for f, l in requests]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    hook.remove()
+    want = dict.fromkeys(launches, 0) | {"decode_prologue": N_REQUESTS}
+    if launches != want:
+        raise AssertionError(f"lm serve launches {launches}, expected {want}")
+    check_served(outputs, captured, model.cfg)
+
+    # every utterance against a CPU decode of the same logits
+    cpu_search = CTCPrefixSearch(WIDTH, beta=LM_BETA, lm=cpu_copy(LookupLanguageModel, lm))
+    checks = []
+    for (hyps, hlens, probs), (logits, out_lens) in zip(outputs, captured):
+        exp = cpu_search(logits.transpose(0, 1).contiguous().cpu(), out_lens.cpu())
+        got = (hyps.permute(2, 0, 1).cpu(), hlens.cpu(), probs.cpu())
+        checks.append(search_compare(got, exp, 1e-4))
+    if not all(c["ok"] for c in checks):
+        raise AssertionError(f"lm serve: the card's hypotheses vs the CPU's: {checks}")
+    hyp_tokens = int(sum(int(o[1][:, 0].sum()) for o in outputs))
+
+    logits, out_lens = captured[0]
+    x = logits.transpose(0, 1).contiguous()
+    T, N, Vp1 = x.shape
+    g_bias = lm_bias(lm._uni_t, LM_BETA)
+    served_case = check_prologue(kernels, x, M, g_bias)
+    if not served_case["prologue_ok"]:
+        raise AssertionError(f"prologue with the LM bias on the served logits: {served_case}")
+
+    feats, lens = requests[0]
+    encode = torch.no_grad()(model)
+    decode = torch.no_grad()(lambda: search(x, out_lens))
+    (enc_ms, dec_ms, req_ms), runs = host_ms([
+        lambda: encode(feats, lens), decode, lambda: recognize(feats, lens),
+    ], reps=5)
+    profiled = trace(decode)
+
+    wrapper = cuda_ms(lambda: kernels.decode_prologue(x, M, g_bias))
+    own = device_ms(lambda: kernels.decode_prologue(x, M, g_bias), "prologue_kernel")
+    bound = prologue_bound_ms(T, N, Vp1, M, x.element_size(), bias_bytes=4 * V)
+    prologue = {
+        "ms": wrapper if own is None else own,
+        "ms_from": "cuda_events" if own is None else "profiler",
+        "traces": TRACES["prologue_kernel"],
+        "wrapper_ms": wrapper,
+        "plain_ms": cuda_ms(lambda: kernels.decode_prologue_reference(x, M, g_bias)),
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": cuda_ms(lambda: torch.topk(x[..., :V] + g_bias, M)),
+        "library": "torch.topk of the biased logits",
+        "shape": [T, N, Vp1], "m": M, "dtype": str(x.dtype).replace("torch.", ""),
+        "bias": "0.5 * uni of the bench LM", "launches": launches["decode_prologue"],
+    }
+    # which of the two moved the time: M past a warp's 32, or the bias
+    prologue["m55_no_bias_ms"] = device_ms(lambda: kernels.decode_prologue(x, M), "prologue_kernel")
+    prologue["m32_bias_ms"] = device_ms(
+        lambda: kernels.decode_prologue(x, M_HEADLINE, g_bias), "prologue_kernel"
+    )
+    emit({
+        "phase": "lm_serve", "nvidia_smi": smi_line(),
+        "model": "ConformerCTC d512 L8 H8 V1024 bf16", "width": WIDTH, "beta": LM_BETA,
+        "lm": {"kind": "bench.py 3-gram, RandomState(2)", "vocab": V,
+               "max_ngram": lm.max_ngram, "max_corrections": lm.max_corrections},
+        "route": route, "m": M, "requests": N_REQUESTS, "batch": N_BATCH,
+        "launches": launches, "serve_s_first_pass": serve_s, "peak_mem_bytes": peak,
+        "vs_cpu_decode": {"utterances": N_REQUESTS * N_BATCH,
+                          "best_hyp_tokens": hyp_tokens, "checks": checks},
+        "prologue_on_served_logits": served_case,
+        "encoder_ms_per_batch": enc_ms, "decode_ms_per_batch": dec_ms,
+        "request_ms": req_ms, "utt_per_s": N_BATCH / (req_ms / 1e3),
+        "decode_share_of_request": dec_ms / req_ms,
+        "runs_ms": {"encoder": runs[0], "decode": runs[1], "request": runs[2]},
+        "decode_trace": {k: profiled[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                                   "kernel_launches", "top_kernels")},
+        "launches_per_frame": profiled["kernel_launches"] / T,
+        "prologue": prologue,
+    })
+    return launches, prologue
+
+
+def phase_lm_probing(pkg):
+    """tests/fixtures/big5.arpa.gz (a 5-gram over 10,240 tokens) parsed
+    with the port's ``parse_arpa_lm`` and built on the card: its orders 2-4
+    have only the probing hash table. ``calc_full_log_probs`` and
+    ``score_sequences`` on the card must equal a CPU copy's for 64
+    histories of 8 tokens (576 prefixes), some of them a stored 5-gram's
+    context, ``<unk>`` and ``</s>``. Also which decode route the LM takes."""
+    import gzip
+
+    LookupLanguageModel, parse_arpa_lm, CTCPrefixSearch, config = pkg
+    sys.path.insert(0, os.path.join("tests", "fixtures"))
+    try:
+        import gen_big_arpa
+    finally:
+        sys.path.pop(0)
+    t0 = time.perf_counter()
+    with gzip.open(BIG5, "rt") as f:
+        prob_dicts = parse_arpa_lm(f, gen_big_arpa.token2id(), to_base_e=True, ftype=np.float32)
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm = LookupLanguageModel(BIG5_V, sos=BIG5_V, prob_dicts=prob_dicts, device="cuda")
+    build_s = time.perf_counter() - t0
+    cpu = cpu_copy(LookupLanguageModel, lm)
+    layouts = ["dense" if t.dense_packed is not None else "probing" for t in lm._ctx_tables]
+    if layouts[1:] != ["probing"] * 3:
+        raise AssertionError(f"big5's context tables: {layouts}")
+    rng = np.random.RandomState(gen_big_arpa.SEED)
+    S, B = 8, 64
+    hist = rng.randint(0, BIG5_V, (S, B))
+    for b, key in enumerate(list(prob_dicts[4])[:16]):
+        hist[:4, b] = key[:4]  # a stored 5-gram's context
+    hist[4, 0], hist[5, 1] = 1, 0  # </s>, <unk>
+    th = torch.from_numpy(hist)
+    got = lm(th.cuda()).cpu()
+    exp = cpu(th)
+    scored, scored_cpu = lm.score_sequences(th.cuda()).cpu(), cpu.score_sequences(th)
+    res = {
+        "full_log_probs_equal": same_bits(got, exp),
+        "score_sequences_equal": same_bits(scored, scored_cpu),
+        "full_log_probs_max_abs_err": max_abs_err([(got, exp)]),
+        "finite_share": float(torch.isfinite(exp).float().mean()),
+    }
+    emit({
+        "phase": "lm_probing", "arpa": BIG5, "vocab": BIG5_V, "max_ngram": lm.max_ngram,
+        "tables": layouts, "max_probe": [t.max_probe for t in lm._ctx_tables],
+        "max_corrections": lm.max_corrections,
+        "sparse_fusion_max_corrections": config.SPARSE_FUSION_MAX_CORRECTIONS,
+        "decode_route": CTCPrefixSearch(WIDTH, beta=LM_BETA, lm=lm).lm_route(),
+        "histories": [S + 1, B], "parse_s": parse_s, "build_s": build_s, **res,
+    })
+    if not (res["full_log_probs_equal"] and res["score_sequences_equal"]):
+        raise AssertionError(f"big5 on the card vs the CPU: {res}")
+
+
+# ---------------------------------------------------------------------------
 # The training path (SpecAugment, forward, CTC loss, backward, AdamW) and the
 # scoring path (greedy decode, error_rate), with their two kernels.
 
@@ -1031,13 +1252,61 @@ def one_step(pkg, cfg, sd, batch, augment, dev, dtype=torch.float32):
     )
 
 
+# The card's float32 gradient against a float64 witness: each device's
+# distance from the witness, over the tensor's largest witness entry, is
+# float32's own error at those weights. Over the trained weight sets
+# recorded in PERF.md the card/CPU ratio of that distance ran 0.76-1.77,
+# and the 3 sets that broke a fixed 1e-3 bound read 1.26, 1.00 and 1.01
+# (card 1.18e-3, 2.13e-3, 1.169e-3; CPU 9.35e-4, 2.13e-3, 1.157e-3).
+# K = 2.5 passes all of them with margin, and a fault that moves a
+# gradient by 1e-2 of its tensor's largest entry, 5 to 100 times float32's
+# error there, still fails.
+GRAD_K, GRAD_FLOOR = 2.5, 1e-3
+
+
+def grad_distances(grads, witness):
+    """Per tensor, ``max |g - witness| / max |witness|``, for the tensors
+    whose witness gradient is not all zero."""
+    out = {}
+    for k, w in witness.items():
+        scale = float(w.abs().max())
+        if scale > 0:
+            out[k] = float((grads[k].double() - w.double()).abs().max()) / scale
+    return out
+
+
+def grad_criterion(card, cpu, k=GRAD_K, floor=GRAD_FLOOR):
+    """The card's gradient holds if, for each tensor, its distance from the
+    witness is at most ``max(floor, k * cpu)``, the CPU's float32 distance
+    scaled. ``card`` and ``cpu`` map tensor names to
+    :func:`grad_distances`. Returns ``(ok, readings)``: the worst card/CPU
+    ratio and the worst share of the limit used, each with its tensor, and
+    the tensors that failed."""
+    res = {"grad_vs_f64_ratio": 0.0, "grad_vs_f64_ratio_at": None,
+           "grad_vs_f64_limit_use": 0.0, "grad_vs_f64_limit_use_at": None,
+           "grad_vs_f64_failed": []}
+    for name, d in card.items():
+        limit = max(floor, k * cpu[name])
+        ratio = d / cpu[name] if cpu[name] > 0 else (0.0 if d == 0 else math.inf)
+        if ratio > res["grad_vs_f64_ratio"]:
+            res["grad_vs_f64_ratio"], res["grad_vs_f64_ratio_at"] = ratio, name
+        if d / limit > res["grad_vs_f64_limit_use"]:
+            res["grad_vs_f64_limit_use"], res["grad_vs_f64_limit_use_at"] = d / limit, name
+        if not d <= limit:
+            res["grad_vs_f64_failed"].append(name)
+    return not res["grad_vs_f64_failed"], res
+
+
 def step_check(pkg, kernels, cfg, sd, batch, sa_args, hold_gap=True):
     """One float32 step from ``sd`` on the card, twice, and on the CPU,
     and a float64 step on the CPU as the witness of the true gradient, all
     on the same SpecAugment'ed input. The readings, and the checks that
-    failed: loss within rtol 1e-4; each of the card's gradients within 1e-3
-    of its tensor's largest from the float64 one, and with ``hold_gap``
-    from the CPU's (an attention key bias, whose true gradient is 0 since
+    failed: loss within rtol 1e-4; each of the card's gradients no farther
+    from the float64 one than :func:`grad_criterion` allows (``GRAD_K``
+    times the CPU's float32 distance, at least ``GRAD_FLOOR``, each over
+    the tensor's largest witness entry), and with ``hold_gap`` within 1e-3
+    of its tensor's largest from the CPU's (an attention key bias, whose
+    true gradient is 0 since
     softmax is blind to it, within 1e-3 of the model's largest gradient on
     both devices); each device's update AdamW's first step from its own
     gradient (within 1e-6); and the parameters after it within atol 1e-4
@@ -1045,11 +1314,12 @@ def step_check(pkg, kernels, cfg, sd, batch, sa_args, hold_gap=True):
     tolerance and 1e-6.
 
     Both float32 gradients lie up to about 5e-4 of a tensor's largest
-    entry from the float64 one, on either device (the weights and biases
-    of LayerNorms and convolutions, summed over every frame), so two of
-    them may part by up to twice that: at weights a training run made,
-    which differ from run to run, the card is held to the float64 witness,
-    not to the CPU's rounding.
+    entry from the float64 one, on either device, and past 2e-3 at some
+    trained weights (the weights and biases of LayerNorms and
+    convolutions, summed over every frame), so two of them may part by up
+    to twice that: at weights a training run made, which differ from run
+    to run, the card is held to the float64 witness, scaled by the CPU's
+    own float32 error there, not to the CPU's rounding.
 
     Adam's first step is ``lr * g / (|g| + eps)``, about ``lr`` times the
     sign of ``g`` whatever its size, so where a gradient is rounding noise
@@ -1060,7 +1330,10 @@ def step_check(pkg, kernels, cfg, sd, batch, sa_args, hold_gap=True):
     float64 one, over that tensor's largest float64 entry: the card's
     (``grad_card_vs_f64``), the CPU's (``grad_cpu_vs_f64``) and the second
     card step's from the first (``grad_card_vs_card``), each with the
-    tensor where it is largest (``_at``)."""
+    tensor where it is largest (``_at``); and the card's own float64 step's
+    (``grad_card64_vs_f64``, not held to a bound): where it lies far inside
+    the float32 distances, the card computes the step right and its float32
+    gradient's distance is rounding."""
     feats = batch[0]
     aug = kernels.spec_augment_apply(feats, *sa_args).double()
     card_args = [a.cuda() for a in sa_args]
@@ -1070,6 +1343,7 @@ def step_check(pkg, kernels, cfg, sd, batch, sa_args, hold_gap=True):
     lg, pg, gg = one_step(pkg, cfg, sd, batch, on_card, "cuda")
     _, _, gg2 = one_step(pkg, cfg, sd, batch, on_card, "cuda")
     l64, _, g64 = one_step(pkg, cfg, sd, batch, lambda g, f, l: aug, "cpu", torch.float64)
+    _, _, gg64 = one_step(pkg, cfg, sd, batch, lambda g, f, l: aug.cuda(), "cuda", torch.float64)
     res = {
         "loss_cpu": lc, "loss_card": lg, "loss_f64": l64,
         "loss_rel_err": abs(lg - lc) / abs(lc),
@@ -1108,11 +1382,19 @@ def step_check(pkg, kernels, cfg, sd, batch, sa_args, hold_gap=True):
             float((pc[k].double() - own_c).abs().max()),
             float((pg[k].double() - own_g).abs().max()),
         )
+    witness = {k: v for k, v in g64.items() if not k.endswith("attn.key.bias")}
+    grad_ok, readings = grad_criterion(
+        grad_distances(gg, witness), grad_distances(gc, witness)
+    )
+    res.update(readings)
+    d64 = grad_distances(gg64, witness)
+    res["grad_card64_vs_f64_at"] = max(d64, key=d64.get)
+    res["grad_card64_vs_f64"] = d64[res["grad_card64_vs_f64_at"]]
     failed = [
         name for name, ok in (
             ("loss", res["loss_rel_err"] <= 1e-4),
             ("grad", res["grad_max_rel_err"] <= 1e-3 or not hold_gap),
-            ("grad_vs_f64", res["grad_card_vs_f64"] <= 1e-3),
+            ("grad_vs_f64", grad_ok),
             ("key_bias", res["key_bias_grad_rel"] <= 1e-3),
             ("update", res["update_max_abs_err"] <= 1e-6),
             ("params", res["param_max_abs_err"] <= 1e-4 and res["param_entries"] > 0),
@@ -1346,12 +1628,16 @@ def main(argv):
         return 1
     try:
         from pydrobert_tpu_torch import config
+        from pydrobert_tpu_torch.data import parse_arpa_lm
         from pydrobert_tpu_torch.export import ctc_recognizer
+        from pydrobert_tpu_torch.lm import LookupLanguageModel
         from pydrobert_tpu_torch.models import (
             ConformerConfig, ConformerCTC, adamw, make_train_step,
         )
         from pydrobert_tpu_torch.ops import _build, img, kernels
-        from pydrobert_tpu_torch.ops.decoding import CTCPrefixSearch, ctc_greedy_search
+        from pydrobert_tpu_torch.ops.decoding import (
+            CTCPrefixSearch, _lm_bias, ctc_greedy_search,
+        )
         from pydrobert_tpu_torch.ops.string import error_rate
         from pydrobert_tpu_torch.serving import StreamingCTCRecognizer
     except ImportError as e:
@@ -1391,7 +1677,9 @@ def main(argv):
         emit(ok_line())
         return 0
 
-    errs = phase_kernels(kernels)
+    lm = bench_lm(LookupLanguageModel)
+    lm_m = min(lm.vocab_size, 2 * WIDTH + lm.max_corrections)
+    errs = phase_kernels(kernels, _lm_bias(lm._uni_t, LM_BETA), lm_m)
     errs.update(phase_new_kernels(kernels, img))
     errs["ctc_beam_search"] = phase_beam_kernel(kernels)
     model, recognize, requests, launches, (logits, out_lens) = phase_main_path(
@@ -1401,7 +1689,12 @@ def main(argv):
     beam_launches, times["ctc_beam_search"] = phase_beam_serve(
         (config, ctc_recognizer, CTCPrefixSearch), kernels, model, requests
     )
-    del model, recognize, requests
+    lm_launches, times["decode_prologue"]["lm_serve"] = phase_lm_serve(
+        (LookupLanguageModel, ctc_recognizer, CTCPrefixSearch, _lm_bias),
+        kernels, model, requests, lm,
+    )
+    del model, recognize, requests, lm
+    phase_lm_probing((LookupLanguageModel, parse_arpa_lm, CTCPrefixSearch, config))
     phase_stream(
         (config, ConformerConfig, ConformerCTC, CTCPrefixSearch, StreamingCTCRecognizer),
         kernels,
@@ -1414,8 +1707,12 @@ def main(argv):
 
     csrc = "pydrobert_tpu_torch/csrc/"
     rows = []
+    times["decode_prologue"]["launches_by_path"] = {
+        "serve": launches["decode_prologue"], "lm serve": lm_launches["decode_prologue"],
+    }
     for name, src, replaces, path, n in (
-        ("decode_prologue", "prologue.cu", 1664, "serve", launches["decode_prologue"]),
+        ("decode_prologue", "prologue.cu", 1664, "serve, lm serve",
+         launches["decode_prologue"] + lm_launches["decode_prologue"]),
         ("top_m", "prologue.cu", 1359, "beam serve", beam_launches["top_m"]),
         ("spec_augment_apply", "spec_augment.cu", 180, "train",
          train_launches["spec_augment_apply"]),

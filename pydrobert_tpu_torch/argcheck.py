@@ -5,7 +5,7 @@ from typing import Any, Optional
 
 import numpy as np
 
-__all__ = ["is_bool", "is_float", "is_int", "is_posi"]
+__all__ = ["is_bool", "is_float", "is_int", "is_posi", "is_str"]
 
 
 def _nv(name: Optional[str], val: Any) -> str:
@@ -34,6 +34,12 @@ def is_bool(val, name=None):
     if not isinstance(val, (bool, np.bool_)):
         raise ValueError(f"{_nv(name, val)} is not a bool")
     return bool(val)
+
+
+def is_str(val, name=None):
+    if not isinstance(val, str):
+        raise ValueError(f"{_nv(name, val)} is not a str")
+    return val
 
 
 def is_posi(val, name=None):

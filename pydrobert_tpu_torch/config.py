@@ -17,6 +17,8 @@ __all__ = [
     "EPS_INF",
     "EPS_NINF",
     "INDEX_PAD_VALUE",
+    "SPARSE_FUSION_MAX_CORRECTIONS",
+    "SPARSE_MEMBERSHIP_GATHER",
     "TINY",
     "USE_BEAM_KERNEL",
 ]
@@ -65,6 +67,29 @@ one block's shared memory
 (:func:`pydrobert_tpu_torch.ops.kernels.ctc_beam_search_fits`). The JAX
 package's counterpart, ``USE_PALLAS_BEAM``, times both routes on the
 device to choose under ``"auto"``; nothing is timed here."""
+
+SPARSE_FUSION_MAX_CORRECTIONS = int(
+    os.environ.get("PYDROBERT_TPU_TORCH_SPARSE_FUSION_MAX_C", "128")
+)
+"""Largest per-context correction count for the sparse-slot fused decode.
+
+:class:`pydrobert_tpu_torch.ops.decoding.CTCPrefixSearch` with a
+:class:`pydrobert_tpu_torch.lm.LookupLanguageModel` of order 2 or more
+scores only candidate slots (the shared top-M plus each beam's stored
+n-gram corrections) instead of all ``V`` extensions per beam, provided the
+LM's ``max_corrections`` (the summed per-order maximum children count)
+does not exceed this bound; larger LMs take the dense advance. Read at
+call time."""
+
+SPARSE_MEMBERSHIP_GATHER = (
+    os.environ.get("PYDROBERT_TPU_TORCH_SPARSE_MEMBERSHIP_GATHER", "0") == "1"
+)
+"""Answer the sparse decode's "is token v a stored n-gram under this
+context" through the direct-indexed bigram table
+(:meth:`pydrobert_tpu_torch.lm.LookupLanguageModel.order2_values`) instead
+of comparing against the correction lists. Off by default, as in the JAX
+package; only the default compare path is ported, so turning it on makes
+the sparse route raise :class:`NotImplementedError`."""
 
 EPS_NINF = math.log(1.1754943508222875e-38) / 2
 """A small enough log-space value that exponentiating it is very close to 0."""

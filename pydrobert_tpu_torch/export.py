@@ -11,13 +11,17 @@ from typing import Callable, Optional
 
 import torch
 
+from .lm import MixableSequentialLanguageModel
 from .ops.decoding import CTCPrefixSearch, ctc_greedy_search
 
 __all__ = ["ctc_recognizer"]
 
 
 def ctc_recognizer(
-    model: torch.nn.Module, width: Optional[int] = None, beta: float = 0.2
+    model: torch.nn.Module,
+    width: Optional[int] = None,
+    beta: float = 0.2,
+    lm: Optional[MixableSequentialLanguageModel] = None,
 ) -> Callable:
     """``recognize(feats (N, T, F), lens (N,))`` on ``model``'s device.
 
@@ -26,9 +30,11 @@ def ctc_recognizer(
     ``(hyps (N, W, S), lens (N, W), probs (N, W))``, beams in descending
     order of probability. ``model`` maps ``(feats, lens)`` to batch-major
     ``(logits (N, T', V + 1), out_lens)`` with the blank last, as
-    :class:`pydrobert_tpu_torch.models.ConformerCTC` does. ``beta`` is the
-    LM weight of :class:`CTCPrefixSearch`; no LM is ported yet, so it has no
-    effect.
+    :class:`pydrobert_tpu_torch.models.ConformerCTC` does. The search is
+    shallow-fused with ``lm`` at weight ``beta``, as the JAX package's
+    ``export_ctc_recognizer`` does; a
+    :class:`~pydrobert_tpu_torch.lm.LookupLanguageModel` must live on the
+    model's device.
     """
     if width is None:
 
@@ -41,7 +47,7 @@ def ctc_recognizer(
             return hyps, hyp_lens
 
     else:
-        search = CTCPrefixSearch(width, beta=beta)
+        search = CTCPrefixSearch(width, beta=beta, lm=lm)
 
         @torch.no_grad()
         def recognize(feats, lens):

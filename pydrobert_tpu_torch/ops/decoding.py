@@ -1,35 +1,42 @@
-"""CTC greedy and prefix beam search (counterpart of
-:mod:`pydrobert_tpu.ops.decoding`, without language models so far).
+"""CTC greedy and prefix beam search, with shallow LM fusion (counterpart
+of :mod:`pydrobert_tpu.ops.decoding`).
 
-:class:`CTCPrefixSearch` follows the JAX package's no-LM search step for
-step: one hoisted decode prologue over the whole ``(T, N, V + 1)`` logits
+:class:`CTCPrefixSearch` follows the JAX package's search step for step:
+one hoisted decode prologue over the whole ``(T, N, V + 1)`` logits
 (:func:`pydrobert_tpu_torch.ops.kernels.decode_prologue`, a Hopper kernel
-on the card), then one factored advance per frame, in a Python loop, over
-the shared top-``M`` tokens, each beam's last token and its
-non-extension. Every candidate selection is an exact top-k in the IEEE
-total order with ties lowest index first, so hypotheses, lengths and beam
-order match the JAX search exactly.
+on the card; biased by the LM's unigram weights on the n-gram fusion
+routes), then one advance per frame, in a Python loop: the factored advance
+over the shared top-``M`` tokens, each beam's last token and its
+non-extension; the sparse advance, which adds each beam's stored n-gram
+corrections; or the dense advance over every extension. All three end in
+one shared bookkeeping tail. Every candidate selection is an exact top-k
+in the IEEE total order with ties lowest index first, so hypotheses,
+lengths and beam order match the JAX search exactly.
 
 The JAX package's TPU layout devices (the rank-compaction top-K, one-hot
-contractions in place of gathers, the float16 path buffer, the packed
-per-frame row) give results identical to the flat forms by construction
-and have no counterpart here. Where those contractions turn a picked
-``-0.0`` into ``+0.0`` the port adds ``0.0`` to the gathered value, so the
-total-order ranking of zero masses agrees.
+contractions and where-reduces in place of gathers, the float16 path
+buffer, the packed per-frame row) give results identical to the flat
+forms by construction and have no counterpart here. Where those
+contractions turn a picked ``-0.0`` into ``+0.0`` the port adds ``0.0`` to
+the gathered value, so the total-order ranking of zero masses agrees.
 
 With :data:`pydrobert_tpu_torch.config.USE_BEAM_KERNEL` forced, or with
-:data:`~pydrobert_tpu_torch.config.DECODE_RENORM` off, the search takes the
-JAX package's whole-loop route instead: the softmax, the exact top-``M`` of
-the non-blank probabilities (:func:`~pydrobert_tpu_torch.ops.topk.
-hoisted_top_k`) and one :func:`~pydrobert_tpu_torch.ops.kernels.
+:data:`~pydrobert_tpu_torch.config.DECODE_RENORM` off, a search with no LM
+takes the JAX package's whole-loop route instead: the softmax, the exact
+top-``M`` of the non-blank probabilities (:func:`~pydrobert_tpu_torch.ops.
+topk.hoisted_top_k`) and one :func:`~pydrobert_tpu_torch.ops.kernels.
 ctc_beam_search` over every frame, which carries raw masses.
 """
 
+from functools import partial
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import argcheck, config
+from ..lm import LookupLanguageModel, MixableSequentialLanguageModel
+from ..utils import pytree as _pytree
 from .kernels import ctc_beam_search, ctc_beam_search_fits, decode_prologue
 from .topk import exact_top_k, hoisted_top_k
 
@@ -37,6 +44,7 @@ __all__ = [
     "CTCGreedySearch",
     "CTCPrefixSearch",
     "ctc_greedy_search",
+    "ctc_prefix_search_advance",
     "ctc_prefix_search_advance_factored",
 ]
 
@@ -134,6 +142,149 @@ def _pick(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx.expand(src.shape + x.shape[2:]))
 
 
+def _exact_ext(y_prev_lens: torch.Tensor, prev_is_prefix: torch.Tensor) -> torch.Tensor:
+    """``ext_is_exact[n, k, j]``: beam ``k`` extended by one token is beam
+    ``j``'s prefix, so the extension that equals ``j`` is absorbed into
+    ``j``'s non-extension mass."""
+    return ((y_prev_lens + 1)[:, :, None] == y_prev_lens[:, None, :]) & prev_is_prefix
+
+
+def _ctc_advance_tail(
+    y_prev, y_prev_last, y_prev_lens, prev_is_prefix,
+    next_src, next_ext, next_is_nonext, nb_ext_sel,
+    nb_nonext, b_nonext, width, K, valid=None,
+):
+    """The bookkeeping every advance shares once its ``K`` candidates are
+    selected: masses, lengths, the path buffer and the prefix matrix.
+
+    ``y_prev (N, Kp, T)`` is the batch-major path buffer; ``next_src``,
+    ``next_ext`` and ``next_is_nonext`` ``(N, K)`` say which beam each new
+    one extends, by which token, or whether it is the beam's
+    non-extension, whose masses ``nb_nonext`` and ``b_nonext`` ``(N, Kp)``
+    carries; ``nb_ext_sel`` are the selected candidates' scores. With
+    ``valid (N, 1)`` bool, rows where it is False keep their buffer
+    (identity permutation, no token write); their other outputs are junk
+    that the caller masks or never reads again.
+
+    Returns ``(y_next (N, W, T), y_next_last, y_next_lens, (nb, b),
+    next_is_prefix, next_src, next_ext, next_is_nonext)``, padded to
+    ``width`` beams of mass :data:`MASS_PAD` when ``K < width``.
+    """
+    N, Kp, T = y_prev.shape
+    dev = y_prev.device
+    if valid is None:
+        src = next_src
+    else:
+        src = torch.where(valid, next_src, torch.arange(K, device=dev)[None])
+    prefix_lens = _pick(y_prev_lens, src)
+    y_next_lens = prefix_lens + (~next_is_nonext)
+    nb_next = torch.where(next_is_nonext, _pick(nb_nonext, src) + 0.0, nb_ext_sel)
+    b_next = (_pick(b_nonext, src) + 0.0) * next_is_nonext
+    y_next_last = torch.where(next_is_nonext, _pick(y_prev_last, src), next_ext)
+    ip_rows = _pick(prev_is_prefix, src)  # (N, K, Kp) = ip[n, src_k, :]
+    # next_prefix_is_prefix[n, k, k'] = ip[n, src_k, src_k']
+    next_prefix_is_prefix = torch.gather(ip_rows, 2, src[:, None, :].expand(N, K, K))
+    next_len_leq = y_next_lens[:, :, None] <= y_next_lens[:, None, :]
+
+    # permute the buffer, write each new token at its prefix length, and
+    # read the new buffer at each beam's last position:
+    # next_to_match[n, k, k'] = y_next[n, k', lens_k - 1]
+    cols = _pick(y_prev, src)  # (N, K, T)
+    pos = prefix_lens if valid is None else torch.where(valid, prefix_lens, T)
+    wmask = torch.arange(T, device=dev)[None, None] == pos[:, :, None]
+    y_next = torch.where(wmask, next_ext[:, :, None], cols)
+    p = (y_next_lens - 1).clamp(0, T - 1)
+    next_to_match = torch.gather(y_next, 2, p[:, None, :].expand(N, K, K)).transpose(1, 2)
+    next_ext_matches = next_to_match == next_ext[:, :, None]
+    next_is_prefix = (
+        next_prefix_is_prefix
+        & next_len_leq
+        & (next_is_nonext[:, :, None] | next_ext_matches)
+    )
+
+    if K < width:
+        rem = width - K
+
+        def pad(x, value, dim=1):
+            shape = list(x.shape)
+            shape[dim] = rem
+            return torch.cat([x, x.new_full(shape, value)], dim)
+
+        y_next = pad(y_next, 0)
+        y_next_last = pad(y_next_last, 0)
+        y_next_lens = pad(y_next_lens, 0)
+        nb_next = pad(nb_next, MASS_PAD)
+        b_next = pad(b_next, MASS_PAD)
+        next_is_prefix = pad(pad(next_is_prefix, False, 2), False, 1)
+        next_src = pad(next_src, 0)
+        next_ext = pad(next_ext, 0)
+        next_is_nonext = pad(next_is_nonext, False)
+
+    return (
+        y_next, y_next_last, y_next_lens, (nb_next, b_next), next_is_prefix,
+        next_src, next_ext, next_is_nonext,
+    )
+
+
+def ctc_prefix_search_advance(
+    probs_t: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    width: int,
+    probs_prev: Tuple[torch.Tensor, torch.Tensor],
+    y_prev: torch.Tensor,
+    y_prev_last: torch.Tensor,
+    y_prev_lens: torch.Tensor,
+    prev_is_prefix: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+):
+    """One frame of CTC prefix search over every extension of every beam
+    (the dense advance, which LM fusion with a full ``(N, Kp, V)``
+    extension distribution takes).
+
+    ``probs_t = (ext (N, Kp, V), nonext (N, V), blank (N,))`` are the
+    frame's extension probabilities per beam, its plain token
+    probabilities and its blank probability; the other arguments and the
+    return value are :func:`_ctc_advance_tail`'s.
+    """
+    ext_probs_t, nonext_probs_t, blank_probs_t = probs_t
+    if width < 1:
+        raise RuntimeError("width must be positive")
+    if ext_probs_t.dim() != 3:
+        raise RuntimeError("ext_probs_t must be 3 dimensional")
+    nb_prev, b_prev = probs_prev
+    N, Kp, V = ext_probs_t.shape
+    K = min(width, Kp * (V + 1))
+
+    tot_prev = nb_prev + b_prev
+    y_prev_last = y_prev_last.clamp(0, V - 1)
+    last_onehot = torch.nn.functional.one_hot(y_prev_last, V).to(ext_probs_t.dtype)
+    # a beam's own last token only carries its blank mass (the repeat rule)
+    nb_ext = (nb_prev[..., None] * (1 - last_onehot) + b_prev[..., None]) * ext_probs_t
+    b_nonext = tot_prev * blank_probs_t[:, None]
+    nb_nonext = nb_prev * torch.gather(nonext_probs_t, 1, y_prev_last)
+
+    ext_is_exact = _exact_ext(y_prev_lens, prev_is_prefix)  # (N, k, j)
+    # the extension of k by j's last token is j itself
+    to_match = y_prev_last[:, None, :].expand(N, Kp, Kp)
+    absorbed = torch.where(ext_is_exact, torch.gather(nb_ext, 2, to_match), 0.0).sum(1)
+    nb_nonext = nb_nonext + (absorbed + 0.0)
+    # has_match[n, k, v]: some j with ext_is_exact[n, k, j] ends in v
+    hit = torch.where(ext_is_exact, to_match, V)
+    has_match = torch.zeros((N, Kp, V + 1), dtype=torch.bool, device=y_prev.device)
+    has_match = has_match.scatter_(2, hit, True)[..., :V]
+    nb_ext = torch.where(has_match, NEG_INF, nb_ext)
+
+    cand = torch.cat([nb_ext.reshape(N, Kp * V), nb_nonext + b_nonext], 1)
+    sel_vals, next_ind = exact_top_k(cand, K)
+    next_is_nonext = next_ind >= Kp * V
+    next_src = torch.where(next_is_nonext, next_ind - Kp * V, next_ind // V)
+    next_ext = next_ind % V
+    return _ctc_advance_tail(
+        y_prev, y_prev_last, y_prev_lens, prev_is_prefix,
+        next_src, next_ext, next_is_nonext, sel_vals,
+        nb_nonext, b_nonext, width, K, valid,
+    )
+
+
 def ctc_prefix_search_advance_factored(
     top_probs_t: Tuple[torch.Tensor, torch.Tensor],
     blank_probs_t: torch.Tensor,
@@ -146,35 +297,33 @@ def ctc_prefix_search_advance_factored(
     prev_is_prefix: torch.Tensor,
     vocab_size: int,
     valid: Optional[torch.Tensor] = None,
+    p_last_ext: Optional[torch.Tensor] = None,
 ):
     """One frame of CTC prefix search when extension probabilities factor as
-    ``ext[n, k, v] = p_t[n, v]`` (no per-beam LM fusion).
+    ``ext[n, k, v] = p_t[n, v]`` (no LM, or one that weights every beam
+    alike: a unigram LM).
 
     Each beam's picks come from the frame's shared top-``M`` tokens
     ``top_probs_t = (values (N, M), indices (N, M))`` (``M >= width + Kp``
     or ``V``), its last token, whose probability ``p_last (N, Kp)`` the
-    caller supplies, and its non-extension. ``probs_prev = (nb, b)`` are
-    the ``(N, Kp)`` non-blank and blank masses; ``y_prev (N, Kp, T)`` is
-    the batch-major path buffer; ``y_prev_last``, ``y_prev_lens`` and the
-    prefix matrix ``prev_is_prefix (N, Kp, Kp)`` describe the beams.
-
-    With ``valid (N, 1)`` bool, rows where it is False keep their buffer
-    (identity permutation, no token write); their other outputs are junk
-    that the caller masks or never reads again.
-
-    Returns ``(y_next (N, W, T), y_next_last, y_next_lens, (nb, b),
-    next_is_prefix)``, padded to ``width`` beams of mass :data:`MASS_PAD`
-    when fewer candidates exist.
+    caller supplies, and its non-extension. With a unigram LM the shared
+    values carry the LM's weight and ``p_last_ext`` is the last token's
+    weighted extension probability (``p_last`` its plain continuation
+    one). ``probs_prev = (nb, b)`` are the ``(N, Kp)`` non-blank and blank
+    masses; ``y_prev (N, Kp, T)`` is the batch-major path buffer;
+    ``y_prev_last``, ``y_prev_lens`` and the prefix matrix
+    ``prev_is_prefix (N, Kp, Kp)`` describe the beams. ``valid`` and the
+    return value are :func:`_ctc_advance_tail`'s.
     """
     top_vals, top_inds = top_probs_t
     nb_prev, b_prev = probs_prev
     N, Kp = nb_prev.shape
     V = vocab_size
-    T = y_prev.shape[2]
-    dev = nb_prev.device
     M = top_inds.shape[1]
     if M < min(width + Kp, V):
         raise RuntimeError(f"M ({M}) must be at least width + Kp or V")
+    if p_last_ext is None:
+        p_last_ext = p_last
     K = min(width, Kp * (V + 1))
     S = M + 2  # per-beam slots: M shared + last token + non-extension
 
@@ -187,21 +336,15 @@ def ctc_prefix_search_advance_factored(
     coeff = torch.where(shared_is_last, b_prev[:, :, None], tot_prev[:, :, None])
     shared_scores = coeff * top_vals[:, None, :]  # (N, Kp, M)
     # dedicated last-token slot, off when the token is already shared
-    last_scores = torch.where(
-        shared_is_last.any(-1), NEG_INF, b_prev * p_last
-    )
+    last_scores = torch.where(shared_is_last.any(-1), NEG_INF, b_prev * p_last_ext)
     b_nonext = tot_prev * blank_probs_t[:, None]
     nb_nonext = nb_prev * p_last
 
-    # extensions of beam k that equal beam j are absorbed into j's
-    # non-extension mass (they are the same prefix)
-    ext_is_exact = (
-        (y_prev_lens + 1)[:, :, None] == y_prev_lens[:, None, :]
-    ) & prev_is_prefix  # (N, k, j)
+    ext_is_exact = _exact_ext(y_prev_lens, prev_is_prefix)  # (N, k, j)
     same_last = y_prev_last[:, None, :] == y_prev_last[:, :, None]
     tm_coeff = torch.where(same_last, b_prev[:, :, None], tot_prev[:, :, None])
     absorbed = torch.where(
-        ext_is_exact, tm_coeff * p_last[:, None, :], 0.0
+        ext_is_exact, tm_coeff * p_last_ext[:, None, :], 0.0
     ).sum(1) + 0.0
     nb_nonext = nb_nonext + absorbed
 
@@ -224,60 +367,146 @@ def ctc_prefix_search_advance_factored(
     ext_src_cat = torch.cat([top_inds, y_prev_last], 1)  # (N, M + Kp)
     ext_idx = torch.where(slot < M, slot, M + next_src)
     next_ext = torch.gather(ext_src_cat, 1, ext_idx)
-
-    # ---- bookkeeping after selection ----
-    if valid is None:
-        src = next_src
-    else:
-        src = torch.where(valid, next_src, torch.arange(K, device=dev)[None])
-    prefix_lens = _pick(y_prev_lens, src)
-    y_next_lens = prefix_lens + (~next_is_nonext)
-    nb_next = torch.where(
-        next_is_nonext, _pick(nb_nonext, src) + 0.0, sel_vals
-    )
-    b_next = (_pick(b_nonext, src) + 0.0) * next_is_nonext
-    y_next_last = torch.where(next_is_nonext, _pick(y_prev_last, src), next_ext)
-    ip_rows = _pick(prev_is_prefix, src)  # (N, K, Kp) = ip[n, src_k, :]
-    # next_prefix_is_prefix[n, k, k'] = ip[n, src_k, src_k']
-    next_prefix_is_prefix = torch.gather(
-        ip_rows, 2, src[:, None, :].expand(N, K, K)
-    )
-    next_len_leq = y_next_lens[:, :, None] <= y_next_lens[:, None, :]
-
-    # permute the buffer, write each new token at its prefix length, and
-    # read the new buffer at each beam's last position:
-    # next_to_match[n, k, k'] = y_next[n, k', lens_k - 1]
-    cols = _pick(y_prev, src)  # (N, K, T)
-    pos = prefix_lens if valid is None else torch.where(valid, prefix_lens, T)
-    wmask = torch.arange(T, device=dev)[None, None] == pos[:, :, None]
-    y_next = torch.where(wmask, next_ext[:, :, None], cols)
-    p = (y_next_lens - 1).clamp(0, T - 1)
-    next_to_match = torch.gather(
-        y_next, 2, p[:, None, :].expand(N, K, K)
-    ).transpose(1, 2)
-    next_ext_matches = next_to_match == next_ext[:, :, None]
-    next_is_prefix = (
-        next_prefix_is_prefix
-        & next_len_leq
-        & (next_is_nonext[:, :, None] | next_ext_matches)
+    return _ctc_advance_tail(
+        y_prev, y_prev_last, y_prev_lens, prev_is_prefix,
+        next_src, next_ext, next_is_nonext, sel_vals,
+        nb_nonext, b_nonext, width, K, valid,
     )
 
-    if K < width:
-        rem = width - K
 
-        def pad(x, value, dim=1):
-            shape = list(x.shape)
-            shape[dim] = rem
-            return torch.cat([x, x.new_full(shape, value)], dim)
+def _ctc_prefix_search_advance_sparse(
+    top_g: Tuple[torch.Tensor, torch.Tensor],
+    am_at,
+    uni_at,
+    blank_probs_t: torch.Tensor,
+    beta: float,
+    sparse: Tuple,
+    width: int,
+    probs_prev: Tuple[torch.Tensor, torch.Tensor],
+    y_prev: torch.Tensor,
+    y_prev_last: torch.Tensor,
+    y_prev_lens: torch.Tensor,
+    prev_is_prefix: torch.Tensor,
+    vocab_size: int,
+    valid: Optional[torch.Tensor] = None,
+):
+    """One frame of CTC prefix search with a backoff n-gram LM shallow-fused
+    (``lm_probs**beta * am``), scoring only candidate slots.
 
-        y_next = pad(y_next, 0)
-        y_next_last = pad(y_next_last, 0)
-        y_next_lens = pad(y_next_lens, 0)
-        nb_next = pad(nb_next, MASS_PAD)
-        b_next = pad(b_next, MASS_PAD)
-        next_is_prefix = pad(pad(next_is_prefix, False, 2), False, 1)
+    Beam ``k``'s LM conditional is ``uni[v] + base_k`` except on its
+    stored n-gram tokens (:meth:`pydrobert_tpu_torch.lm.LookupLanguageModel.
+    sparse_corrections_ext`, whose output ``sparse`` is, with ``(N, Kp)``
+    leading dims). ``base_k`` and the normalizer are per-beam constants
+    that keep the within-beam order, so each beam's top extensions come
+    from the frame's shared top-``M`` of ``g[v] = am[v] * exp(beta *
+    uni[v])`` (``top_g``, ``M >= 2 * width + C``), its ``C`` corrected
+    tokens, its last token and its non-extension.
 
-    return y_next, y_next_last, y_next_lens, (nb_next, b_next), next_is_prefix
+    ``am_at`` maps token ids ``(N, Q)`` to the frame's acoustic
+    probabilities and ``uni_at`` to unigram log-probs clamped at -1e30.
+    ``valid`` and the return value are :func:`_ctc_advance_tail`'s.
+    """
+    top_vals, top_inds = top_g
+    nb_prev, b_prev = probs_prev
+    N, Kp = nb_prev.shape
+    M = top_inds.shape[1]
+    V = vocab_size
+    base, ctoks, cvals, cvalid, logZ = sparse[:5]
+    ctoks = ctoks.long()
+    C = ctoks.shape[2]
+    K = min(width, Kp * (V + 1))
+    L = M + C + 1  # ext slots per beam; the non-extension slot follows
+
+    tot_prev = nb_prev + b_prev
+    y_prev_last = y_prev_last.clamp(0, V - 1)
+    scal = torch.exp(beta * (base - logZ))  # (N, Kp)
+
+    am_all = am_at(torch.cat([ctoks.reshape(N, Kp * C), y_prev_last], 1))
+    am_corr = am_all[:, : Kp * C].reshape(N, Kp, C)
+    am_last = am_all[:, Kp * C:]  # (N, Kp) plain acoustic prob
+    uni_last = uni_at(y_prev_last)
+
+    # the corrected value and match flag of every (beam k, candidate token)
+    # pair, the candidates being the other beams' last tokens and the
+    # shared top-M tokens. Corrections are unique per context, so each sum
+    # has at most one nonzero term.
+    cand2 = torch.cat([y_prev_last, top_inds], 1)  # (N, Kp + M)
+    eqm = (ctoks[:, :, None, :] == cand2[:, None, :, None]) & cvalid[:, :, None, :]
+    val_sum = torch.where(eqm, cvals[:, :, None, :], 0.0).sum(3)
+    found_all = eqm.any(3)  # (N, Kp, Kp + M)
+    found_tm = found_all[..., :Kp]
+    shared_in_corr = found_all[..., Kp:]  # (N, Kp, M)
+    lm_tm = val_sum[..., :Kp] + torch.where(
+        found_tm, 0.0, base[:, :, None] + uni_last[:, None, :]
+    )
+    # fused ext prob of beam j's last token under beam k's context; a
+    # beam's own last token is the diagonal
+    p_tm = am_last[:, None, :] * torch.exp(beta * (lm_tm - logZ[:, :, None]))
+    last_in_corr_any = torch.diagonal(found_tm, dim1=1, dim2=2)
+    p_last_ext = torch.diagonal(p_tm, dim1=1, dim2=2) + 0.0
+
+    # shared slots
+    shared_is_last = top_inds[:, None, :] == y_prev_last[:, :, None]
+    coeff_sh = torch.where(shared_is_last, b_prev[:, :, None], tot_prev[:, :, None])
+    shared_scores = coeff_sh * scal[:, :, None] * top_vals[:, None, :]
+    shared_scores = torch.where(shared_in_corr, NEG_INF, shared_scores)
+
+    # correction slots
+    corr_is_last = ctoks == y_prev_last[:, :, None]
+    coeff_c = torch.where(corr_is_last, b_prev[:, :, None], tot_prev[:, :, None])
+    corr_scores = coeff_c * am_corr * torch.exp(beta * (cvals - logZ[:, :, None]))
+    corr_scores = torch.where(cvalid, corr_scores, NEG_INF)
+
+    # dedicated last-token slot (off when covered by a shared or a
+    # correction slot)
+    last_scores = torch.where(
+        shared_is_last.any(2) | last_in_corr_any, NEG_INF, b_prev * p_last_ext
+    )
+
+    # non-extension masses; absorption takes the fused ext prob of every
+    # other beam's last token under this beam's context
+    b_nonext = tot_prev * blank_probs_t[:, None]
+    ext_is_exact = _exact_ext(y_prev_lens, prev_is_prefix)
+    tm_coeff = torch.where(
+        y_prev_last[:, None, :] == y_prev_last[:, :, None],
+        b_prev[:, :, None],
+        tot_prev[:, :, None],
+    )
+    absorbed = torch.where(ext_is_exact, tm_coeff * p_tm, 0.0).sum(1) + 0.0
+    nb_nonext = nb_prev * am_last + absorbed
+
+    # slots: [0, M) shared | [M, M + C) corrections | M + C last token
+    slot_toks = torch.cat(
+        [top_inds[:, None, :].expand(N, Kp, M), ctoks, y_prev_last[:, :, None]], 2
+    )  # (N, Kp, L)
+    removed = (
+        ext_is_exact[:, :, None, :]
+        & (slot_toks[:, :, :, None] == y_prev_last[:, None, None, :])
+    ).any(3)
+    ext_scores = torch.cat([shared_scores, corr_scores, last_scores[:, :, None]], 2)
+    ext_scores = torch.where(removed, NEG_INF, ext_scores)
+    S = L + 1
+    cand = torch.cat([ext_scores, (nb_nonext + b_nonext)[:, :, None]], 2)
+    sel_vals, next_ind = exact_top_k(cand.reshape(N, Kp * S), K)
+
+    slot = next_ind % S
+    next_src = next_ind // S
+    next_is_nonext = slot == (S - 1)
+    ext_idx = next_src * L + slot.clamp_max(L - 1)
+    next_ext = torch.gather(slot_toks.reshape(N, Kp * L), 1, ext_idx)
+    return _ctc_advance_tail(
+        y_prev, y_prev_last, y_prev_lens, prev_is_prefix,
+        next_src, next_ext, next_is_nonext, sel_vals,
+        nb_nonext, b_nonext, width, K, valid,
+    )
+
+
+def _lm_bias(uni: torch.Tensor, beta: float) -> torch.Tensor:
+    """The prologue's bias ``beta * uni``, rounded as the JAX package
+    rounds it: ``beta`` cast to float32, one float32 product. Rounding the
+    product in float64 and then casting can differ in the last bit, and
+    move a token across a tie in the top-M."""
+    return (uni.float() * torch.tensor(beta, dtype=torch.float32, device=uni.device)).contiguous()
 
 
 def _pow2(e: torch.Tensor) -> torch.Tensor:
@@ -296,42 +525,66 @@ def _ldexp(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
 
 
 class CTCPrefixSearch(torch.nn.Module):
-    """Batched CTC prefix beam search.
+    """Batched CTC prefix beam search with optional shallow LM fusion.
 
-    Call: ``search(logits, lens=None)`` with time-major ``logits
-    (T, N, V + 1)`` (blank last) on any device; returns ``(y (T, N, W),
-    y_lens (N, W), y_probs (N, W))`` with beams in descending order of
-    probability and dummy beams (when fewer than ``W`` prefixes exist) at
-    probability ``-inf``. Rows with ``lens == 0`` return the empty prefix.
-    float32 and bfloat16 logits are read as they are; any other float
-    dtype is upcast to float32 first, as the JAX package's prologue does.
+    Call: ``search(logits, lens=None, initial_state=None)`` with time-major
+    ``logits (T, N, V + 1)`` (blank last) on any device; returns ``(y (T,
+    N, W), y_lens (N, W), y_probs (N, W))`` with beams in descending order
+    of probability and dummy beams (when fewer than ``W`` prefixes exist)
+    at probability ``-inf``. Rows with ``lens == 0`` return the empty
+    prefix. float32 and bfloat16 logits are read as they are; any other
+    float dtype is upcast to float32 first, as the JAX package's prologue
+    does.
 
-    With no LM, ``T >= 2``, ``1 < W <= min(32, V)``, a shape that
-    :func:`~pydrobert_tpu_torch.ops.kernels.ctc_beam_search_fits` takes, and
-    :data:`pydrobert_tpu_torch.config.USE_BEAM_KERNEL` ``"1"`` (or
-    ``"auto"`` with :data:`~pydrobert_tpu_torch.config.DECODE_RENORM` off),
-    the whole search is one :func:`~pydrobert_tpu_torch.ops.kernels.
-    ctc_beam_search` (a Hopper kernel on the card) over raw masses; it
-    returns the unrenormalized scan's results, with probabilities that can
-    differ in the last ulps (the softmax is summed in another order).
+    ``lm`` (a :class:`~pydrobert_tpu_torch.lm.MixableSequentialLanguageModel`
+    over the same ``V``, on the logits' device) is fused at weight
+    ``beta``: extension probabilities are ``lm**beta * am``, or with
+    ``valid_mixture`` the mixture ``(1 - beta) * am + beta * lm * (1 -
+    blank)``. ``initial_state`` is the LM's starting state. The route
+    follows the JAX package:
 
-    Language-model fusion (``lm``) is not ported yet and raises
-    :class:`NotImplementedError`. ``beta`` is the LM's weight, kept for the
-    JAX package's signature: with no LM it has no effect on the search.
+    - a :class:`~pydrobert_tpu_torch.lm.LookupLanguageModel` of order 2 or
+      more with at most :data:`pydrobert_tpu_torch.config.
+      SPARSE_FUSION_MAX_CORRECTIONS` corrections takes the sparse advance:
+      the prologue's top-``M`` (``M = 2W + max_corrections``) of the logits
+      biased by ``beta * uni``, then per beam only those tokens, its stored
+      n-gram corrections, its last token and its non-extension;
+    - a unigram lookup LM takes the factored advance with the same bias;
+    - any other LM, ``valid_mixture``, or more corrections take the dense
+      advance over the full softmax, which runs no kernel.
+
+    With no LM (or ``beta == 0``), no ``initial_state``, ``T >= 2``, ``1 <
+    W <= min(32, V)``, a shape that :func:`~pydrobert_tpu_torch.ops.
+    kernels.ctc_beam_search_fits` takes, and :data:`pydrobert_tpu_torch.
+    config.USE_BEAM_KERNEL` ``"1"`` (or ``"auto"`` with
+    :data:`~pydrobert_tpu_torch.config.DECODE_RENORM` off), the whole
+    search is one :func:`~pydrobert_tpu_torch.ops.kernels.ctc_beam_search`
+    (a Hopper kernel on the card) over raw masses; it returns the
+    unrenormalized scan's results, with probabilities that can differ in
+    the last ulps (the softmax is summed in another order).
     """
 
-    def __init__(self, width: int, beta: float = 0.2, lm=None):
+    def __init__(
+        self,
+        width: int,
+        beta: float = 0.2,
+        lm: Optional[MixableSequentialLanguageModel] = None,
+        valid_mixture: bool = False,
+    ):
         super().__init__()
         self.width = argcheck.is_posi(width, "width")
-        self.beta = argcheck.is_float(beta, "beta")  # unread until LM fusion
-        if lm is not None:
-            raise NotImplementedError(
-                "shallow LM fusion is not ported to pydrobert_tpu_torch yet"
+        self.beta = argcheck.is_float(beta, "beta")
+        self.valid_mixture = argcheck.is_bool(valid_mixture, "valid_mixture")
+        if lm is not None and not isinstance(lm, MixableSequentialLanguageModel):
+            raise TypeError(
+                "lm must be a MixableSequentialLanguageModel, got "
+                f"{type(lm).__name__}"
             )
+        self.lm = lm
 
     def _takes_beam_route(self, T: int, N: int, V: int) -> bool:
-        """Whether a search of this shape takes the whole-loop route: it
-        depends on the config and the shape, never on the device."""
+        """Whether a no-LM search of this shape takes the whole-loop route:
+        it depends on the config and the shape, never on the device."""
         mode = str(config.USE_BEAM_KERNEL)
         W = self.width
         return (
@@ -342,8 +595,26 @@ class CTCPrefixSearch(torch.nn.Module):
             and ctc_beam_search_fits(T, N, V, W)
         )
 
+    def lm_route(self) -> Optional[str]:
+        """``"sparse"``, ``"uni"`` or ``"dense"``: the advance the LM
+        fusion takes (``decoding.py:1869-1893`` of the JAX package); None
+        without fusion."""
+        lm = self.lm
+        if lm is None or self.beta == 0:
+            return None
+        if self.valid_mixture or not isinstance(lm, LookupLanguageModel):
+            return "dense"
+        if lm.max_ngram == 1:
+            return "uni"
+        if lm.max_corrections <= config.SPARSE_FUSION_MAX_CORRECTIONS:
+            return "sparse"
+        return "dense"
+
     def forward(
-        self, logits: torch.Tensor, lens: Optional[torch.Tensor] = None
+        self,
+        logits: torch.Tensor,
+        lens: Optional[torch.Tensor] = None,
+        initial_state: Optional[dict] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         if logits.dim() != 3:
             raise RuntimeError("logits must be 3 dimensional")
@@ -354,6 +625,15 @@ class CTCPrefixSearch(torch.nn.Module):
         V = Vp1 - 1
         W = self.width
         dev = logits.device
+        lm, beta = self.lm, self.beta
+        if lm is not None and lm.vocab_size != V:
+            raise RuntimeError(
+                f"Expected dim 2 of logits to be {lm.vocab_size + 1}, got {Vp1}"
+            )
+        if isinstance(lm, LookupLanguageModel) and lm.device != dev:
+            raise RuntimeError(
+                f"the LM's tables are on {lm.device}, the logits on {dev}"
+            )
         if lens is None:
             lens = torch.full((N,), T, dtype=torch.long, device=dev)
         else:
@@ -364,8 +644,15 @@ class CTCPrefixSearch(torch.nn.Module):
                     f"expected dim 0 of lens to be {N}, got {lens.shape[0]}"
                 )
             lens = lens.to(dev, torch.long)
+        route = self.lm_route()
+        if route == "sparse" and config.SPARSE_MEMBERSHIP_GATHER:
+            raise NotImplementedError(
+                "SPARSE_MEMBERSHIP_GATHER (the bigram-table membership test) "
+                "is not ported; only the default compare path is"
+            )
+        prev = {} if initial_state is None else initial_state
 
-        if self._takes_beam_route(T, N, V):
+        if route is None and initial_state is None and self._takes_beam_route(T, N, V):
             # the JAX package's whole-loop route (decoding.py:1912-1930)
             lg32 = logits.float()
             sm_max = lg32.amax(2)
@@ -377,6 +664,9 @@ class CTCPrefixSearch(torch.nn.Module):
             top = hoisted_top_k(nonext_probs, min(V, 2 * W))
             return ctc_beam_search(nonext_probs, blank_probs, lens, W, top)
 
+        if lm is not None:
+            prev = lm.update_input(prev, torch.zeros((0, N), dtype=torch.long, device=dev))
+
         if T == 0:
             y = torch.zeros((0, N, W), dtype=torch.long, device=dev)
             y_lens = torch.zeros((N, W), dtype=torch.long, device=dev)
@@ -384,21 +674,94 @@ class CTCPrefixSearch(torch.nn.Module):
             y_probs[:, 0] = 1.0
             return y, y_lens, y_probs
 
-        # probabilities are only needed at the hoisted top-M tokens, the
-        # blank and each beam's last token: normalize those from the raw
-        # logits instead of materializing the (T, N, V) softmax
-        M = min(V, 2 * W)
-        top_lgts, top_inds, sm_max, sm_den, blank_probs = _decode_prologue(
-            logits.contiguous(), M
-        )
-        top_vals = torch.exp(top_lgts - sm_max[..., None]) / sm_den[..., None]
-        top_inds = top_inds.long()
+        if route == "dense":
+            probs = torch.softmax(logits.float(), 2)
+            blank_probs = probs[..., V]  # (T, N)
+            nonext_probs = probs[..., :V]  # (T, N, V)
+        else:
+            # probabilities are only needed at the hoisted top-M tokens, the
+            # blank and each beam's last token: normalize those from the
+            # raw logits instead of materializing the (T, N, V) softmax. An
+            # n-gram LM's unigram weight biases the top-M: g = am * exp(beta
+            # * uni) orders like logits + beta * uni.
+            g_bias = None if route is None else _lm_bias(lm._uni_t, beta)
+            C = lm.max_corrections if route == "sparse" else 0
+            M = min(V, 2 * W + C)
+            top_lgts, top_inds, sm_max, sm_den, blank_probs = _decode_prologue(
+                logits.contiguous(), M, g_bias
+            )
+            top_vals = torch.exp(top_lgts - sm_max[..., None]) / sm_den[..., None]
+            top_inds = top_inds.long()
+            if route is not None:
+                uni_cl = lm._uni_t.clamp_min(-1e30)
+            if route == "uni":
+                logZ1 = float(np.log(lm._sum_u)) if lm._sum_u > 0 else 0.0
+                top_vals = top_vals * float(np.exp(-beta * logZ1))
 
-        def p_last_at(t, y_last):
-            """Acoustic probability of each beam's last token at frame t."""
-            tok = y_last.clamp(0, V - 1)
+        def am_at(t, toks):
+            """Acoustic probabilities of tokens ``(N, Q)`` at frame t."""
+            tok = toks.clamp(0, V - 1)
             raw = torch.gather(logits[t], 1, tok).float().clamp_min(-1e30)
             return torch.exp(raw - sm_max[t][:, None]) / sm_den[t][:, None]
+
+        def uni_at(toks):
+            return uni_cl[toks.clamp(0, V - 1)]
+
+        def lm_ext_probs(y_buf, y_lens_flat, state, t, Kp):
+            """Dense route: fused extension probabilities ``(N, Kp, V)``."""
+            hist = y_buf.permute(2, 0, 1).reshape(T, N * Kp)
+            lm_lp, in_next = lm.calc_idx_log_probs(hist, state, y_lens_flat)
+            nonext_t = nonext_probs[t]
+            if self.valid_mixture:
+                lm_probs = (
+                    beta
+                    * torch.softmax(lm_lp, -1).reshape(N, Kp, V)
+                    * (1 - blank_probs[t].reshape(N, 1, 1))
+                )
+                ext = (1.0 - beta) * nonext_t[:, None] + lm_probs
+            else:
+                lm_probs = torch.exp(beta * torch.log_softmax(lm_lp, -1)).reshape(N, Kp, V)
+                ext = lm_probs * nonext_t[:, None]
+            return ext, in_next
+
+        def advance(t, nb, b, y_buf, y_last, y_lens, is_prefix, state, ctx, valid):
+            """One frame on this search's route; returns the tail's outputs
+            and the LM's next-state candidate."""
+            Kp = nb.shape[1]
+            if route == "sparse":
+                return _ctc_prefix_search_advance_sparse(
+                    (top_vals[t], top_inds[t]), partial(am_at, t), uni_at,
+                    blank_probs[t], beta, lm.sparse_corrections_ext(ctx), W,
+                    (nb, b), y_buf, y_last, y_lens, is_prefix, V, valid,
+                ), state
+            if route == "dense":
+                ext, in_next = lm_ext_probs(y_buf, y_lens.reshape(-1), state, t, Kp)
+                return ctc_prefix_search_advance(
+                    (ext, nonext_probs[t], blank_probs[t]), W, (nb, b),
+                    y_buf, y_last, y_lens, is_prefix, valid,
+                ), in_next
+            p_last = am_at(t, y_last)
+            p_last_ext = None
+            if route == "uni":
+                p_last_ext = p_last * torch.exp(beta * (uni_at(y_last) - logZ1))
+            return ctc_prefix_search_advance_factored(
+                (top_vals[t], top_inds[t]), blank_probs[t], p_last, W,
+                (nb, b), y_buf, y_last, y_lens, is_prefix, V, valid, p_last_ext,
+            ), state
+
+        def fuse_state(state, in_next, next_src, next_is_nonext, Kp):
+            if route is None:
+                return state
+            flat_src = (torch.arange(N, device=dev)[:, None] * Kp + next_src).reshape(-1)
+            state = lm.extract_by_src(state, flat_src)
+            in_next = lm.extract_by_src(in_next, flat_src)
+            return lm.mix_by_mask(state, in_next, next_is_nonext.reshape(-1))
+
+        def next_ctx(ctx, next_src, next_ext, next_is_nonext):
+            """Sparse route: each new beam's context, most recent first."""
+            ctx_src = torch.gather(ctx, 2, next_src[None].expand(ctx.shape[0], N, W))
+            shifted = torch.cat([next_ext[None], ctx_src[:-1]], 0)
+            return torch.where(next_is_nonext[None], ctx_src, shifted)
 
         # ---- t = 0 (prefix width 1 -> W) ----
         nb0 = torch.zeros((N, 1), dtype=torch.float32, device=dev)
@@ -406,47 +769,35 @@ class CTCPrefixSearch(torch.nn.Module):
         zeros_i = torch.zeros((N, 1), dtype=torch.long, device=dev)
         is_prefix0 = torch.ones((N, 1, 1), dtype=torch.bool, device=dev)
         buf0 = torch.zeros((N, 1, T), dtype=torch.long, device=dev)
-        y_buf, y_last, y_lens, (nb, b), is_prefix = (
-            ctc_prefix_search_advance_factored(
-                (top_vals[0], top_inds[0]),
-                blank_probs[0],
-                p_last_at(0, zeros_i),
-                W,
-                (nb0, b0),
-                buf0,
-                zeros_i,
-                zeros_i,
-                is_prefix0,
-                V,
-            )
-        )
+        ctx = None
+        if route == "sparse":
+            ctx = torch.full((lm.max_ngram - 1, N, 1), lm.sos, dtype=torch.long, device=dev)
+        (
+            (y_buf, y_last, y_lens, (nb, b), is_prefix, next_src, next_ext, next_is_nonext),
+            in_next,
+        ) = advance(0, nb0, b0, buf0, zeros_i, zeros_i, is_prefix0, prev, ctx, None)
+        state = fuse_state(prev, in_next, next_src, next_is_nonext, 1)
         # rows with lens == 0 keep the empty prefix
         valid0 = (lens > 0)[:, None]
         y_lens = torch.where(valid0, y_lens, 0)
         pad = torch.full((N, W - 1), MASS_PAD, dtype=torch.float32, device=dev)
         nb = torch.where(valid0, nb, torch.cat([nb0, pad], 1))
         b = torch.where(valid0, b, torch.cat([b0, pad], 1))
+        if route == "sparse":
+            ctx = torch.where(
+                valid0[None], next_ctx(ctx, next_src, next_ext, next_is_nonext), lm.sos
+            )
 
         # int32 accumulator of the power-of-two rescales (config.DECODE_RENORM)
         ls = torch.zeros((N,), dtype=torch.int32, device=dev)
         for t in range(1, T):
             valid = (t < lens)[:, None]
             (
-                y_buf, y_next_last, y_next_lens, (nb_next, b_next),
-                next_is_prefix,
-            ) = ctc_prefix_search_advance_factored(
-                (top_vals[t], top_inds[t]),
-                blank_probs[t],
-                p_last_at(t, y_last),
-                W,
-                (nb, b),
-                y_buf,
-                y_last,
-                y_lens,
-                is_prefix,
-                V,
-                valid=valid,
-            )
+                (y_buf, y_next_last, y_next_lens, (nb_next, b_next), next_is_prefix,
+                 next_src, next_ext, next_is_nonext),
+                in_next,
+            ) = advance(t, nb, b, y_buf, y_last, y_lens, is_prefix, state, ctx, valid)
+            state_next = fuse_state(state, in_next, next_src, next_is_nonext, W)
             y_lens = torch.where(valid, y_next_lens, y_lens)
             nb = torch.where(valid, nb_next, nb)
             b = torch.where(valid, b_next, b)
@@ -462,6 +813,22 @@ class CTCPrefixSearch(torch.nn.Module):
                 nb = (nb * fac).clamp_min(MASS_PAD)
                 b = (b * fac).clamp_min(MASS_PAD)
                 ls = ls + e
+            if route == "sparse":
+                ctx = torch.where(
+                    valid[None], next_ctx(ctx, next_src, next_ext, next_is_nonext), ctx
+                )
+            if route == "dense":
+                # frozen rows keep their state
+                vm = valid[:, 0].repeat_interleave(W)
+
+                def keep(new, old):
+                    if new.dim() and new.shape[0] == N * W:
+                        return torch.where(vm.reshape((N * W,) + (1,) * (new.dim() - 1)), new, old)
+                    return new
+
+                state = _pytree.tree_map(keep, state_next, state)
+            else:
+                state = state_next
             # frozen rows carry junk here; they are never advanced again
             y_last = y_next_last
             is_prefix = next_is_prefix

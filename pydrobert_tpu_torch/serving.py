@@ -64,9 +64,13 @@ class StreamingCTCRecognizer:
     margin. Partials re-decode the whole stream each time: poll them at
     the cadence they are shown.
 
+    ``lm`` and ``beta`` are the search's shallow fusion
+    (:class:`~pydrobert_tpu_torch.ops.decoding.CTCPrefixSearch`); a
+    :class:`~pydrobert_tpu_torch.lm.LookupLanguageModel` must live on the
+    model's device.
+
     The model's config must be causal: ``attention_context=(L, 0)`` with
-    finite ``L`` and ``causal_conv=True``. Language-model fusion (``lm``)
-    is not ported yet and raises :class:`NotImplementedError`.
+    finite ``L`` and ``causal_conv=True``.
     """
 
     def __init__(

@@ -7,21 +7,29 @@ PyTorch is installed; there, skip the repository's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from pydrobert_tpu_torch import config as pconfig
+from pydrobert_tpu_torch import lm as plm
 from pydrobert_tpu_torch import serving as pserving
 from pydrobert_tpu_torch.models import conformer as pconf
 from pydrobert_tpu_torch.ops import img as pimg
 from pydrobert_tpu_torch.ops import kernels
 from pydrobert_tpu_torch.ops._build import load_library
 from pydrobert_tpu_torch.ops import string as pstr
+from pydrobert_tpu_torch.ops import decoding as pdec
 from pydrobert_tpu_torch.ops.decoding import CTCPrefixSearch
 from pydrobert_tpu_torch.ops.topk import hoisted_top_k
 
+from _lm_dicts import random_prob_dicts
+
 pytestmark = pytest.mark.cuda
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -684,3 +692,89 @@ def test_streaming_session_on_card_matches_one_shot(dev, monkeypatch):
         for w in range(4):
             L = int(el[n, w])
             assert torch.equal(gy[:L, n, w], ey[:L, n, w])
+
+
+# ---------------------------------------------------------------------------
+# LM fusion: the prologue's g_bias route, an LM-fused decode, probing tables
+
+
+def _bench_lm(device):
+    """chip_smoke.py's copy of bench.py's 3-gram LM (V=1024, 23
+    corrections: the sparse route's M is 2 * 16 + 23 = 55)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.bench_lm(plm.LookupLanguageModel, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prologue_with_the_lm_bias_at_m55_matches_plain_version(dev, dtype):
+    """The bench LM's bias ``0.5 * uni`` at M = 55, on spread and on
+    quarter-step logits: bit-exact values, indices and tie order."""
+    lm = _bench_lm(dev)
+    M = 2 * 16 + lm.max_corrections
+    assert M == 55
+    bias = pdec._lm_bias(lm._uni_t, 0.5)
+    assert bias.device.type == "cuda" and bias.dtype == torch.float32
+    for ties in (False, True):
+        x = _logits((100, 8, 1025), 55, dev, dtype, ties=ties)
+        kernels.reset_launches()
+        tv, ti, mx, den, blank = kernels.decode_prologue(x, M, bias)
+        assert kernels.LAUNCHES["decode_prologue"] == 1
+        ev, ei, emx, eden, eblank = kernels.decode_prologue_reference(x, M, bias)
+        assert _bits_equal(tv, ev) and torch.equal(ti, ei)
+        assert torch.equal(mx, emx) and torch.equal(blank, eblank)
+        torch.testing.assert_close(den, eden, rtol=2e-6, atol=0)
+
+
+def _lm_pair(dev, V, N, seed, probing=False, monkeypatch=None):
+    if probing:
+        monkeypatch.setattr(plm, "_DENSE_CTX_MAX_ROWS", 0)
+    cpu = plm.LookupLanguageModel(V, sos=V, prob_dicts=random_prob_dicts(V, N, seed, V), device="cpu")
+    card = plm.LookupLanguageModel(V, sos=V, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+@pytest.mark.parametrize("route", ["sparse", "uni", "dense"])
+def test_lm_search_on_card_matches_cpu(dev, route, monkeypatch):
+    """A 4-gram (or unigram) LM over V=40 at W=8, T=30: hypotheses and
+    lengths equal to the CPU decode's, probabilities within rtol 1e-5; the
+    sparse and unigram routes launch the prologue once, the dense one
+    (forced by a zero correction bound) not at all."""
+    cpu, card = _lm_pair(dev, 40, 1 if route == "uni" else 4, 6)
+    if route == "dense":
+        monkeypatch.setattr(pconfig, "SPARSE_FUSION_MAX_CORRECTIONS", 0)
+    x = _logits((30, 6, 41), 8, torch.device("cpu"))
+    lens = torch.tensor([30, 25, 17, 7, 1, 0])
+    cy, cl, cp = CTCPrefixSearch(8, 0.5, cpu)(x, lens)
+    search = CTCPrefixSearch(8, 0.5, card)
+    assert search.lm_route() == route
+    kernels.reset_launches()
+    gy, gl, gp = (t.cpu() for t in search(x.to(dev), lens.to(dev)))
+    assert kernels.LAUNCHES["decode_prologue"] == (0 if route == "dense" else 1)
+    assert torch.equal(cl, gl)
+    mask = torch.arange(30)[:, None, None] < cl[None]
+    assert torch.equal(torch.where(mask, gy, -1), torch.where(mask, cy, -1))
+    torch.testing.assert_close(gp, cp, rtol=1e-5, atol=0)
+    with pytest.raises(RuntimeError, match="tables are on"):
+        CTCPrefixSearch(8, 0.5, cpu)(x.to(dev), lens.to(dev))
+
+
+@pytest.mark.parametrize("probing", [False, True])
+def test_lm_tables_on_card_match_cpu(dev, probing, monkeypatch):
+    """A 5-gram over V=40 (order 4 probing only; with ``probing`` every
+    order): the hash slots the card probes, its full log-probs, sequence
+    scores and sparse corrections equal the CPU's bit for bit."""
+    cpu, card = _lm_pair(dev, 40, 5, 4, probing, monkeypatch)
+    assert card._ctx_tables[-1].dense_packed is None
+    hist = torch.from_numpy(np.random.RandomState(0).randint(0, 40, (9, 50)))
+    assert _same_bits(card(hist.to(dev)).cpu(), cpu(hist))
+    assert _same_bits(card.score_sequences(hist.to(dev)).cpu(), cpu.score_sequences(hist))
+    ctx = torch.from_numpy(np.random.RandomState(1).randint(-1, 42, (4, 7, 3)))
+    for g, e in zip(card.sparse_corrections_ext(ctx.to(dev))[:6], cpu.sparse_corrections_ext(ctx)[:6]):
+        if e.dtype == torch.float32:
+            # the probing normalizer sums the lists in another order
+            torch.testing.assert_close(g.cpu(), e, rtol=1e-6, atol=1e-6)
+        else:
+            assert torch.equal(g.cpu(), e)

@@ -117,7 +117,9 @@ def test_pow2_is_exact():
 
 
 def test_ctc_prefix_search_lm_not_ported():
-    with pytest.raises(NotImplementedError):
+    """LM fusion is ported (tests/test_torch_decoding_lm.py); what is not
+    a mixable LM is refused when the search is made."""
+    with pytest.raises(TypeError, match="MixableSequentialLanguageModel"):
         pdec.CTCPrefixSearch(4, lm=object())
 
 

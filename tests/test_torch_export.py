@@ -12,10 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+import pydrobert_tpu.lm as jlm_mod
 from pydrobert_tpu.models import conformer as jconf
 from pydrobert_tpu.ops.decoding import CTCPrefixSearch, ctc_greedy_search
+from pydrobert_tpu_torch import lm as plm_lm
 from pydrobert_tpu_torch.export import ctc_recognizer
 from pydrobert_tpu_torch.models import conformer as pconf
+
+from _lm_dicts import random_prob_dicts
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(
@@ -82,6 +86,33 @@ def test_ctc_recognizer_greedy_matches_jax(models):
     )
     np.testing.assert_array_equal(hlens.numpy(), np.asarray(elens))
     np.testing.assert_array_equal(hyps.numpy(), np.asarray(ehyps))
+
+
+def test_ctc_recognizer_lm_matches_jax(models):
+    """The beam head shallow-fused with a 3-gram lookup LM (carried by its
+    state dict) against export_ctc_recognizer's body with the JAX LM."""
+    jmodel, params, pmodel, feats, lens = models
+    V = TINY["vocab_size"]
+    jlm = jlm_mod.LookupLanguageModel(V, sos=V, prob_dicts=random_prob_dicts(V, 3, 31, V))
+    plm = plm_lm.LookupLanguageModel(V, sos=V, device="cpu")
+    plm.load_state_dict(jlm.state_dict())
+    search = CTCPrefixSearch(4, beta=0.5, lm=jlm)
+
+    def fn(params, feats, lens):  # export_ctc_recognizer's beam body
+        logits, out_lens = jmodel.apply({"params": params}, feats, lens)
+        y, y_lens, y_probs = search(jnp.swapaxes(logits, 0, 1), out_lens)
+        return jnp.transpose(y, (1, 2, 0)), y_lens, y_probs
+
+    ehyps, elens, eprobs = (
+        np.asarray(e) for e in jax.jit(fn)(params, jnp.asarray(feats), jnp.asarray(lens))
+    )
+    hyps, hlens, probs = ctc_recognizer(pmodel, width=4, beta=0.5, lm=plm)(
+        torch.from_numpy(feats), torch.from_numpy(lens)
+    )
+    np.testing.assert_array_equal(hlens.numpy(), elens)
+    mask = np.arange(ehyps.shape[2])[None, None] < elens[..., None]
+    np.testing.assert_array_equal(np.where(mask, hyps.numpy(), -1), np.where(mask, ehyps, -1))
+    np.testing.assert_allclose(probs.numpy(), eprobs, rtol=1e-4, atol=0)
 
 
 def _port_sources():

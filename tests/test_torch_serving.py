@@ -11,13 +11,17 @@ import numpy as np
 import pytest
 import torch
 
+import pydrobert_tpu.lm as jlm_mod
 from pydrobert_tpu import config as jconfig
 from pydrobert_tpu.models import conformer as jconf
 from pydrobert_tpu.serving import StreamingCTCRecognizer as JaxRecognizer
 from pydrobert_tpu_torch import config as pconfig
+from pydrobert_tpu_torch import lm as plm_mod
 from pydrobert_tpu_torch import serving as pserving
 from pydrobert_tpu_torch.models import conformer as pconf
 from pydrobert_tpu_torch.ops import decoding as pdec
+
+from _lm_dicts import random_prob_dicts
 
 # tests/test_serving.py's causal encoder, with its CTC vocabulary
 CFG = dict(
@@ -159,5 +163,35 @@ def test_streaming_rejects_resume_noncausal_and_reuse(models):
             pserving.StreamingCTCRecognizer(model)
         with pytest.raises(ValueError, match="causal"):
             pconf.streaming_logits(model, torch.from_numpy(feats), torch.tensor([45] * 3), 4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="MixableSequentialLanguageModel"):
         pserving.StreamingCTCRecognizer(pmodel, lm=object())
+
+
+def test_streaming_recognizer_with_lm_matches_jax_and_one_shot(models):
+    """A 3-gram lookup LM fused at beta 0.5 (the sparse route): every
+    partial and the finish against the JAX session with the same LM
+    (carried by its state dict), and the finish against the port's
+    one-shot LM search of the full forward."""
+    jmodel, params, pmodel, feats, lens = models
+    V = CFG["vocab_size"]
+    jlm = jlm_mod.LookupLanguageModel(V, sos=V, prob_dicts=random_prob_dicts(V, 3, 21, V))
+    plm = plm_mod.LookupLanguageModel(V, sos=V, device="cpu")
+    plm.load_state_dict(jlm.state_dict())
+    kw = dict(chunk=4, width=4, beta=0.5, decode_pad_multiple=16)
+    jrec = JaxRecognizer(jmodel, params, lm=jlm, **kw)
+    prec = pserving.StreamingCTCRecognizer(pmodel, lm=plm, **kw)
+    assert prec.search.lm_route() == "sparse"
+    jsess, psess = jrec.start(3), prec.start(3)
+    t = 0
+    for size in (3, 30, 12):
+        chunk = feats[:, t : t + size]
+        new_lens = np.clip(lens - t, 0, size)
+        exp = jrec.push(jsess, chunk, new_lens, partials=True)
+        _compare(prec.push(psess, torch.from_numpy(chunk), new_lens, partials=True), exp)
+        t += size
+    got = prec.finish(psess)
+    _compare(got, jrec.finish(jsess))
+    with torch.no_grad():
+        logits, out_lens = pmodel(torch.from_numpy(feats), torch.from_numpy(lens))
+    one_shot = pdec.CTCPrefixSearch(4, 0.5, plm)(logits.transpose(0, 1).contiguous(), out_lens)
+    _compare((got[0][: logits.shape[1]],) + got[1:], one_shot)
