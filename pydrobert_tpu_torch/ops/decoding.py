@@ -1,5 +1,6 @@
-"""CTC greedy and prefix beam search, with shallow LM fusion (counterpart
-of :mod:`pydrobert_tpu.ops.decoding`).
+"""CTC greedy and prefix beam search with shallow LM fusion, beam search
+and random walks over a sequential LM, and sequence log-probabilities
+(counterpart of :mod:`pydrobert_tpu.ops.decoding`).
 
 :class:`CTCPrefixSearch` follows the JAX package's search step for step:
 one hoisted decode prologue over the whole ``(T, N, V + 1)`` logits
@@ -29,23 +30,34 @@ ctc_beam_search` over every frame, which carries raw masses.
 """
 
 from functools import partial
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import argcheck, config
-from ..lm import LookupLanguageModel, MixableSequentialLanguageModel
+from .. import argcheck, config, default_device
+from ..lm import (
+    ExtractableSequentialLanguageModel,
+    LookupLanguageModel,
+    MixableSequentialLanguageModel,
+    SequentialLanguageModel,
+)
 from ..utils import pytree as _pytree
 from .kernels import ctc_beam_search, ctc_beam_search_fits, decode_prologue
 from .topk import exact_top_k, hoisted_top_k
 
 __all__ = [
+    "BeamSearch",
     "CTCGreedySearch",
     "CTCPrefixSearch",
+    "RandomWalk",
+    "SequenceLogProbabilities",
+    "beam_search_advance",
     "ctc_greedy_search",
     "ctc_prefix_search_advance",
     "ctc_prefix_search_advance_factored",
+    "random_walk_advance",
+    "sequence_log_probs",
 ]
 
 NEG_INF = -float("inf")
@@ -844,3 +856,523 @@ class CTCPrefixSearch(torch.nn.Module):
         else:
             y_probs = torch.where(y_probs < 0, NEG_INF, y_probs)
         return y, y_lens, y_probs
+
+
+# ---- beam search and random walks over a sequential LM ----
+
+
+def _search_device(lm, state) -> torch.device:
+    """The device a search over ``lm`` from ``state`` runs on: the first
+    tensor of the state, else the LM's tables' device, else ``cuda``."""
+    found = []
+    _pytree.tree_map(
+        lambda leaf: found.append(leaf.device) if isinstance(leaf, torch.Tensor) else None,
+        state,
+    )
+    if found:
+        return found[0]
+    return default_device(getattr(lm, "device", None))
+
+
+def _scatter_token_rows(y_ext, lens, y_t):
+    """Write ``y_t (1, N, K)`` into ``y_ext (S1, N, K)`` at row ``lens[n, k]``."""
+    S1 = y_ext.shape[0]
+    pos = torch.arange(S1, device=y_ext.device).reshape(S1, 1, 1)
+    return torch.where(pos == lens[None], y_t, y_ext)
+
+
+def beam_search_advance(
+    log_probs_t: torch.Tensor,
+    width: int,
+    log_probs_prev: torch.Tensor,
+    y_prev: torch.Tensor,
+    y_prev_lens: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One beam search step: extend every path ``(N, Kp)`` by every token
+    of ``log_probs_t (N, Kp, V)`` and keep the best ``width``.
+
+    Returns ``(y_next (S + 1, N, width), y_next_lens, log_probs_next,
+    next_src)``; ``y_next`` always gains a row. Missing beams (``Kp * V <
+    width``) have log probability ``-inf``. The selection is
+    :func:`~pydrobert_tpu_torch.ops.topk.exact_top_k`, ties lowest index
+    first, as ``jax.lax.top_k``.
+    """
+    if log_probs_t.dim() != 3:
+        raise RuntimeError("log_probs_t must be 3 dimensional")
+    N, Kp, V = log_probs_t.shape
+    if width < 1:
+        raise RuntimeError(f"Expected width to be >= 1, got {width}")
+    if tuple(log_probs_prev.shape) != (N, Kp):
+        raise RuntimeError(
+            f"Expected log_probs_prev to be of shape {(N, Kp)}, got "
+            f"{tuple(log_probs_prev.shape)}"
+        )
+    if y_prev.dim() != 3:
+        raise RuntimeError("y_prev must be 3 dimensional")
+    if tuple(y_prev.shape[1:]) != (N, Kp):
+        raise RuntimeError(
+            f"Expected the last two dimensions of y_prev to be {(N, Kp)}, "
+            f"got {tuple(y_prev.shape[1:])}"
+        )
+    tm1 = y_prev.shape[0]
+    if y_prev_lens is not None and tuple(y_prev_lens.shape) != (N, Kp):
+        raise RuntimeError(
+            f"Expected y_prev_lens to have shape {(N, Kp)}, got "
+            f"{tuple(y_prev_lens.shape)}"
+        )
+    dev = log_probs_t.device
+    K = min(width, Kp * V)
+    cand = (log_probs_prev[..., None] + log_probs_t).reshape(N, Kp * V)
+    log_probs_next, next_ind = exact_top_k(cand, K)
+    next_src = next_ind // V
+    y_t = (next_ind % V)[None].to(y_prev.dtype)  # (1, N, K)
+    if tm1:
+        y_next = torch.gather(y_prev, 2, next_src[None].expand(tm1, N, K))
+        y_next = torch.cat([y_next, torch.zeros_like(y_t)], 0)
+        if y_prev_lens is None:
+            y_next[tm1] = y_t[0]
+            y_next_lens = torch.full((N, K), tm1 + 1, dtype=torch.long, device=dev)
+        else:
+            lens_prefix = torch.gather(y_prev_lens.long(), 1, next_src)
+            y_next = _scatter_token_rows(y_next, lens_prefix, y_t)
+            y_next_lens = lens_prefix + 1
+    else:
+        if y_prev_lens is not None and bool((y_prev_lens != 0).any()):
+            raise RuntimeError("Invalid lengths for t=0")
+        y_next = y_t
+        y_next_lens = torch.ones((N, K), dtype=torch.long, device=dev)
+    if K < width:
+        rem = width - K
+        y_next = torch.cat([y_next, y_next.new_zeros((y_next.shape[0], N, rem))], 2)
+        log_probs_next = torch.cat(
+            [log_probs_next, log_probs_next.new_full((N, rem), NEG_INF)], 1
+        )
+        zeros = torch.zeros((N, rem), dtype=torch.long, device=dev)
+        y_next_lens = torch.cat([y_next_lens, zeros], 1)
+        next_src = torch.cat([next_src, zeros], 1)
+    return y_next, y_next_lens, log_probs_next, next_src
+
+
+class BeamSearch:
+    """Batched beam search over an
+    :class:`~pydrobert_tpu_torch.lm.ExtractableSequentialLanguageModel`.
+
+    Per-path eos freezing (a finished path continues only by eos, at log
+    probability 0), ``finish_all_paths`` (a batch element is done when
+    every path is finished, else when its best is) and ``pad_value`` past
+    each path's length, as the JAX package's ``BeamSearch``. Call with
+    ``(initial_state=None, batch_size=None, max_iters)``; ``max_iters`` is
+    required. Returns ``(y (max_iters, N, width), y_lens (N, width),
+    y_log_probs (N, width))``, without the batch axis when ``batch_size``
+    is None. The search runs on the initial state's device, else the LM's
+    (``cuda`` by default).
+    """
+
+    def __init__(
+        self,
+        lm: ExtractableSequentialLanguageModel,
+        width: int,
+        eos: Optional[int] = None,
+        finish_all_paths: bool = False,
+        pad_value: int = config.INDEX_PAD_VALUE,
+    ):
+        self.width = argcheck.is_posi(width, "width")
+        if eos is not None:
+            if eos < -lm.vocab_size or eos >= lm.vocab_size:
+                raise ValueError(f"eos ({eos}) must index a token in the vocabulary")
+            eos = (eos + lm.vocab_size) % lm.vocab_size
+        self.lm = lm
+        self.eos = eos
+        self.finish_all_paths = argcheck.is_bool(finish_all_paths, "finish_all_paths")
+        self.pad_value = argcheck.is_int(pad_value, "pad_value")
+
+    def update_log_probs_for_step(
+        self, log_probs_prev, log_probs_t, y_prev, y_prev_lens, eos_mask
+    ):
+        """Subclass hook to turn probabilities into scores for one step."""
+        return log_probs_prev, log_probs_t
+
+    def takes_sparse_route(self) -> bool:
+        """Whether the LM is a lookup n-gram LM of order 2 or more with at
+        most :data:`~pydrobert_tpu_torch.config.SPARSE_FUSION_MAX_CORRECTIONS`
+        corrections and the scores are the log probabilities (read at call
+        time, as the JAX package reads it)."""
+        lm = self.lm
+        return (
+            isinstance(lm, LookupLanguageModel)
+            and lm.max_ngram >= 2
+            and lm.max_corrections <= config.SPARSE_FUSION_MAX_CORRECTIONS
+            and type(self).update_log_probs_for_step
+            is BeamSearch.update_log_probs_for_step
+        )
+
+    def __call__(
+        self,
+        initial_state: Optional[Dict[str, Any]] = None,
+        batch_size: Optional[int] = None,
+        max_iters: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        lm, W, V, eos = self.lm, self.width, self.lm.vocab_size, self.eos
+        initial_state = {} if initial_state is None else initial_state
+        if max_iters is None:
+            raise ValueError("max_iters must be set")
+        if max_iters < 0:
+            raise RuntimeError(f"max_iters must be non-negative, got {max_iters}")
+        N = 1 if batch_size is None else batch_size
+        S = max_iters
+        dev = _search_device(lm, initial_state)
+        f32, i64 = torch.float32, torch.long
+
+        def out(y, lens, lp):
+            if batch_size is None:
+                return y[:, 0], lens[0], lp[0]
+            return y, lens, lp
+
+        state = lm.update_input(initial_state, torch.zeros((0, N), dtype=i64, device=dev))
+        if S == 0:
+            lp = torch.full((N, W), NEG_INF, dtype=f32, device=dev)
+            lp[:, 0] = 0.0
+            return out(
+                torch.zeros((0, N, W), dtype=i64, device=dev),
+                torch.zeros((N, W), dtype=i64, device=dev), lp,
+            )
+        y_buf = torch.full((S, N, 1), self.pad_value, dtype=i64, device=dev)
+        eos_vec = None if eos is None else torch.arange(V, device=dev) == eos
+
+        def lm_step(y_buf_k, state, t, Kp):
+            hist = y_buf_k.clamp(0, V - 1).reshape(S, N * Kp)
+            log_probs_t, in_next = lm.calc_idx_log_probs(hist, state, t)
+            return torch.log_softmax(log_probs_t.reshape(N, Kp, V), -1), in_next
+
+        def mask_eos(log_probs_t, eos_mask):
+            if eos is None:
+                return log_probs_t
+            em = eos_mask[..., None]
+            lp = torch.where(em, NEG_INF, log_probs_t)
+            return torch.where(em & eos_vec, 0.0, lp)
+
+        use_sparse = self.takes_sparse_route()
+        if use_sparse:
+            # a backoff LM's conditional is uni[v] + base_k except on the
+            # beam's C stored corrections, and base_k keeps the beam's
+            # order, so the top-W extensions come from a static top-M of
+            # the unigrams, the corrections and eos
+            if config.SPARSE_MEMBERSHIP_GATHER:
+                raise NotImplementedError(
+                    "SPARSE_MEMBERSHIP_GATHER (the bigram-table membership "
+                    "test) is not ported; only the default compare path is"
+                )
+            Ng = lm.max_ngram
+            M = min(V, W + lm.max_corrections + 1)
+            uni_np = np.asarray(lm._uni_logp)
+            order = np.argsort(-uni_np, kind="stable")[:M]
+            top_toks = torch.as_tensor(order.astype(np.int64), device=dev)
+            stop_vals = torch.as_tensor(uni_np[order].astype(np.float32), device=dev)
+            uni_eos = float(uni_np[eos]) if eos is not None else 0.0
+
+            def select_sparse(lp_prev, ctx, eos_mask, Kp, K):
+                """``(lp_next, next_src, y_tok)``: the top-K over every
+                beam's slots."""
+                base, ctoks, cvals, cvalid, logZ = lm.sparse_corrections_ext(ctx)[:5]
+                ctoks = ctoks.long()
+                lp3 = lp_prev[:, :, None]
+                shared = lp3 + (base - logZ)[:, :, None] + stop_vals
+                dup = (
+                    (top_toks[None, None, :, None] == ctoks[:, :, None, :])
+                    & cvalid[:, :, None, :]
+                ).any(3)
+                if eos is not None:
+                    dup = dup | (top_toks == eos)[None, None, :]
+                shared = torch.where(dup, NEG_INF, shared)
+                corr = lp3 + cvals - logZ[:, :, None]
+                corr_bad = ~cvalid
+                if eos is not None:
+                    corr_bad = corr_bad | (ctoks == eos)
+                corr = torch.where(corr_bad, NEG_INF, corr)
+                slots = [shared, corr]
+                slot_toks = [top_toks[None, None].expand(N, Kp, M), ctoks]
+                if eos is not None:
+                    em3 = eos_mask[:, :, None]
+                    slots = [torch.where(em3, NEG_INF, shared), torch.where(em3, NEG_INF, corr)]
+                    eos_in_corr = (ctoks == eos) & cvalid
+                    lm_eos = torch.where(eos_in_corr, cvals, 0.0).sum(2) + torch.where(
+                        eos_in_corr.any(2), 0.0, base + uni_eos
+                    )
+                    eos_score = lp_prev + lm_eos - logZ
+                    # finished beams continue only via eos, at log-prob 0
+                    eos_score = torch.where(eos_mask, lp_prev, eos_score)
+                    slots.append(eos_score[:, :, None])
+                    slot_toks.append(torch.full((N, Kp, 1), eos, dtype=i64, device=dev))
+                cand = torch.cat(slots, 2)  # (N, Kp, Ssl)
+                toks = torch.cat(slot_toks, 2)
+                Ssl = cand.shape[2]
+                lp_next, ind = exact_top_k(cand.reshape(N, Kp * Ssl), K)
+                return lp_next, ind // Ssl, torch.gather(toks.reshape(N, Kp * Ssl), 1, ind)
+
+            ctx = torch.full((Ng - 1, N, 1), lm.sos, dtype=i64, device=dev)
+        else:
+            ctx = None
+
+        # ---- step 0 (beam width 1 -> W) ----
+        lp_prev0 = torch.zeros((N, 1), dtype=f32, device=dev)
+        eos_mask0 = torch.zeros((N, 1), dtype=torch.bool, device=dev)
+        K = min(W, V)
+        if use_sparse:
+            in_next = state
+            log_probs, _, y_t = select_sparse(lp_prev0, ctx, eos_mask0, 1, K)
+            ctx_b = ctx.expand(Ng - 1, N, K)
+            ctx = torch.cat([y_t[None], ctx_b[:-1]], 0)
+            if K < W:
+                ctx = torch.cat(
+                    [ctx, torch.full((Ng - 1, N, W - K), lm.sos, dtype=i64, device=dev)], 2
+                )
+        else:
+            log_probs_t, in_next = lm_step(y_buf, state, 0, 1)
+            lens0 = torch.zeros((N, 1), dtype=i64, device=dev)
+            lp_prev0, log_probs_t = self.update_log_probs_for_step(
+                lp_prev0, log_probs_t, y_buf, lens0, eos_mask0
+            )
+            log_probs_t = mask_eos(log_probs_t, eos_mask0)
+            cand = (lp_prev0[..., None] + log_probs_t).reshape(N, V)
+            log_probs, next_ind = exact_top_k(cand, K)
+            y_t = next_ind % V
+        if K < W:
+            log_probs = torch.cat([log_probs, log_probs.new_full((N, W - K), NEG_INF)], 1)
+            y_t = torch.cat([y_t, y_t.new_zeros((N, W - K))], 1)
+        y_buf = y_buf.expand(S, N, W).clone()
+        y_buf[0] = y_t
+        y_lens = torch.cat(
+            [torch.ones((N, K), dtype=i64, device=dev), torch.zeros((N, W - K), dtype=i64, device=dev)],
+            1,
+        )
+        state = lm.extract_by_src(in_next, torch.arange(N, device=dev).repeat_interleave(W))
+        if eos is not None:
+            eos_mask = (y_t == eos) & (y_lens > 0)
+        else:
+            eos_mask = torch.zeros((N, W), dtype=torch.bool, device=dev)
+        flat_base = torch.arange(N, device=dev)[:, None] * W
+
+        for t in range(1, S):
+            if eos is not None:
+                done = eos_mask.all(1) if self.finish_all_paths else eos_mask[:, 0]
+                if bool(done.all()):
+                    break
+                done_mask = (
+                    eos_mask.all(1, keepdim=True) if self.finish_all_paths else eos_mask[:, :1]
+                )
+            else:
+                done_mask = torch.zeros((N, 1), dtype=torch.bool, device=dev)
+            if use_sparse:
+                in_next = state
+                lp_next, next_src, y_tok = select_sparse(log_probs, ctx, eos_mask, W, W)
+                y_t = y_tok[None]  # (1, N, W)
+            else:
+                log_probs_t, in_next = lm_step(y_buf, state, t, W)
+                log_probs_prev, log_probs_t = self.update_log_probs_for_step(
+                    log_probs, log_probs_t, y_buf, y_lens, eos_mask
+                )
+                log_probs_t = mask_eos(log_probs_t, eos_mask)
+                cand = (log_probs_prev[..., None] + log_probs_t).reshape(N, W * V)
+                lp_next, next_ind = exact_top_k(cand, W)
+                next_src = next_ind // V
+                y_t = (next_ind % V)[None]
+            y_next = torch.gather(y_buf, 2, next_src[None].expand(S, N, W))
+            lens_prefix = torch.gather(y_lens, 1, next_src)
+            y_next = _scatter_token_rows(y_next, lens_prefix, y_t)
+            lens_next = lens_prefix + 1
+            if eos is not None:
+                lens_next = lens_next - torch.gather(eos_mask.long(), 1, next_src)
+            state_next = lm.extract_by_src(in_next, (flat_base + next_src).reshape(-1))
+            if use_sparse:
+                ctx_src = torch.gather(ctx, 2, next_src[None].expand(Ng - 1, N, W))
+                ctx_next = torch.cat([y_t, ctx_src[:-1]], 0)
+                ctx = torch.where(done_mask[None], ctx, ctx_next)
+            # freeze finished batch elements
+            y_next = torch.where(done_mask[None], y_buf, y_next)
+            lens_next = torch.where(done_mask, y_lens, lens_next)
+            lp_next = torch.where(done_mask, log_probs, lp_next)
+            if eos is not None and not use_sparse:
+                keep = done_mask[:, 0].repeat_interleave(W)
+
+                def freeze(new, old):
+                    if new.dim() and new.shape[0] == N * W:
+                        return torch.where(
+                            keep.reshape((N * W,) + (1,) * (new.dim() - 1)), old, new
+                        )
+                    return new
+
+                state_next = _pytree.tree_map(freeze, state_next, state)
+            if eos is not None:
+                eos_next = (y_t[0] == eos) & (lens_next > 0)
+                eos_mask = torch.where(done_mask, eos_mask, eos_next)
+            y_buf, y_lens, log_probs, state = y_next, lens_next, lp_next, state_next
+        return out(y_buf, y_lens, log_probs)
+
+
+def _gumbel_max(generator: Optional[torch.Generator], log_probs: torch.Tensor) -> torch.Tensor:
+    """One sample per row of ``log_probs (N, V)``, from the categorical
+    distribution of its softmax: ``argmax(log_probs + Gumbel noise)``, the
+    uniforms drawn from ``generator`` (on its own device)."""
+    dev = log_probs.device if generator is None else generator.device
+    u = torch.rand(log_probs.shape, generator=generator, device=dev).to(log_probs.device)
+    return torch.argmax(log_probs - torch.log(-torch.log(u)), -1)
+
+
+def random_walk_advance(
+    generator: Optional[torch.Generator],
+    log_probs_t: torch.Tensor,
+    log_probs_prev: torch.Tensor,
+    y_prev: torch.Tensor,
+    y_prev_lens: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One random-walk step: sample a token per batch element from
+    ``log_probs_t (N, V)`` with ``generator``. Returns ``(y_next (S + 1,
+    N), log_probs_next (N,))``; ``y_next`` always gains a row, and with
+    ``y_prev_lens`` the token lands at each element's length."""
+    if log_probs_t.dim() != 2:
+        raise RuntimeError("log_probs_t must be 2-dimensional")
+    N, V = log_probs_t.shape
+    if tuple(log_probs_prev.shape) != (N,):
+        raise RuntimeError(
+            f"Expected log_probs_prev to be of shape {(N,)}, got "
+            f"{tuple(log_probs_prev.shape)}"
+        )
+    if y_prev.dim() != 2:
+        raise RuntimeError("y_prev must be 2-dimensional")
+    if y_prev.shape[1] != N:
+        raise RuntimeError(f"Expected dim 1 of y_prev to be {N}, got {y_prev.shape[1]}")
+    tm1 = y_prev.shape[0]
+    y_t = _gumbel_max(generator, log_probs_t)
+    log_probs_next = log_probs_prev + torch.gather(log_probs_t, 1, y_t[:, None])[:, 0]
+    y_t = y_t.to(y_prev.dtype if tm1 else torch.long)
+    if tm1:
+        y_next = torch.cat([y_prev, y_t[None]], 0)
+        if y_prev_lens is not None:
+            pos = torch.arange(tm1 + 1, device=y_prev.device)[:, None]
+            y_next = torch.where(pos == y_prev_lens[None], y_t[None], y_next)
+    else:
+        y_next = y_t[None]
+    return y_next, log_probs_next
+
+
+class RandomWalk:
+    """Ancestral sampling from a
+    :class:`~pydrobert_tpu_torch.lm.SequentialLanguageModel`: each step
+    draws a token from the LM's conditional (all ``V`` tokens scored), a
+    finished path (one that drew ``eos``) continues only by eos at log
+    probability 0, and the walk stops when every path is finished or after
+    ``max_iters`` steps. Call with ``(generator, initial_state=None,
+    batch_size=None, max_iters)``; returns ``(y (max_iters, N), y_lens
+    (N,), y_log_probs (N,))``, without the batch axis when ``batch_size``
+    is None. Unfilled rows of ``y`` are 0, and a finished path's rows
+    after its eos repeat eos, as in the JAX package's walk.
+    """
+
+    def __init__(self, lm: SequentialLanguageModel, eos: Optional[int] = None):
+        if eos is not None:
+            if eos < -lm.vocab_size or eos >= lm.vocab_size:
+                raise ValueError(f"eos ({eos}) must index a token in the vocabulary")
+            eos = (eos + lm.vocab_size) % lm.vocab_size
+        self.lm = lm
+        self.eos = eos
+
+    def update_log_probs_for_step(
+        self, log_probs_prev, log_probs_t, y_prev, y_prev_lens, eos_mask
+    ):
+        """Subclass hook to turn probabilities into scores for one step."""
+        return log_probs_prev, log_probs_t
+
+    def __call__(
+        self,
+        generator: Optional[torch.Generator],
+        initial_state: Optional[Dict[str, Any]] = None,
+        batch_size: Optional[int] = None,
+        max_iters: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        lm, eos = self.lm, self.eos
+        V = lm.vocab_size
+        prev = {} if initial_state is None else initial_state
+        if max_iters is None:
+            raise ValueError("max_iters must be set")
+        if max_iters < 0:
+            raise RuntimeError(f"max_iters must be non-negative, got {max_iters}")
+        N = 1 if batch_size is None else batch_size
+        S = max_iters
+        dev = _search_device(lm, prev)
+        prev = lm.update_input(prev, torch.zeros((0, N), dtype=torch.long, device=dev))
+        y = torch.zeros((S, N), dtype=torch.long, device=dev)
+        y_lens = torch.zeros((N,), dtype=torch.long, device=dev)
+        eos_mask = torch.zeros((N,), dtype=torch.bool, device=dev)
+        log_probs = torch.zeros((N,), dtype=torch.float32, device=dev)
+        eos_vec = None if eos is None else torch.arange(V, device=dev) == eos
+        pos = torch.arange(S, device=dev)[:, None]
+        for t in range(S):
+            if eos is not None and bool(eos_mask.all()):
+                break
+            log_probs_t, prev = lm.calc_idx_log_probs(y, prev, t)
+            log_probs_t = torch.log_softmax(log_probs_t, -1)
+            log_probs, log_probs_t = self.update_log_probs_for_step(
+                log_probs, log_probs_t, y, y_lens, eos_mask
+            )
+            if eos is not None:
+                lp = torch.where(eos_mask[:, None], NEG_INF, log_probs_t)
+                log_probs_t = torch.where(eos_mask[:, None] & eos_vec, 0.0, lp)
+            y_t = _gumbel_max(generator, log_probs_t)
+            log_probs = log_probs + torch.gather(log_probs_t, 1, y_t[:, None])[:, 0]
+            y = torch.where(pos == y_lens[None], y_t[None], y)
+            if eos is not None:
+                y_lens = y_lens + (~eos_mask).long()
+                last = torch.gather(y, 0, (y_lens - 1).clamp_min(0)[None])[0]
+                eos_mask = (last == eos) & (y_lens > 0)
+            else:
+                y_lens = y_lens + 1
+        if batch_size is None:
+            return y[:, 0], y_lens[0], log_probs[0]
+        return y, y_lens, log_probs
+
+
+def sequence_log_probs(
+    logits: torch.Tensor,
+    hyp: torch.Tensor,
+    dim: int = 0,
+    eos: Optional[int] = None,
+) -> torch.Tensor:
+    """Joint log probability of the sequences ``hyp`` under ``logits``
+    (``hyp``'s shape plus the vocabulary): the log-softmax of ``logits`` at
+    each token, summed over ``dim`` up to and including the first ``eos``.
+    Tokens outside ``[0, V)`` (padding) count nothing."""
+    from .string import _lens_from_eos
+
+    hyp_dim = hyp.dim()
+    if dim < -hyp_dim or dim > hyp_dim - 1:
+        raise RuntimeError(
+            "Dimension out of range (expected to be in range of [{}, {}], but "
+            "got {})".format(-hyp_dim, hyp_dim - 1, dim)
+        )
+    dim = (hyp_dim + dim) % hyp_dim
+    steps = hyp.shape[dim]
+    num_classes = logits.shape[-1]
+    logits = torch.log_softmax(logits, -1)
+    hyp = hyp.to(logits.device)
+    mask = (hyp < 0) | (hyp >= num_classes)
+    if eos is not None:
+        hyp_lens = _lens_from_eos(hyp, eos, dim) + 1
+        shape = [1] * hyp_dim
+        shape[dim] = steps
+        arange = torch.arange(steps, device=hyp.device).reshape(shape)
+        mask = mask | (arange >= hyp_lens.unsqueeze(dim))
+    hyp_safe = torch.where(mask, 0, hyp).long()
+    gathered = torch.gather(logits, -1, hyp_safe[..., None])[..., 0]
+    return torch.where(mask, 0.0, gathered).sum(dim)
+
+
+class SequenceLogProbabilities(torch.nn.Module):
+    """Module wrapper for :func:`sequence_log_probs`."""
+
+    def __init__(self, dim: int = 0, eos: Optional[int] = None):
+        super().__init__()
+        self.dim = argcheck.is_int(dim, "dim")
+        self.eos = None if eos is None else argcheck.is_int(eos, "eos")
+
+    def forward(self, logits, hyp):
+        return sequence_log_probs(logits, hyp, self.dim, self.eos)

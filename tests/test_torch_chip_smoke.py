@@ -1,11 +1,12 @@
 """chip_smoke.py's training-step gradient criterion, on the
 CPU: the card's float32 gradient may lie no farther from a float64 witness
 than ``GRAD_K`` (2.5) times the CPU's float32 gradient does, or
-``GRAD_FLOOR`` (1e-3) if that is more, each distance over the tensor's
-largest witness entry. It must pass the readings it was set from (the
-sets that failed the fixed 1e-3 bound without a fault, and the ends of
-the card/CPU ratios recorded before it, in PERF.md) and fail on a
-planted fault: one tensor's card gradient scaled by 1.01."""
+``GRAD_FLOOR`` (2.5e-3) if that is more, each distance over the tensor's
+largest witness entry, and the card's own float64 step must lie within
+``GRAD64_LIMIT`` (1e-5) of the witness. It must pass every reading that
+PERF.md records for the trained weight sets it was sized from (the set
+where the card read 1.049e-3 and the CPU 1.31e-4 among them) and fail on a planted fault, one
+tensor's card gradient scaled by 1.01, at each of them."""
 
 import importlib.util
 import os
@@ -27,16 +28,28 @@ def smoke():
 
 
 # (card, CPU) distances from the witness that the card gave without a
-# fault: the three sets that failed the old fixed 1e-3 bound, at
-# subsample.conv1/conv2.weight, and the ends of the earlier card/CPU
-# ratios
+# fault (PERF.md): the three sets that failed the old fixed 1e-3 bound, at
+# subsample.conv1/conv2.weight, the ends of the earlier card/CPU ratios,
+# and the set at ratio 8.0, which failed the criterion before this one
 RECORDED = [
     (1.18e-3, 9.35e-4),
     (2.13e-3, 2.13e-3),
     (1.169e-3, 1.157e-3),
     (5.1e-4, 5.1e-4 / 1.77),
     (1.0e-4, 1.0e-4 / 0.76),
+    (1.049e-3, 1.31e-4),
 ]
+# 16 more sets (--train-witness 8, two calls; PERF.md): each set's
+# largest card distance and its worst card/CPU ratio, paired as if they
+# met at one tensor, which asks more than any of its tensors did
+PR7_SETS = [
+    (2.677e-4, 1.21), (3.260e-4, 2.27), (2.363e-4, 1.86), (8.41e-5, 1.60),
+    (2.515e-4, 1.48), (2.952e-4, 1.18), (1.049e-3, 8.00), (2.804e-4, 2.43),
+    (2.421e-4, 1.17), (3.366e-4, 1.37), (1.587e-4, 0.99), (1.331e-4, 2.79),
+    (1.110e-4, 1.21), (3.088e-4, 1.14), (3.892e-4, 1.12), (4.379e-4, 1.28),
+]
+ALL_READINGS = RECORDED + [(c, c / r) for c, r in PR7_SETS]
+CARD64_RECORDED = (9.4e-8, 2.5e-7)  # the card's float64 step (PERF.md)
 
 
 @pytest.mark.parametrize("card,cpu", RECORDED)
@@ -47,13 +60,35 @@ def test_grad_criterion_passes_recorded_readings(smoke, card, cpu):
     assert res["grad_vs_f64_limit_use"] <= 1.0
 
 
+@pytest.mark.parametrize("card,cpu", ALL_READINGS)
+def test_grad_criterion_fails_the_planted_fault_at_each_reading(smoke, card, cpu):
+    """A card gradient scaled by 1.01 lies at least ``1e-2 * (1 - card) -
+    card`` from the witness, over its tensor's largest entry, where the
+    unscaled one lay ``card``; the criterion fails it, and passes the
+    reading itself with the card's float64 step at its recorded worst."""
+    planted = 1e-2 * (1 - card) - card
+    ok, res = smoke.grad_criterion({"w": planted}, {"w": cpu}, {"w": CARD64_RECORDED[1]})
+    assert not ok and res["grad_vs_f64_failed"] == ["w"] and res["grad_card64_ok"]
+    ok, res = smoke.grad_criterion({"w": card}, {"w": cpu}, {"w": CARD64_RECORDED[1]})
+    assert ok
+
+
+@pytest.mark.parametrize("card64,ok", [(CARD64_RECORDED[0], True), (CARD64_RECORDED[1], True),
+                                       (1e-4, False)])
+def test_grad_criterion_holds_the_card_float64_step(smoke, card64, ok):
+    """A card whose own float64 step strays from the witness fails, even
+    where its float32 distances pass."""
+    got, res = smoke.grad_criterion({"w": 1e-4}, {"w": 1e-4}, {"w": card64, "v": 1e-9})
+    assert got == ok and res["grad_card64_ok"] == ok and res["grad_card64_vs_f64_at"] == "w"
+
+
 def test_grad_criterion_reports_the_worst_tensor(smoke):
     card = {f"t{i}": c for i, (c, _) in enumerate(RECORDED)}
     cpu = {f"t{i}": c for i, (_, c) in enumerate(RECORDED)}
     ok, res = smoke.grad_criterion(card, cpu)
     assert ok
-    assert res["grad_vs_f64_ratio_at"] == "t3"  # 1.77
-    assert res["grad_vs_f64_limit_use_at"] == "t3"  # 5.1e-4 of the 1e-3 floor
+    assert res["grad_vs_f64_ratio_at"] == "t5"  # 8.0
+    assert res["grad_vs_f64_limit_use_at"] == "t0"  # 1.18e-3 of the 2.5e-3 floor
     card["t1"] = 5.4e-3
     ok, res = smoke.grad_criterion(card, cpu)
     assert not ok and res["grad_vs_f64_failed"] == ["t1"]

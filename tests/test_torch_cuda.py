@@ -778,3 +778,96 @@ def test_lm_tables_on_card_match_cpu(dev, probing, monkeypatch):
             torch.testing.assert_close(g.cpu(), e, rtol=1e-6, atol=1e-6)
         else:
             assert torch.equal(g.cpu(), e)
+
+
+def test_edit_distance_at_the_mer_shape_matches_plain_version(dev):
+    """The MER loss's error rates: references (12, 64) and sampled
+    hypotheses (16, 64) padded with -1, which is their eos, through
+    ``error_rate`` (one launch) and the kernel, each equal to its plain
+    version on the same inputs."""
+    rng = np.random.RandomState(13)
+    ref = rng.randint(0, 63, (12, 64))
+    hyp = rng.randint(0, 64, (16, 64))
+    ref[rng.randint(4, 12, 64), np.arange(64)] = -1
+    hyp[rng.randint(0, 17, 64) % 16, np.arange(64)] = -1
+    ref, hyp = torch.from_numpy(ref), torch.from_numpy(hyp)
+    kernels.reset_launches()
+    got = pstr.error_rate(ref.to(dev), hyp.to(dev), eos=-1, warn=False)
+    assert kernels.LAUNCHES["edit_distance"] == 1
+    assert torch.equal(got.cpu(), pstr.error_rate(ref, hyp, eos=-1, warn=False))
+    rl = torch.from_numpy(np.argmax(np.vstack([ref.numpy(), -np.ones((1, 64))]) == -1, 0))
+    hl = torch.from_numpy(np.argmax(np.vstack([hyp.numpy(), -np.ones((1, 64))]) == -1, 0))
+    args = (ref, hyp, rl, hl, 1.0, 1.0, 1.0)
+    card = kernels.edit_distance(*(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args))
+    assert torch.equal(card.cpu(), kernels.edit_distance_reference(*args))
+
+
+def _s2s_pair(dev, scale=4.0):
+    from pydrobert_tpu_torch.models import seq2seq as ps2s
+
+    cfg = ps2s.Seq2SeqConfig(vocab_size=16, num_filts=8, enc_hidden=24, dec_hidden=24,
+                             embed_dim=12, attn_hidden=20)
+    card = ps2s.AttentionSeq2Seq(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        card.decoder_step.out.weight.mul_(scale)
+    cpu = ps2s.AttentionSeq2Seq(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    return ps2s, cpu, card
+
+
+def test_seq2seq_on_card_matches_cpu(dev):
+    """The encoder at every frame, padding included, and the decoder's log
+    probabilities over a history within 1e-5 of a CPU copy's (float32:
+    cuDNN's GRU without TF32)."""
+    ps2s, cpu, card = _s2s_pair(dev)
+    rng = np.random.RandomState(1)
+    feats = torch.from_numpy(rng.randn(5, 30, 8).astype(np.float32))
+    lens = torch.tensor([30, 22, 15, 9, 1])
+    hist = torch.from_numpy(rng.randint(0, 16, (7, 5)))
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ce, cm = cpu.encode(feats, lens)
+        ge, gm = card.encode(feats.to(dev), lens.to(dev))
+        assert torch.equal(gm.cpu(), cm)
+        torch.testing.assert_close(ge.cpu(), ce, rtol=0, atol=1e-5)
+        clm, glm = ps2s.Seq2SeqDecoderLM(cpu), ps2s.Seq2SeqDecoderLM(card)
+        cl = clm(hist, clm.initial_state(feats, lens))
+        gl = glm(hist.to(dev), glm.initial_state(feats.to(dev), lens.to(dev)))
+    torch.testing.assert_close(gl.cpu(), cl, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("eos,finish_all", [(0, False), (3, True), (None, False)])
+def test_seq2seq_beam_search_on_card_matches_cpu(dev, eos, finish_all):
+    """BeamSearch over the decoder at W=6 over 8 steps: lengths and the
+    whole path buffer equal to the CPU's, log probabilities within rtol
+    1e-5."""
+    ps2s, cpu, card = _s2s_pair(dev)
+    rng = np.random.RandomState(2)
+    feats = torch.from_numpy(rng.randn(4, 25, 8).astype(np.float32))
+    lens = torch.tensor([25, 20, 11, 3])
+    out = []
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for model, d in ((cpu, "cpu"), (card, dev)):
+            lm = ps2s.Seq2SeqDecoderLM(model)
+            state = lm.initial_state(feats.to(d), lens.to(d))
+            out.append([t.cpu() for t in pdec.BeamSearch(lm, 6, eos, finish_all)(state, 4, 8)])
+    (cy, cl, cp), (gy, gl, gp) = out
+    assert torch.equal(gl, cl) and torch.equal(gy, cy)
+    torch.testing.assert_close(gp, cp, rtol=1e-5, atol=0)
+
+
+def test_ngram_beam_search_on_card_matches_cpu(dev):
+    """A lookup 3-gram over V=40 on the sparse route, and on the dense
+    route with the sparse bound at 0: lengths and path buffer equal to a
+    CPU copy's."""
+    cpu, card = _lm_pair(dev, 40, 3, 6)
+    for bound in (pconfig.SPARSE_FUSION_MAX_CORRECTIONS, 0):
+        old, pconfig.SPARSE_FUSION_MAX_CORRECTIONS = pconfig.SPARSE_FUSION_MAX_CORRECTIONS, bound
+        try:
+            search = pdec.BeamSearch(card, 8, eos=5)
+            assert search.takes_sparse_route() == (bound > 0)
+            gy, gl, gp = (t.cpu() for t in search(batch_size=4, max_iters=12))
+            cy, cl, cp = pdec.BeamSearch(cpu, 8, eos=5)(batch_size=4, max_iters=12)
+        finally:
+            pconfig.SPARSE_FUSION_MAX_CORRECTIONS = old
+        assert torch.equal(gl, cl) and torch.equal(gy, cy)
+        torch.testing.assert_close(gp, cp, rtol=1e-5, atol=0)
