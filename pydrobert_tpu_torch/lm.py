@@ -670,7 +670,10 @@ class LookupLanguageModel(MixableSequentialLanguageModel):
         S, B = hist.shape
         N = self.max_ngram
         dev = hist.device
-        idxs = torch.as_tensor(idx, dtype=torch.long, device=dev).expand(B)
+        if isinstance(idx, int):  # filled on the device: no host copy, no sync
+            idxs = torch.full((B,), idx, dtype=torch.long, device=dev)
+        else:
+            idxs = torch.as_tensor(idx, dtype=torch.long, device=dev).expand(B)
         pos = idxs[None, :] - 1 - torch.arange(N - 1, device=dev)[:, None]
         if S == 0:
             return torch.full((N - 1, B), self.sos, dtype=torch.long, device=dev)

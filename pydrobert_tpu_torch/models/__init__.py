@@ -16,18 +16,32 @@ from .seq2seq import (
     adam,
     make_mer_train_step,
 )
+from .transducer import (
+    ConformerTransducer,
+    TransducerConfig,
+    lookup_lm_fusion,
+    make_transducer_train_step,
+    streaming_transducer_beam,
+    streaming_transducer_greedy,
+)
 
 __all__ = [
     "AttentionSeq2Seq",
     "ConformerConfig",
     "ConformerCTC",
+    "ConformerTransducer",
     "Seq2SeqConfig",
     "Seq2SeqDecoderLM",
+    "TransducerConfig",
     "adam",
     "adamw",
     "ctc_loss",
+    "lookup_lm_fusion",
     "make_mer_train_step",
     "make_train_step",
+    "make_transducer_train_step",
     "state_dict_from_jax",
     "streaming_logits",
+    "streaming_transducer_beam",
+    "streaming_transducer_greedy",
 ]

@@ -339,6 +339,64 @@ def _sinusoidal_pos_emb(T: int, d: int, dtype, device, offset: int = 0) -> torch
     return emb.to(dtype)
 
 
+def _add_encoder(module: nn.Module, cfg: ConformerConfig) -> None:
+    """Give ``module`` the encoder's submodules under the flax names
+    (``subsample``, ``block_i``) and its input dropout, for
+    :func:`_encoder_body`."""
+    module.subsample = _ConvSubsample(cfg)
+    for i in range(cfg.num_layers):
+        module.add_module(f"block_{i}", _ConformerBlock(cfg))
+    module.drop = _FastDropout(cfg.dropout)
+
+
+def _encoder_body(
+    module: nn.Module,
+    cfg: ConformerConfig,
+    feats: torch.Tensor,
+    lens: torch.Tensor,
+    deterministic: bool,
+    generator: Optional[torch.Generator],
+    pos_offset: int,
+):
+    """The shared conformer encoder (the JAX package's ``_encoder_body``):
+    mask, subsample, positions, dropout, the block stack, over the
+    submodules :func:`_add_encoder` gave ``module``. Returns ``(x (N, T',
+    d_model) in cfg.dtype, pad_mask (N, T'), out_lens (N,))``."""
+    dev = module.subsample.proj.weight.device
+    feats = feats.to(dev)
+    lens = lens.to(dev, torch.long)
+    in_mask = torch.arange(feats.shape[1], device=dev)[None] < lens[:, None]
+    # zero frames past each length so nothing leaks through the
+    # subsampling convs into the last valid frame
+    feats = feats * in_mask[..., None].to(feats.dtype)
+    x = module.subsample(feats.to(cfg.dtype))
+    out_lens = (((lens + 1) // 2) + 1) // 2  # ceil-div by 2, twice
+    T4 = x.shape[1]
+    pad_mask = torch.arange(T4, device=dev)[None] < out_lens[:, None]
+    x = x + _sinusoidal_pos_emb(T4, cfg.d_model, cfg.dtype, dev, pos_offset)[None]
+    x = module.drop(x, deterministic, generator)
+    for i in range(cfg.num_layers):
+        x = getattr(module, f"block_{i}")(x, pad_mask, deterministic, generator)
+    return x, pad_mask, out_lens
+
+
+@torch.no_grad()
+def _init_params(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """LeCun-normal weights, zero biases, unit LayerNorm scales (the flax
+    defaults' scales; the draws differ from flax's)."""
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if isinstance(module.get_submodule(name.rsplit(".", 1)[0]), nn.LayerNorm):
+            p.fill_(1.0 if leaf == "weight" else 0.0)
+        elif leaf == "bias":
+            p.zero_()
+        else:
+            fan_in = p[0].numel() if p.dim() > 1 else 1
+            if leaf == "kernel":  # depthwise (K, C): one input per tap
+                fan_in = p.shape[0]
+            p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+
+
 class ConformerCTC(nn.Module):
     """Conformer encoder + CTC head.
 
@@ -365,33 +423,10 @@ class ConformerCTC(nn.Module):
         super().__init__()
         device = default_device(device)
         self.cfg = cfg
-        self.subsample = _ConvSubsample(cfg)
-        for i in range(cfg.num_layers):
-            self.add_module(f"block_{i}", _ConformerBlock(cfg))
+        _add_encoder(self, cfg)
         self.ctc_head = _Dense(cfg.d_model, cfg.vocab_size + 1, torch.float32)
-        self.drop = _FastDropout(cfg.dropout)
-        self._init_params(generator)
+        _init_params(self, generator)
         self.to(device)
-
-    @torch.no_grad()
-    def _init_params(self, generator):
-        """LeCun-normal weights, zero biases, unit LayerNorm scales (the
-        flax defaults' scales; the draws differ from flax's)."""
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if isinstance(self.get_submodule(name.rsplit(".", 1)[0]), nn.LayerNorm):
-                p.fill_(1.0 if leaf == "weight" else 0.0)
-            elif leaf == "bias":
-                p.zero_()
-            else:
-                fan_in = p[0].numel() if p.dim() > 1 else 1
-                if leaf == "kernel":  # depthwise (K, C): one input per tap
-                    fan_in = p.shape[0]
-                p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
-
-    @property
-    def blocks(self):
-        return [getattr(self, f"block_{i}") for i in range(self.cfg.num_layers)]
 
     def forward(
         self,
@@ -401,22 +436,9 @@ class ConformerCTC(nn.Module):
         generator: Optional[torch.Generator] = None,
         pos_offset: int = 0,
     ):
-        cfg = self.cfg
-        dev = self.ctc_head.weight.device
-        feats = feats.to(dev)
-        lens = lens.to(dev, torch.long)
-        in_mask = torch.arange(feats.shape[1], device=dev)[None] < lens[:, None]
-        # zero frames past each length so nothing leaks through the
-        # subsampling convs into the last valid frame
-        feats = feats * in_mask[..., None].to(feats.dtype)
-        x = self.subsample(feats.to(cfg.dtype))
-        out_lens = (((lens + 1) // 2) + 1) // 2  # ceil-div by 2, twice
-        T4 = x.shape[1]
-        pad_mask = torch.arange(T4, device=dev)[None] < out_lens[:, None]
-        x = x + _sinusoidal_pos_emb(T4, cfg.d_model, cfg.dtype, dev, pos_offset)[None]
-        x = self.drop(x, deterministic, generator)
-        for block in self.blocks:
-            x = block(x, pad_mask, deterministic, generator)
+        x, _, out_lens = _encoder_body(
+            self, self.cfg, feats, lens, deterministic, generator, pos_offset
+        )
         return self.ctc_head(x.float()), out_lens
 
 
@@ -489,11 +511,21 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     The map is linear, so it also carries a gradient tree of the same
     structure onto the names of the port's ``.grad``s.
     """
+    out = _encoder_state_dict(params)
+    out["ctc_head.weight"] = np.asarray(params["ctc_head"]["kernel"]).T
+    out["ctc_head.bias"] = np.asarray(params["ctc_head"]["bias"])
+    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in out.items()}
+
+
+def _encoder_state_dict(params: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """The encoder's part of :func:`state_dict_from_jax`: the flax
+    ``subsample`` and ``block_i`` subtrees of ``params`` as port names
+    under ``prefix``, numpy arrays."""
     out: Dict[str, np.ndarray] = {}
 
-    def put(prefix, d):
+    def put(name, d):
         for k, v in d.items():
-            out[f"{prefix}.{k}"] = v
+            out[f"{prefix}{name}.{k}"] = v
 
     def ln(p):
         return {"weight": np.asarray(p["scale"]), "bias": np.asarray(p["bias"])}
@@ -545,8 +577,7 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         put(f"{pre}.conv.pw2", _linear(conv["pw2"]["kernel"], conv["pw2"]["bias"]))
         put(f"{pre}.ln_out", ln(blk["ln_out"]))
         i += 1
-    put("ctc_head", _linear(params["ctc_head"]["kernel"], params["ctc_head"]["bias"]))
-    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in out.items()}
+    return out
 
 
 def ctc_loss(

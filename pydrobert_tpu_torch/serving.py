@@ -1,13 +1,19 @@
-"""Streaming CTC recognition sessions (counterpart of the CTC sessions of
+"""Streaming recognition sessions (counterpart of
 :mod:`pydrobert_tpu.serving`).
 
 A serving frontend receives feature frames incrementally: arbitrary push
-sizes, many concurrent streams, streams ending at different times.
-:class:`StreamingCTCRecognizer` encodes what each push determines with a
-causal :class:`~pydrobert_tpu_torch.models.ConformerCTC`, re-encoding only
-the receptive-field margin ``R``, and re-decodes the accumulated logits
-with :class:`~pydrobert_tpu_torch.ops.decoding.CTCPrefixSearch` when
-results are asked for (``push(..., partials=True)`` and ``finish``).
+sizes, many concurrent streams, streams ending at different times. Both
+recognizers encode what each push determines with a causal encoder,
+re-encoding only the receptive-field margin ``R`` over a fixed window of
+``4 * (chunk + R + 1)`` raw frames.
+:class:`StreamingCTCRecognizer` re-decodes the accumulated logits of a
+:class:`~pydrobert_tpu_torch.models.ConformerCTC` with
+:class:`~pydrobert_tpu_torch.ops.decoding.CTCPrefixSearch` when results are
+asked for (``push(..., partials=True)`` and ``finish``).
+:class:`StreamingTransducerRecognizer` threads the greedy or beam carry of
+a :class:`~pydrobert_tpu_torch.models.ConformerTransducer` through each
+chunk as it is encoded, and defers each stream's last partial-block frame
+to ``finish``.
 
 All streams of a session share one frame timeline (push ``(N, T_new, F)``
 slabs); per-stream ``new_lens`` marks how many of the new frames are real.
@@ -20,15 +26,21 @@ where the session's control flow reads them.
 """
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from .models.conformer import streaming_margin
+from .ops import transducer as _rnnt
 from .ops.decoding import CTCPrefixSearch
 
-__all__ = ["StreamingCTCRecognizer", "StreamingCTCSession"]
+__all__ = [
+    "StreamingCTCRecognizer",
+    "StreamingCTCSession",
+    "StreamingSession",
+    "StreamingTransducerRecognizer",
+]
 
 
 def _ceil4(x):
@@ -192,3 +204,217 @@ class StreamingCTCRecognizer:
         padded = logits.new_zeros((Tp, N, C))
         padded[:T] = logits.transpose(0, 1)
         return self.search(padded, torch.from_numpy(np.asarray(lens)).to(self.device))
+
+
+@dataclasses.dataclass
+class StreamingSession:
+    """State of one batch of concurrent transducer streams."""
+
+    carry: Any  # the greedy or beam search's carry
+    buf: torch.Tensor  # (N, kept, F) raw frames from global raw index `base`
+    base: int
+    pushed: int  # raw frames pushed so far (shared timeline)
+    total: np.ndarray  # (N,) per-stream valid raw lengths
+    consumed: np.ndarray  # (N,) post-subsample frames decoded per stream
+    o0: int  # next global post-subsample frame to decode
+    done: bool = False
+
+
+class StreamingTransducerRecognizer:
+    """Streaming RNN-T recognition sessions over a fixed model.
+
+    ``start(batch_size)`` opens a session; ``push(sess, feats,
+    new_lens=None)`` feeds ``(N, T_new, num_filts)`` raw frames (a tensor or
+    an array, any ``T_new``), decodes the post-subsample frames they
+    determine, in chunks of ``chunk``, and returns the partial result;
+    ``finish(sess)`` decodes the rest, each stream's deferred last frame
+    included, and returns the final one. Greedy: ``(hyps (N, U_max),
+    hyp_lens (N,))``. Beam: ``(hyps (N, W, U_max), hyp_lens (N, W), scores
+    (N, W))``, best-first at ``finish`` and unsorted in partials. The
+    results equal :meth:`~pydrobert_tpu_torch.models.ConformerTransducer.
+    greedy` or ``beam`` on the concatenated pushes.
+
+    ``mode`` is ``"greedy"`` or ``"beam"`` (then ``width``, and ``lm`` and
+    ``lm_weight`` for shallow fusion). ``max_frames`` bounds each stream's
+    post-subsample length and sizes the hypothesis buffer, ``U_max =
+    max_symbols_per_frame * max_frames``. The model's encoder config must
+    be causal: ``attention_context=(L, 0)`` with finite ``L`` and
+    ``causal_conv=True``. Work runs on the model's device."""
+
+    def __init__(
+        self,
+        model,
+        chunk: int = 8,
+        mode: str = "greedy",
+        width: int = 4,
+        max_symbols_per_frame: int = 4,
+        max_frames: int = 1024,
+        lm=None,
+        lm_weight: float = 0.3,
+    ):
+        if mode not in ("greedy", "beam"):
+            raise ValueError(f"mode must be 'greedy' or 'beam', got {mode!r}")
+        self.R = streaming_margin(model.cfg.encoder, "streaming recognition")
+        if chunk < 1:
+            raise ValueError(f"chunk must be positive, got {chunk}")
+        self.model, self.cfg = model, model.cfg
+        self.device = model.device
+        self.chunk = int(chunk)
+        self.mode = mode
+        self.width = int(width)
+        self.E = int(max_symbols_per_frame)
+        self.max_frames = int(max_frames)
+        self.blank = model.cfg.vocab_size
+        self.lm, self.lm_weight = lm, float(lm_weight)
+        self._lm_step = None
+        # a fixed window: warm-up and steady state encode the same shape
+        self.Lw = 4 * (self.chunk + self.R + 1)
+
+    def start(self, batch_size: int) -> StreamingSession:
+        """Open a session of ``batch_size`` concurrent streams."""
+        from .models.transducer import _fusion
+
+        N = int(batch_size)
+        u_max = self.E * self.max_frames
+        model = self.model
+        with torch.no_grad():
+            init_state = model.predictor.init_carry(N)
+            if self.mode == "greedy":
+                carry = _rnnt.transducer_greedy_init(
+                    N, u_max, model.predictor.stepper(), init_state, self.blank
+                )
+            else:
+                lm = _fusion(self.lm, self.cfg, N)
+                self._lm_step = None if lm is None else lm[0]
+                carry = _rnnt.transducer_beam_init(
+                    N, self.width, u_max, model.predictor.stepper(), init_state, self.blank,
+                    lm,
+                )
+        return StreamingSession(
+            carry=carry,
+            buf=torch.zeros((N, 0, self.cfg.encoder.num_filts), device=self.device),
+            base=0,
+            pushed=0,
+            total=np.zeros((N,), np.int64),
+            consumed=np.zeros((N,), np.int64),
+            o0=0,
+        )
+
+    def push(self, sess: StreamingSession, feats, new_lens: Optional[np.ndarray] = None):
+        """Feed ``(N, T_new, F)`` new frames; decode what they determine.
+        ``new_lens`` (default: all ``T_new``) counts each stream's real
+        frames; a stream that has ended pushes zero. Returns the partial
+        result."""
+        if sess.done:
+            raise RuntimeError("session already finished")
+        feats = torch.as_tensor(feats, dtype=torch.float32, device=self.device)
+        N, T_new = feats.shape[:2]
+        if N != sess.total.shape[0]:
+            raise ValueError(f"batch size {N} != session batch {sess.total.shape[0]}")
+        new_lens = (
+            np.full((N,), T_new, np.int64)
+            if new_lens is None
+            else np.asarray(new_lens, np.int64)
+        )
+        if (new_lens < 0).any() or (new_lens > T_new).any():
+            raise ValueError("new_lens must lie in [0, T_new]")
+        resumed = (sess.total < sess.pushed) & (new_lens > 0)
+        if resumed.any():
+            raise RuntimeError(
+                f"streams {np.nonzero(resumed)[0].tolist()} ended (fell "
+                "behind the shared timeline) and cannot resume"
+            )
+        sess.buf = torch.cat([sess.buf, feats], 1)
+        sess.total = sess.total + new_lens
+        sess.pushed += T_new
+        if _ceil4(sess.pushed) > self.max_frames:
+            raise RuntimeError(
+                f"stream exceeds max_frames={self.max_frames} post-subsample frames"
+            )
+        # decode fully determined frames in chunks of a fixed size
+        while sess.pushed // 4 - sess.o0 >= self.chunk:
+            self._decode_window(sess, sess.o0 + self.chunk, sess.total // 4)
+        return self._partial(sess)
+
+    def finish(self, sess: StreamingSession):
+        """Decode everything outstanding; the final hypotheses."""
+        if sess.done:
+            raise RuntimeError("session already finished")
+        out_lens = _ceil4(sess.total)
+        o1 = int(out_lens.max(initial=0))
+        # the frames still on the shared frontier
+        while sess.o0 < o1:
+            self._decode_window(sess, min(sess.o0 + self.chunk, o1), out_lens)
+        # deferred tails: streams whose last partial-block frame fell
+        # behind the frontier before it was determined. One encode; each
+        # stream gets its own tail frame as a chunk of one
+        pending = out_lens - sess.consumed
+        assert (pending >= 0).all() and (pending <= 1).all(), pending
+        if pending.any():
+            tail_o = np.where(pending > 0, out_lens - 1, 0)
+            m0 = max(int(tail_o[pending > 0].min()) - self.R - 1, 0)
+            i0 = 4 * m0
+            f = sess.buf[:, i0 - sess.base :]
+            l = torch.from_numpy(np.clip(sess.total - i0, 0, f.shape[1]))
+            with torch.no_grad():
+                enc, _ = self.model.encode(f, l, pos_offset=m0)
+            pick = torch.from_numpy(np.clip(tail_o - m0, 0, enc.shape[1] - 1)).to(self.device)
+            enc_tail = enc[torch.arange(enc.shape[0], device=self.device), pick][:, None]
+            self._advance(sess, enc_tail, pending)
+        sess.done = True
+        if self.mode == "greedy":
+            _, u, hyps, _, _ = sess.carry
+            return hyps, u
+        return _rnnt.transducer_beam_finalize(sess.carry)
+
+    @torch.no_grad()
+    def _advance(self, sess: StreamingSession, enc_chunk, chunk_lens: np.ndarray):
+        lens = torch.from_numpy(chunk_lens).to(self.device)
+        step, joint = self.model.predictor.stepper(), self.model.joint
+        if self.mode == "greedy":
+            sess.carry = _rnnt.transducer_greedy_advance(
+                enc_chunk, lens, step, joint, self.blank, sess.carry, self.E
+            )
+        else:
+            sess.carry = _rnnt.transducer_beam_advance(
+                enc_chunk, lens, step, joint, self.blank, sess.carry, self.E,
+                lm_step=self._lm_step, lm_weight=self.lm_weight,
+            )
+        sess.consumed = sess.consumed + chunk_lens
+
+    @torch.no_grad()
+    def _decode_window(self, sess: StreamingSession, o1: int, out_lens: np.ndarray):
+        """Advance the decode over global frames ``[sess.o0, o1)``."""
+        m0 = max(sess.o0 - self.R - 1, 0)
+        i0, i1 = 4 * m0, min(4 * o1, sess.pushed)
+        f = sess.buf[:, i0 - sess.base : i1 - sess.base]
+        N, Tf, F = f.shape
+        if Tf < self.Lw:
+            # pad to the fixed window; padded frames sit beyond every
+            # stream's valid length, so the encoder masks them out
+            f = torch.cat([f, f.new_zeros((N, self.Lw - Tf, F))], 1)
+        l = torch.from_numpy(np.clip(sess.total - i0, 0, i1 - i0))
+        enc, _ = self.model.encode(f, l, pos_offset=m0)
+        sl0 = sess.o0 - m0
+        enc_chunk = enc[:, sl0 : sl0 + self.chunk]
+        # only streams on the frontier read this window; a drained stream's
+        # deferred tail frame waits for finish()
+        on_frontier = sess.consumed == sess.o0
+        chunk_lens = np.where(on_frontier, np.clip(out_lens - sess.o0, 0, o1 - sess.o0), 0)
+        self._advance(sess, enc_chunk, chunk_lens)
+        sess.o0 = o1
+        # drop raw frames behind the margin of the frontier and of the
+        # earliest deferred tail
+        tails = sess.consumed[sess.consumed < sess.o0]
+        horizon = min([sess.o0] + tails.tolist())
+        keep_from = 4 * max(horizon - self.R - 1, 0)
+        if keep_from > sess.base:
+            sess.buf = sess.buf[:, keep_from - sess.base :]
+            sess.base = keep_from
+
+    def _partial(self, sess: StreamingSession):
+        if self.mode == "greedy":
+            _, u, hyps, _, _ = sess.carry
+            return hyps, u
+        scores, hyps, lens = sess.carry[:3]
+        return hyps, lens, scores

@@ -871,3 +871,77 @@ def test_ngram_beam_search_on_card_matches_cpu(dev):
             pconfig.SPARSE_FUSION_MAX_CORRECTIONS = old
         assert torch.equal(gl, cl) and torch.equal(gy, cy)
         torch.testing.assert_close(gp, cp, rtol=1e-5, atol=0)
+
+
+def _rnnt_pair(dev, causal=False):
+    """The JAX tests' small transducer (V=16, d=16, 2 layers, float32,
+    ``pred_dim = joint_dim = 12``), seeded on the card, and a CPU copy."""
+    from pydrobert_tpu_torch.models import transducer as prnnt
+
+    enc = pconf.ConformerConfig(
+        vocab_size=16, num_filts=8, d_model=16, num_layers=2, num_heads=2,
+        subsample_channels=4, conv_kernel=5, dropout=0.0, dtype=torch.float32,
+        **(dict(attention_context=(4, 0), causal_conv=True) if causal else {}),
+    )
+    cfg = prnnt.TransducerConfig(encoder=enc, pred_dim=12, joint_dim=12)
+    card = prnnt.ConformerTransducer(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    cpu = prnnt.ConformerTransducer(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    rng = np.random.RandomState(3)
+    feats = torch.from_numpy(rng.randn(3, 45, 8).astype(np.float32))
+    lens = torch.tensor([45, 35, 23])
+    return prnnt, cpu, card, feats, lens
+
+
+def _rnnt_equal(got, exp):
+    """Lengths and tokens exact, beam scores within rtol 1e-5."""
+    assert torch.equal(got[1].cpu(), exp[1]) and torch.equal(got[0].cpu(), exp[0])
+    if len(got) == 3:
+        torch.testing.assert_close(got[2].cpu(), exp[2], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("E", [1, 2, 4])
+def test_transducer_greedy_on_card_matches_cpu(dev, E):
+    """Greedy decoding on the card (float32, no TF32) equals the same code
+    on the CPU with a copy of the weights."""
+    _, cpu, card, feats, lens = _rnnt_pair(dev)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        _rnnt_equal(card.greedy(feats.to(dev), lens.to(dev), E), cpu.greedy(feats, lens, E))
+
+
+@pytest.mark.parametrize("W,E", [(1, 4), (3, 2), (4, 4)])
+def test_transducer_beam_on_card_matches_cpu(dev, W, E):
+    """The beam search, bare and fused with a 3-gram lookup LM (on each
+    device a copy), on the card equals the CPU's."""
+    _, cpu, card, feats, lens = _rnnt_pair(dev)
+    clm, glm = _lm_pair(dev, 16, 3, 5)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for lms in ((None, None), (glm, clm)):
+            got = card.beam(feats.to(dev), lens.to(dev), W, E, lm=lms[0], lm_weight=0.4)
+            _rnnt_equal(got, cpu.beam(feats, lens, W, E, lm=lms[1], lm_weight=0.4))
+
+
+@pytest.mark.parametrize("mode", ["greedy", "beam"])
+def test_transducer_streaming_session_on_card_matches_cpu(dev, mode):
+    """A session (pushes of 9, 1, 25 and 10 frames) on the card: every
+    partial and the finish equal the same session on the CPU, and the
+    finish equals the card's one-shot decode."""
+    _, cpu, card, feats, lens = _rnnt_pair(dev, causal=True)
+    kw = dict(chunk=5, mode=mode, width=3, max_symbols_per_frame=2, max_frames=32)
+    recs = [pserving.StreamingTransducerRecognizer(m, **kw) for m in (card, cpu)]
+    sessions = [r.start(3) for r in recs]
+    t = 0
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for size in (9, 1, 25, 10):
+            new_lens = np.clip(lens.numpy() - t, 0, size)
+            outs = [r.push(s, feats[:, t : t + size], new_lens) for r, s in zip(recs, sessions)]
+            _rnnt_equal(*outs)
+            t += size
+        got, exp = (r.finish(s) for r, s in zip(recs, sessions))
+        _rnnt_equal(got, exp)
+        if mode == "greedy":
+            one_shot = card.greedy(feats.to(dev), lens.to(dev), 2)
+        else:
+            one_shot = card.beam(feats.to(dev), lens.to(dev), 3, 2)
+    U = one_shot[0].shape[-1]
+    assert torch.equal(got[1], one_shot[1]) and torch.equal(got[0][..., :U], one_shot[0])

@@ -148,6 +148,7 @@ def test_port_imports_nothing_of_jax():
 def test_port_import_leaves_jax_unloaded():
     code = (
         "import pydrobert_tpu_torch.export, pydrobert_tpu_torch.models, sys\n"
+        "import pydrobert_tpu_torch.serving, pydrobert_tpu_torch.ops.transducer\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert 'jax' not in sys.modules and 'pydrobert_tpu' not in sys.modules, bad\n"

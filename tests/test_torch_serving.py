@@ -1,9 +1,12 @@
-"""The port's streaming CTC serving on the CPU against the JAX package's:
+"""The port's streaming serving on the CPU against the JAX package's:
 ``pos_offset``, ``streaming_logits`` and ``StreamingCTCRecognizer`` on the
 same float32 weights (carried by ``state_dict_from_jax``) and inputs, on
 both routes of the search. Lengths and tokens exact, probabilities within
 atol 1e-5 and logits within atol 2e-4 (the forwards sum in other orders;
-tests/test_serving.py's and tests/test_torch_conformer.py's tolerances)."""
+tests/test_serving.py's and tests/test_torch_conformer.py's tolerances).
+Then ``StreamingTransducerRecognizer`` in greedy and beam mode, every
+partial and the finish against the JAX package's session and the finish
+against the port's one-shot decode."""
 
 import jax
 import jax.numpy as jnp
@@ -14,11 +17,14 @@ import torch
 import pydrobert_tpu.lm as jlm_mod
 from pydrobert_tpu import config as jconfig
 from pydrobert_tpu.models import conformer as jconf
+from pydrobert_tpu.models import transducer as jrnnt
 from pydrobert_tpu.serving import StreamingCTCRecognizer as JaxRecognizer
+from pydrobert_tpu.serving import StreamingTransducerRecognizer as JaxRnntRecognizer
 from pydrobert_tpu_torch import config as pconfig
 from pydrobert_tpu_torch import lm as plm_mod
 from pydrobert_tpu_torch import serving as pserving
 from pydrobert_tpu_torch.models import conformer as pconf
+from pydrobert_tpu_torch.models import transducer as prnnt
 from pydrobert_tpu_torch.ops import decoding as pdec
 
 from _lm_dicts import random_prob_dicts
@@ -195,3 +201,123 @@ def test_streaming_recognizer_with_lm_matches_jax_and_one_shot(models):
         logits, out_lens = pmodel(torch.from_numpy(feats), torch.from_numpy(lens))
     one_shot = pdec.CTCPrefixSearch(4, 0.5, plm)(logits.transpose(0, 1).contiguous(), out_lens)
     _compare((got[0][: logits.shape[1]],) + got[1:], one_shot)
+
+
+# ------------------------------------------------- transducer sessions
+
+RNNT_ENC = dict(CFG, vocab_size=16)
+
+
+@pytest.fixture(scope="module")
+def rnnt():
+    """tests/test_serving.py's transducer set-up (T=45, lengths 45, 35 and
+    23) in both packages, the port's weights carried from the flax tree."""
+    kw = dict(pred_dim=12, joint_dim=12)
+    jmodel = jrnnt.ConformerTransducer(
+        jrnnt.TransducerConfig(encoder=jconf.ConformerConfig(dtype=jnp.float32, **RNNT_ENC), **kw)
+    )
+    rng = np.random.RandomState(0)
+    T, N = 45, 3
+    feats = rng.randn(N, T, 8).astype(np.float32)
+    lens = np.asarray([T, T - 10, (T // 2) + 1], np.int64)
+    refs = rng.randint(0, 16, (N, 4)).astype(np.int32)
+    params = jax.jit(jmodel.init)(
+        jax.random.PRNGKey(0), feats, lens.astype(np.int32), refs, np.full((N,), 4, np.int32)
+    )["params"]
+    params = jax.tree.map(np.asarray, params)
+    pmodel = prnnt.ConformerTransducer(
+        prnnt.TransducerConfig(encoder=pconf.ConformerConfig(dtype=torch.float32, **RNNT_ENC),
+                               **kw),
+        device="cpu",
+    )
+    pmodel.load_state_dict(prnnt.state_dict_from_jax(params), strict=True)
+    return jmodel, params, pmodel, feats, lens
+
+
+def _rnnt_compare(got, exp, score_tol=1e-6):
+    """Tokens and lengths exact; beam scores within rtol 1e-6 (the two
+    frameworks' joints round apart in the last ulp)."""
+    for i, (g, e) in enumerate(zip(got, exp)):
+        if g.is_floating_point():
+            np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=score_tol, atol=score_tol)
+        else:
+            U = min(g.shape[-1], np.asarray(e).shape[-1]) if g.dim() > 1 else None
+            g, e = g.numpy(), np.asarray(e)
+            if U is not None:
+                g, e = g[..., :U], e[..., :U]
+            np.testing.assert_array_equal(g, e)
+
+
+def _rnnt_sessions(jrec, prec, feats, lens, pieces):
+    """Both sessions through the same pushes, every partial compared."""
+    jsess, psess = jrec.start(feats.shape[0]), prec.start(feats.shape[0])
+    t = 0
+    for size in pieces:
+        chunk = feats[:, t : t + size]
+        new_lens = np.clip(lens - t, 0, chunk.shape[1])
+        _rnnt_compare(prec.push(psess, torch.from_numpy(chunk), new_lens),
+                      jrec.push(jsess, chunk, new_lens))
+        t += chunk.shape[1]
+    assert t == feats.shape[1]
+    got = prec.finish(psess)
+    _rnnt_compare(got, jrec.finish(jsess))
+    return got
+
+
+@pytest.mark.parametrize("pieces", [[45], [7, 20, 18], [1] * 45, [44, 1]])
+def test_transducer_session_greedy_matches_jax_and_one_shot(rnnt, pieces):
+    jmodel, params, pmodel, feats, lens = rnnt
+    kw = dict(chunk=4, mode="greedy", max_symbols_per_frame=3, max_frames=32)
+    got = _rnnt_sessions(JaxRnntRecognizer(jmodel, params, **kw),
+                         pserving.StreamingTransducerRecognizer(pmodel, **kw),
+                         feats, lens, pieces)
+    hyps, hyp_lens = pmodel.greedy(*(torch.from_numpy(a) for a in (feats, lens)), 3)
+    assert torch.equal(got[1], hyp_lens)
+    assert torch.equal(got[0][:, : hyps.shape[1]], hyps)
+    assert int(hyp_lens.min()) > 0
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_transducer_session_beam_matches_jax_and_one_shot(rnnt, fused):
+    """Width 3, two rounds a frame, pushes of 9, 1, 25 and 10 frames; bare
+    and fused with a 3-gram lookup LM at weight 0.4. The finish equals the
+    port's one-shot beam search (scores within rtol 1e-6: the window
+    encoder sums in another order)."""
+    jmodel, params, pmodel, feats, lens = rnnt
+    jlm = plm = None
+    if fused:
+        jlm = jlm_mod.LookupLanguageModel(16, sos=16, prob_dicts=random_prob_dicts(16, 3, 7, 16))
+        plm = plm_mod.LookupLanguageModel(16, sos=16, device="cpu")
+        plm.load_state_dict(jlm.state_dict())
+    kw = dict(chunk=5, mode="beam", width=3, max_symbols_per_frame=2, max_frames=32,
+              lm_weight=0.4)
+    got = _rnnt_sessions(JaxRnntRecognizer(jmodel, params, lm=jlm, **kw),
+                         pserving.StreamingTransducerRecognizer(pmodel, lm=plm, **kw),
+                         feats, lens, [9, 1, 25, 10])
+    bh, bl, bs = pmodel.beam(*(torch.from_numpy(a) for a in (feats, lens)), 3, 2, lm=plm,
+                             lm_weight=0.4)
+    assert torch.equal(got[1], bl) and torch.equal(got[0][..., : bh.shape[2]], bh)
+    np.testing.assert_allclose(got[2].numpy(), bs.numpy(), rtol=1e-6, atol=1e-5)
+
+
+def test_transducer_session_rejects_resume_noncausal_and_reuse(rnnt):
+    _, _, pmodel, feats, _ = rnnt
+    rec = pserving.StreamingTransducerRecognizer(pmodel, chunk=4, max_frames=32)
+    sess = rec.start(3)
+    rec.push(sess, feats[:, :8], np.asarray([8, 2, 8]))
+    with pytest.raises(RuntimeError, match="resume"):
+        rec.push(sess, feats[:, 8:16], np.asarray([8, 8, 8]))
+    with pytest.raises(RuntimeError, match="max_frames"):
+        rec.push(sess, np.zeros((3, 130, 8), np.float32), np.asarray([130, 0, 130]))
+    sess = rec.start(3)
+    rec.finish(sess)
+    with pytest.raises(RuntimeError, match="finished"):
+        rec.finish(sess)
+    with pytest.raises(RuntimeError, match="finished"):
+        rec.push(sess, feats[:, :1])
+    with pytest.raises(ValueError, match="mode"):
+        pserving.StreamingTransducerRecognizer(pmodel, mode="sample")
+    enc = pconf.ConformerConfig(dtype=torch.float32, **dict(RNNT_ENC, causal_conv=False))
+    model = prnnt.ConformerTransducer(prnnt.TransducerConfig(enc, 12, 12), device="cpu")
+    with pytest.raises(ValueError, match="causal"):
+        pserving.StreamingTransducerRecognizer(model)
