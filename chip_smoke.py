@@ -121,7 +121,30 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    500 raw frames, 8-token references, dropout 0.1, AdamW), losses
    finite, after a float32 step at the seeded weights on the card and on
    the CPU (loss within rtol 1e-4, gradients within 1e-3 of each
-   tensor's largest entry); ms a step, launches, syncs and idle share.
+   tensor's largest entry); ms a step, launches, syncs and idle share;
+14. blank-skip serving (bench_ctc_blankskip): its logits (B=256, T=500,
+   V=1024, ``RandomState(8)`` in bench.py's order) through
+   ``compress_blank_frames(threshold=0.99, max_frames=128)`` and
+   ``CTCPrefixSearch(16)`` on the scan route (one prologue launch), the
+   compression bit-equal to the CPU's, hypotheses equal to a CPU search of
+   the same compressed logits at all 256 rows; the same without the cut
+   (the first 32 rows held), and the cut call on the beam route (one
+   ``top_m`` and one ``ctc_beam_search`` launch) equal to the card's
+   raw-mass scan, the beam kernel bit-equal to its plain version on
+   those inputs (its first N=256 shape); kept and cut frame shares,
+   compress and decode ms,
+   utterances a second, and the three kernels' times at these shapes;
+15. the feature front end at (16, 1000, 80): ``mean_var_norm``,
+   ``feat_deltas`` (true float32: within 1e-6 of a float64 evaluation,
+   a bound that TF32 misses), pads, ``random_shift`` from given
+   pads and ``chunk_by_slices`` over ``slice_spect_data``'s windows against
+   the CPU, and ``sparse_image_warp`` on both routes against a float64
+   solve; wall times;
+16. sequence losses (BASELINE config #5's others) at the MER cell's
+   shapes: ``optimal_completion``, the OCD loss and its gradient, the
+   prefix error rates and edit distances, ``error_rate`` at costs (1, 1,
+   2), and the two straight-through relaxations given the same uniforms,
+   on the card against the CPU; wall times.
 
 ``python3 chip_smoke.py --train-witness N`` runs phase 1, then trains
 phase 5's model N times from N seeds and reports the card-vs-CPU step
@@ -2394,6 +2417,455 @@ def phase_rnnt_train(pkg, adamw):
     })
 
 
+# ---------------------------------------------------------------------------
+# The rest of the ops layer: blank-skip serving (bench_ctc_blankskip), the
+# feature front end and BASELINE config #5's other losses.
+
+BLANKSKIP = dict(B=256, T=500, V=1024, max_frames=128, threshold=0.99, seed=8)
+
+
+def blankskip_inputs(B, T, V, seed=8):
+    """bench_ctc_blankskip's logits ``(T, B, V + 1)`` and lengths, made with
+    numpy in bench.py's order (bench.py:371-377): standard normals, the
+    blank raised by 9, 18 added at ``T // 6`` random frames of each
+    utterance to a random token, then the lengths."""
+    rng = np.random.RandomState(seed)
+    logits = rng.randn(T, B, V + 1).astype(np.float32)
+    logits[..., V] += 9.0
+    for n in range(B):
+        idx = rng.choice(T, size=T // 6, replace=False)
+        logits[idx, n, rng.randint(V, size=T // 6)] += 18.0
+    lens = rng.randint(T // 2, T + 1, (B,)).astype(np.int32)
+    return logits, lens
+
+
+def phase_blankskip(pkg, kernels, cfg=BLANKSKIP, dev="cuda", cpu_rows=32):
+    """bench_ctc_blankskip's cell: ``compress_blank_frames(threshold=0.99,
+    max_frames=128)`` then ``CTCPrefixSearch(16)`` (the scan route) at
+    B=256, T=500, V=1024. The card's compression must be bit-equal to the
+    CPU's, its hypotheses and lengths equal to a CPU search of the same
+    compressed logits at every row; the same decode without the cut is
+    held at the first ``cpu_rows`` rows; the cut call through the beam
+    route (USE_BEAM_KERNEL="1") must equal the card's raw-mass scan, and
+    the beam kernel its plain version on the same inputs (path buffer and
+    probability bits exact, as in ``phase_beam_kernel``). Prints
+    the kept and cut shares of the frames (at 0.99 few blanks dominate,
+    so the cut, not the compression, does the shortening) and times.
+    Returns the launches of the scan call and of the beam call, and the
+    kernels' times at this cell's shapes."""
+    config, CTCPrefixSearch, compress_blank_frames = pkg
+    B, T, V, F, thr = cfg["B"], cfg["T"], cfg["V"], cfg["max_frames"], cfg["threshold"]
+    logits_np, lens_np = blankskip_inputs(B, T, V, cfg["seed"])
+    x_cpu, lens_cpu = torch.from_numpy(logits_np), torch.from_numpy(lens_np)
+    x, lens = x_cpu.to(dev), lens_cpu.to(dev)
+    search = CTCPrefixSearch(WIDTH)
+    saved = config.USE_BEAM_KERNEL, config.DECODE_RENORM
+    try:
+        config.USE_BEAM_KERNEL = "0"
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        clg, clens = compress_blank_frames(x, lens, threshold=thr, max_frames=F)
+        got = search(clg, clens)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if launches["decode_prologue"] != 1 or launches["top_m"] or launches["ctc_beam_search"]:
+            raise AssertionError(f"blank-skip scan call launches {launches}, expected one prologue")
+        full, full_lens = compress_blank_frames(x, lens, threshold=thr)
+        ref_c, ref_lens = compress_blank_frames(x_cpu, lens_cpu, threshold=thr, max_frames=F)
+        ref_full, ref_full_lens = compress_blank_frames(x_cpu, lens_cpu, threshold=thr)
+        compress_ok = (
+            same_bits(clg.cpu(), ref_c) and torch.equal(clens.cpu(), ref_lens)
+            and same_bits(full.cpu(), ref_full) and torch.equal(full_lens.cpu(), ref_full_lens)
+        )
+        if not compress_ok:
+            raise AssertionError("compress_blank_frames on the card differs from the CPU's")
+        exp = search(ref_c, ref_lens)
+        cut_check = search_compare(tuple(t.cpu() for t in got), exp, 1e-4)
+        if not cut_check["ok"]:
+            raise AssertionError(f"blank-skip cut decode vs the CPU's: {cut_check}")
+        got_full = search(full, full_lens)
+        exp_full = search(ref_full[:, :cpu_rows].contiguous(), ref_full_lens[:cpu_rows])
+        full_check = search_compare(
+            tuple(t[:, :cpu_rows].cpu() if t.dim() == 3 else t[:cpu_rows].cpu() for t in got_full),
+            exp_full, 1e-4,
+        )
+        if not full_check["ok"]:
+            raise AssertionError(f"blank-skip uncut decode vs the CPU's: {full_check}")
+        (comp_ms, dec_ms, full_ms), runs = host_ms([
+            lambda: compress_blank_frames(x, lens, threshold=thr, max_frames=F),
+            lambda: search(clg, clens),
+            lambda: search(full, full_lens),
+        ], reps=5)
+
+        config.USE_BEAM_KERNEL = "1"
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        beam = search(clg, clens)
+        torch.cuda.synchronize()
+        beam_launches = dict(kernels.LAUNCHES)
+        want = {"decode_prologue": 0, "top_m": 1, "ctc_beam_search": 1}
+        if any(beam_launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"blank-skip beam route launches {beam_launches}, expected {want}")
+        config.USE_BEAM_KERNEL, config.DECODE_RENORM = "0", False
+        raw = search(clg, clens)
+        beam_check = search_compare(beam, raw, 1e-4)
+        if not beam_check["ok"]:
+            raise AssertionError(f"blank-skip beam route vs the card's raw-mass scan: {beam_check}")
+        config.USE_BEAM_KERNEL, config.DECODE_RENORM = "1", saved[1]
+        (beam_ms,), beam_runs = host_ms([lambda: search(clg, clens)], reps=5)
+    finally:
+        config.USE_BEAM_KERNEL, config.DECODE_RENORM = saved
+
+    # the kernels at this cell's shapes: the prologue over the kept frames,
+    # the beam route's top-M and whole-loop search
+    Tc, N, Vp1 = clg.shape
+    m = min(V, 2 * WIDTH)
+    xc = clg.contiguous()
+    nonext, blank = beam_inputs(xc)
+    top = kernels.top_m(nonext, m)
+    # the beam kernel against its plain version on these inputs, held as
+    # phase_beam_kernel holds it: this is its first shape at N=256 (rows in
+    # two waves over the SMs)
+    got_k = kernels.ctc_beam_search(nonext, blank, clens, WIDTH, top)
+    exp_k = kernels.ctc_beam_search_reference(nonext, blank, clens, WIDTH, top)
+    torch.cuda.synchronize()
+    vs_plain = search_compare(got_k, exp_k, rtol=1e-6)
+    vs_plain.update(buffer_exact=torch.equal(got_k[0], exp_k[0]),
+                    probs_bit_exact=same_bits(got_k[2], exp_k[2]),
+                    max_abs_err=max_abs_err(zip(got_k, exp_k)))
+    if not (vs_plain["ok"] and vs_plain["buffer_exact"] and vs_plain["probs_bit_exact"]):
+        raise AssertionError(f"ctc_beam_search vs its plain version at the blank-skip shape: "
+                             f"{vs_plain}")
+    calls = {
+        "decode_prologue": (lambda: kernels.decode_prologue(xc, m), "prologue_kernel"),
+        "top_m": (lambda: kernels.top_m(nonext, m), "prologue_kernel"),
+        "ctc_beam_search": (lambda: kernels.ctc_beam_search(nonext, blank, clens, WIDTH, top),
+                            "ctc_beam_kernel"),
+    }
+    times = {
+        "decode_prologue": dict(bound=prologue_bound_ms(Tc, N, Vp1, m, 4), shape=[Tc, N, Vp1],
+                                m=m),
+        "top_m": dict(bound=topm_bound_ms(Tc * N, V, m, 4), shape=[Tc, N, V], m=m),
+        "ctc_beam_search": dict(bound=beam_bound_ms(clens, Tc, N, WIDTH, m),
+                                shape=[Tc, N, V, WIDTH], vs_plain=vs_plain),
+    }
+    for name, t in times.items():
+        fn, kernel = calls[name]
+        # the trace's device time (None when every trace missed the kernel)
+        # and CUDA events around the wrapper, which a trace cannot miss
+        t["ms"] = device_ms(fn, kernel)
+        t["traces"] = TRACES.get(kernel)
+        t["wrapper_ms"] = cuda_ms(fn)
+        t["bound_ms"], t["bound_by"] = t.pop("bound")
+    valid = int(lens_cpu.sum())
+    kept = int(ref_full_lens.sum())
+    p64 = torch.softmax(x_cpu.double(), -1)[..., V]  # the blank's probability, float64
+    in_len = torch.arange(T)[:, None] < lens_cpu[None]
+    emit({
+        "phase": "blankskip", "nvidia_smi": smi_line(), "cell": "bench_ctc_blankskip",
+        "batch": B, "frames": T, "vocab": V, "threshold": thr, "max_frames": F, "width": WIDTH,
+        "valid_frames": valid, "kept_frames": kept, "kept_share": kept / valid,
+        "dominant_frames": int((p64 >= thr)[in_len].sum()),
+        "frames_within_1e-6_of_threshold": int(((p64 - thr).abs() < 1e-6)[in_len].sum()),
+        "kept_per_row": {"min": int(ref_full_lens.min()),
+                         "median": float(ref_full_lens.float().median()),
+                         "max": int(ref_full_lens.max())},
+        "cut_frames": kept - int(ref_lens.sum()), "cut_share": 1 - int(ref_lens.sum()) / kept,
+        "compress_equals_cpu_bits": compress_ok,
+        "vs_cpu_cut": cut_check, "vs_cpu_uncut_rows": cpu_rows, "vs_cpu_uncut": full_check,
+        "launches": launches, "prologue_launches_per_call": launches["decode_prologue"],
+        "compress_ms": comp_ms, "decode_ms": dec_ms,
+        "utt_per_s": B / ((comp_ms + dec_ms) / 1e3),
+        "uncut": {"frames": int(full.shape[0]), "decode_ms": full_ms,
+                  "utt_per_s": B / ((comp_ms + full_ms) / 1e3)},
+        "beam_route": {"launches": beam_launches, "decode_ms": beam_ms,
+                       "vs_card_scan_raw_masses": beam_check,
+                       "utt_per_s": B / ((comp_ms + beam_ms) / 1e3)},
+        "runs_ms": {"compress": runs[0], "decode": runs[1], "uncut": runs[2],
+                    "beam": beam_runs[0]},
+        "kernels": times,
+    })
+    return launches, beam_launches, times
+
+
+def spline_f64(c, f, x, order):
+    """The polyharmonic spline solved in float64 with numpy, one system a
+    batch row (the full-matrix form, no regularization)."""
+    eps = float(np.finfo(np.float32).eps)
+    c, f, x = (np.asarray(a, np.float64) for a in (c, f, x))
+
+    def phi(r):
+        return r**order if order % 2 else r**order * np.log(np.maximum(r, eps))
+
+    out = []
+    for cn, fn, xn in zip(c, f, x):
+        A = phi(np.linalg.norm(cn[:, None] - cn[None], axis=-1))
+        B = np.concatenate([cn, np.ones((len(cn), 1))], 1)
+        k = B.shape[1]
+        lhs = np.block([[A, B], [B.T, np.zeros((k, k))]])
+        wv = np.linalg.solve(lhs, np.concatenate([fn, np.zeros((k, fn.shape[1]))]))
+        Phi = phi(np.linalg.norm(xn[:, None] - cn[None], axis=-1))
+        out.append(Phi @ wv[:len(cn)] + np.concatenate([xn, np.ones((len(xn), 1))], 1) @ wv[len(cn):])
+    return np.array(out)
+
+
+FRONT_END = dict(N=16, T=1000, F=80, max_time_warp=80, lobe=10, order=2, width=2)
+
+
+def deltas_f64(feats, x, order, width):
+    """feat_deltas of ``x (N, T, F)`` (time on dim 1, replicate padding) in
+    float64, with the same float32 filter taps, as ``(N, T, (order + 1) *
+    F)``."""
+    N, T, F = x.shape
+    filt = torch.from_numpy(feats.feat_delta_filters(order, width)).double()
+    p = width * order
+    padded = x.double()[:, torch.arange(-p, T + p).clamp(0, T - 1)]
+    out = [sum(padded[:, j:j + T] * filt[k, j] for j in range(filt.shape[1]))
+           for k in range(order + 1)]
+    return torch.cat(out, -1)
+
+
+def phase_front_end(pkg, cfg=FRONT_END, dev="cuda"):
+    """The port's feature ops on the card against the CPU at
+    bench_spec_augment's shape ``(16, 1000, 80)``: ``mean_var_norm``
+    (rtol and atol 1e-6); ``feat_deltas`` of order 2, width 2 of its output
+    against a float64 evaluation of the same filters (rtol and atol 1e-6, a
+    bound that a TF32 convolution misses); ``pad_variable`` in its three modes and
+    ``random_shift_apply`` from pads drawn on the host, and
+    ``chunk_by_slices`` over ``slice_spect_data``'s fixed 21-frame windows
+    (exact); then ``sparse_image_warp`` (BASELINE config #1's warp) over
+    ``(16, 1, 1000, 80)``: one control point an utterance moved along time
+    by up to 80 frames, the four corners pinned, order 2, both
+    ``include_flow`` routes. The flow and both routes' images must lie no
+    farther from a float64 CPU solve than twice the CPU's float32 (plus
+    1e-6 for the flow, 1e-5 for the images), and the card's dense warp of
+    one CPU-solved flow must equal the CPU's within atol 1e-5. Wall times
+    of each."""
+    feats, pad, img = pkg
+    N, T, F, lobe = cfg["N"], cfg["T"], cfg["F"], cfg["lobe"]
+    order, width = cfg["order"], cfg["width"]
+    rng = np.random.RandomState(SEED + 21)
+    x_cpu = torch.from_numpy((rng.randn(N, T, F) * 3 + 1).astype(np.float32))
+    lens_cpu = torch.from_numpy(rng.randint(T // 2, T + 1, N).astype(np.int64))
+    lens_cpu[0] = T
+    x, lens = x_cpu.to(dev), lens_cpu.to(dev)
+    res, fails = {}, []
+
+    def close(name, got, exp, rtol, atol):
+        d = (got.cpu().double() - exp.double()).abs()
+        lim = atol + rtol * exp.double().abs()
+        res[name] = {"max_abs_err": float(d.max()), "limit_use": float((d / lim).max())}
+        if not bool((d <= lim).all()):
+            fails.append(name)
+
+    def equal(name, got, exp):
+        res[name] = torch.equal(got.cpu(), exp)
+        if not res[name]:
+            fails.append(name)
+
+    mvn_cpu = feats.mean_var_norm(x_cpu)
+    close("mean_var_norm", feats.mean_var_norm(x), mvn_cpu, 1e-6, 1e-6)
+    exact = deltas_f64(feats, mvn_cpu, order, width)
+    close("feat_deltas_vs_f64", feats.feat_deltas(mvn_cpu.to(dev), order=order, width=width),
+          exact, 1e-6, 1e-6)
+
+    u = torch.rand((2, N), generator=torch.Generator().manual_seed(SEED + 22))
+    pads = img.random_shift_pads(lens_cpu, (0.1, 0.1), u)
+    out_len = int((lens_cpu + pads.sum(0)).max())
+    for mode in ("constant", "reflect", "replicate"):
+        equal(f"pad_variable_{mode}", pad.pad_variable(x, lens, pads.to(dev), mode, 0.5, out_len),
+              pad.pad_variable(x_cpu, lens_cpu, pads, mode, 0.5, out_len))
+    shifted = img.random_shift_apply(x, lens, pads.to(dev))
+    exp_shift = img.random_shift_apply(x_cpu, lens_cpu, pads)
+    equal("random_shift_apply", shifted[0], exp_shift[0])
+    equal("random_shift_lens", shifted[1], exp_shift[1])
+    slices, sources = feats.slice_spect_data(x_cpu, lens_cpu, lobe_size=lobe, valid_only=False)
+
+    def chunk(x, lens, d):
+        src = sources.to(d)
+        return pad.chunk_by_slices(x[src], slices.to(d), lens[src], "reflect",
+                                   out_len=2 * lobe + 1)
+
+    got_chunks, exp_chunks = chunk(x, lens, dev), chunk(x_cpu, lens_cpu, "cpu")
+    equal("chunk_by_slices", got_chunks[0], exp_chunks[0])
+    equal("chunk_lens", got_chunks[1], exp_chunks[1])
+    res["slices"] = int(slices.shape[0])
+
+    # sparse_image_warp over the utterances as (N, 1, T, F) images
+    image_cpu = x_cpu[:, None]
+    image = image_cpu.to(dev)
+    warp = cfg["max_time_warp"]
+    t0 = rng.uniform(warp, T - warp, N)
+    src_pts = np.stack([t0, np.full(N, F / 2)], 1)[:, None].astype(np.float32)
+    dst_pts = np.stack([t0 + rng.uniform(-warp, warp, N), np.full(N, F / 2)], 1)[:, None]
+    sp, dp = torch.from_numpy(src_pts), torch.from_numpy(dst_pts.astype(np.float32))
+    kw = dict(field_interpolation_order=2, pinned_boundary_points=1)
+
+    def sparse(image, d, **extra):
+        return img.sparse_image_warp(image, sp.to(d), dp.to(d), **kw, **extra)
+
+    (warped, flow), (warped_cpu, flow_cpu) = sparse(image, dev), sparse(image_cpu, "cpu")
+    bypass = sparse(image, dev, include_flow=False)
+    bypass_cpu = sparse(image_cpu, "cpu", include_flow=False)
+    # the float64 solve, in the (w, h) = (F, T) order the warp solves in
+    WH = np.array([F, T], np.float64)
+    pins = img._pinned_points(1, torch.from_numpy(np.tile(WH, (N, 1)))).numpy()
+    s64 = np.concatenate([src_pts[..., ::-1].astype(np.float64), pins], 1)
+    d64 = np.concatenate([dst_pts[..., ::-1].astype(np.float32).astype(np.float64), pins], 1)
+    hg, wg = np.meshgrid(np.arange(T), np.arange(F), indexing="ij")
+    query = np.broadcast_to(np.stack([wg.ravel(), hg.ravel()], 1)[None], (N, T * F, 2))
+    flow64 = spline_f64(d64, d64 - s64, query, 2).reshape(N, T, F, 2)
+    grid64 = spline_f64(d64, (2 * s64 + 1) / WH - 1, query, 2).reshape(N, T, F, 2)
+    hw = np.stack([wg, hg], 2)[None]
+    image64 = image_cpu.double()
+    truths = {
+        "flow": torch.from_numpy(flow64[..., ::-1].copy()),  # back to (h, w)
+        "warped": img.grid_sample(
+            image64, torch.from_numpy((2 * hw - 2 * flow64 + 1) / WH - 1), padding_mode="border"),
+        "warped_bypass": img.grid_sample(image64, torch.from_numpy(grid64), padding_mode="border"),
+    }
+    for name, got, cpu, slack in (
+        ("flow", flow, flow_cpu, 1e-6),
+        ("warped", warped, warped_cpu, 1e-5),
+        ("warped_bypass", bypass, bypass_cpu, 1e-5),
+    ):
+        card_d = float((got.cpu().double() - truths[name]).abs().max())
+        cpu_d = float((cpu.double() - truths[name]).abs().max())
+        res[f"sparse_{name}"] = {"card_vs_f64": card_d, "cpu_vs_f64": cpu_d,
+                                 "limit": 2 * cpu_d + slack}
+        if card_d > 2 * cpu_d + slack:
+            fails.append(f"sparse_{name}")
+    again = img.dense_image_warp(image, flow_cpu.to(dev))
+    exp_again = img.dense_image_warp(image_cpu, flow_cpu)
+    close("dense_warp_given_cpu_flow", again, exp_again, 0.0, 1e-5)
+    res["dense_warp_given_cpu_flow"]["bits_equal"] = same_bits(again.cpu(), exp_again)
+    if fails:
+        raise AssertionError(f"front end on the card vs the CPU failed {fails}: {res}")
+
+    names = ("mean_var_norm", "feat_deltas", "random_shift_apply", "chunk_by_slices",
+             "sparse_image_warp", "sparse_image_warp_bypass")
+    ms, runs = host_ms([
+        lambda: feats.mean_var_norm(x),
+        lambda: feats.feat_deltas(x, order=order, width=width),
+        lambda: img.random_shift_apply(x, lens, pads.to(dev), out_len=out_len),
+        lambda: chunk(x, lens, dev),
+        lambda: sparse(image, dev),
+        lambda: sparse(image, dev, include_flow=False),
+    ])
+    emit({
+        "phase": "front_end", "nvidia_smi": smi_line(), "shape": [N, T, F], "checks": res,
+        "ms": dict(zip(names, ms)), "runs_ms": dict(zip(names, runs)),
+    })
+    return res
+
+
+def phase_seq_losses(pkg, s2s, dev="cuda", rtol=1e-6, atol=1e-6):
+    """BASELINE config #5's other losses at the seq2seq MER cell's shapes
+    (bench.py:749-770): 16 utterances x 4 samples = 64 hypotheses of 16
+    steps drawn by ``RandomWalk`` over the cell's seeded model, 12-token
+    references with the eos (63) after them, V=64. On the card against a
+    CPU copy of the same tensors: ``optimal_completion``,
+    ``prefix_error_rates``, ``prefix_edit_distances`` and ``error_rate``
+    with costs (1, 1, 2) exactly; the OCD loss over the model's step
+    log-probabilities and its gradient, and ``LogisticBernoulli`` and
+    ``GumbelOneHotCategorical`` over the first step's ``(64, 64)`` logits
+    given the same uniforms (samples, densities, conditional samples, and
+    the straight-through gradient), within ``rtol`` and ``atol``. Wall
+    times of each."""
+    string, st, decoding = pkg
+    Seq2SeqDecoderLM = s2s[2]
+    model = s2s_model(s2s, dev)
+    feats, feat_lens, refs, _ = s2s_inputs()
+    M, eos = MER_SAMPLES, S2S_EOS
+    lm = Seq2SeqDecoderLM(model)
+    with torch.no_grad():
+        state = lm.initial_state(feats.to(dev), feat_lens.to(dev))
+        tiled = {k: v.repeat_interleave(M, 0) for k, v in state.items()}
+        gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+        hyp, hyp_lens, _ = decoding.RandomWalk(lm, eos=eos)(gen, dict(tiled), S2S_B * M, S2S_ITERS)
+        logits = lm(hyp, prev=dict(tiled))[:-1].float()  # (16, 64, 64)
+    ref = torch.cat([refs, torch.full((S2S_B, 1), eos)], 1).repeat_interleave(M, 0).T  # (13, 64)
+    hyp = hyp.long()
+    ref_d, hyp_d = ref.to(dev), hyp.to(dev)
+    ref_c, hyp_c, logits_c = ref, hyp.cpu(), logits.cpu()
+    res, fails = {"hyp_lens": [int(hyp_lens.min()), int(hyp_lens.max())]}, []
+
+    def equal(name, got, exp):
+        res[name] = torch.equal(got.cpu(), exp)
+        if not res[name]:
+            fails.append(name)
+
+    def close(name, got, exp):
+        fin = torch.isfinite(exp)
+        same_inf = torch.equal(fin, torch.isfinite(got.cpu())) and torch.equal(
+            got.cpu()[~fin], exp[~fin])
+        d = (got.detach().cpu().double() - exp.detach().double())[fin].abs()
+        lim = atol + rtol * exp.detach().double()[fin].abs()
+        res[name] = {"max_abs_err": float(d.max()) if d.numel() else 0.0,
+                     "limit_use": float((d / lim).max()) if d.numel() else 0.0}
+        if not (same_inf and bool((d <= lim).all())):
+            fails.append(name)
+
+    kw = dict(eos=eos, warn=False)
+    calls = {
+        "optimal_completion": lambda r, h: string.optimal_completion(r, h, **kw),
+        "prefix_error_rates": lambda r, h: string.prefix_error_rates(r, h, **kw),
+        "prefix_edit_distances": lambda r, h: string.prefix_edit_distances(r, h, **kw),
+        "error_rate_1_1_2": lambda r, h: string.error_rate(
+            r, h, eos=eos, include_eos=True, warn=False, ins_cost=1.0, del_cost=1.0,
+            sub_cost=2.0),
+    }
+    for name, fn in calls.items():
+        equal(name, fn(ref_d, hyp_d), fn(ref_c, hyp_c))
+
+    def ocd(lg, r, h):
+        lg = lg.detach().clone().requires_grad_(True)
+        loss = string.hard_optimal_completion_distillation_loss(lg, r, h, eos=eos, warn=False)
+        loss.backward()
+        return loss, lg.grad
+
+    (loss, grad), (loss_c, grad_c) = ocd(logits, ref_d, hyp_d), ocd(logits_c, ref_c, hyp_c)
+    close("ocd_loss", loss, loss_c)
+    close("ocd_grad", grad, grad_c)
+
+    step0 = logits[0]  # (64, 64)
+    ug = torch.Generator().manual_seed(SEED + 24)
+    u, v = torch.rand(step0.shape, generator=ug), torch.rand(step0.shape, generator=ug)
+    weights = torch.randn(step0.shape, generator=ug)
+    for cls in ("LogisticBernoulli", "GumbelOneHotCategorical"):
+        outs = []
+        for lg, d in ((step0, dev), (step0.cpu(), "cpu")):
+            lg = lg.detach().clone().requires_grad_(True)
+            dist = getattr(st, cls)(logits=lg)
+            z = dist.rsample(u=u.to(d))
+            b = dist.threshold(z, straight_through=True)
+            zc = dist.csample(b.detach(), u=v.to(d))
+            total = ((b * weights.to(d)).sum() + dist.log_prob(z).sum()
+                     + dist.clog_prob(zc, b.detach()).sum())
+            total.backward()
+            outs.append(dict(z=z, b=b.detach(), log_prob=dist.log_prob(z),
+                             tlog_prob=dist.tlog_prob(b.detach()), zcond=zc,
+                             clog_prob=dist.clog_prob(zc, b.detach()), grad=lg.grad))
+        got, exp = outs
+        equal(f"{cls}_threshold", got["b"], exp["b"])
+        for key in ("z", "log_prob", "tlog_prob", "zcond", "clog_prob", "grad"):
+            close(f"{cls}_{key}", got[key], exp[key])
+    if fails:
+        raise AssertionError(f"sequence losses on the card vs the CPU failed {fails}: {res}")
+
+    names = list(calls) + ["ocd_loss_and_grad"]
+    ms, runs = host_ms([lambda fn=fn: fn(ref_d, hyp_d) for fn in calls.values()]
+                       + [lambda: ocd(logits, ref_d, hyp_d)], reps=5)
+    emit({
+        "phase": "seq_losses", "nvidia_smi": smi_line(),
+        "shapes": {"ref": list(ref.shape), "hyp": list(hyp.shape), "logits": list(logits.shape),
+                   "vocab": S2S_V, "eos": eos},
+        "tolerance": {"rtol": rtol, "atol": atol}, "checks": res,
+        "ms": dict(zip(names, ms)), "runs_ms": dict(zip(names, runs)),
+    })
+    return res
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2407,9 +2879,11 @@ def main(argv):
             AttentionSeq2Seq, ConformerConfig, ConformerCTC, Seq2SeqConfig,
             Seq2SeqDecoderLM, adam, adamw, make_mer_train_step, make_train_step,
         )
-        from pydrobert_tpu_torch.ops import _build, decoding, img, kernels
+        from pydrobert_tpu_torch.ops import (
+            _build, decoding, feats, img, kernels, pad, straight_through, string,
+        )
         from pydrobert_tpu_torch.ops.decoding import (
-            BeamSearch, CTCPrefixSearch, _lm_bias, ctc_greedy_search,
+            BeamSearch, CTCPrefixSearch, _lm_bias, compress_blank_frames, ctc_greedy_search,
         )
         from pydrobert_tpu_torch.ops.string import error_rate
         from pydrobert_tpu_torch.models.transducer import (
@@ -2499,26 +2973,42 @@ def main(argv):
     phase_rnnt_beam(rnnt, LookupLanguageModel)
     phase_rnnt_stream(rnnt, StreamingTransducerRecognizer)
     phase_rnnt_train(rnnt, adamw)
+    skip_launches, skip_beam_launches, skip_times = phase_blankskip(
+        (config, CTCPrefixSearch, compress_blank_frames), kernels
+    )
+    for name, t in skip_times.items():
+        times[name]["blankskip"] = t
+    errs["ctc_beam_search"] = max(errs["ctc_beam_search"],
+                                  skip_times["ctc_beam_search"]["vs_plain"]["max_abs_err"])
+    phase_front_end((feats, pad, img))
+    phase_seq_losses((string, straight_through, decoding), s2s)
 
     csrc = "pydrobert_tpu_torch/csrc/"
     rows = []
     times["decode_prologue"]["launches_by_path"] = {
         "serve": launches["decode_prologue"], "lm serve": lm_launches["decode_prologue"],
+        "blankskip": skip_launches["decode_prologue"],
     }
+    for name in ("top_m", "ctc_beam_search"):
+        times[name]["launches_by_path"] = {
+            "beam serve": beam_launches[name], "blankskip": skip_beam_launches[name],
+        }
     times["edit_distance"]["launches_by_path"] = {
         "score": score_launches["edit_distance"],
         "seq2seq train": mer_launches["edit_distance"],
     }
     for name, src, replaces, path, n in (
-        ("decode_prologue", "prologue.cu", 1664, "serve, lm serve",
-         launches["decode_prologue"] + lm_launches["decode_prologue"]),
-        ("top_m", "prologue.cu", 1359, "beam serve", beam_launches["top_m"]),
+        ("decode_prologue", "prologue.cu", 1664, "serve, lm serve, blankskip",
+         launches["decode_prologue"] + lm_launches["decode_prologue"]
+         + skip_launches["decode_prologue"]),
+        ("top_m", "prologue.cu", 1359, "beam serve, blankskip",
+         beam_launches["top_m"] + skip_beam_launches["top_m"]),
         ("spec_augment_apply", "spec_augment.cu", 180, "train",
          train_launches["spec_augment_apply"]),
         ("edit_distance", "edit_distance.cu", 49, "score, seq2seq train",
          score_launches["edit_distance"] + mer_launches["edit_distance"]),
-        ("ctc_beam_search", "ctc_beam.cu", 649, "beam serve",
-         beam_launches["ctc_beam_search"]),
+        ("ctc_beam_search", "ctc_beam.cu", 649, "beam serve, blankskip",
+         beam_launches["ctc_beam_search"] + skip_beam_launches["ctc_beam_search"]),
     ):
         rows.append({
             "name": name, "route": "cuda", "source": csrc + src,

@@ -12,6 +12,7 @@ __all__ = [
     "DECODE_RENORM",
     "DEFT_DEL_COST",
     "DEFT_INS_COST",
+    "DEFT_PAD_VALUE",
     "DEFT_SUB_COST",
     "EPS_0",
     "EPS_INF",
@@ -26,6 +27,9 @@ __all__ = [
 INDEX_PAD_VALUE = -100
 """The value to pad index-based tensors with (the ``ignore_index``
 convention)."""
+
+DEFT_PAD_VALUE = 0.0
+"""Default value to pad floating-point arrays with."""
 
 DEFT_INS_COST = 1.0
 """Default insertion cost in error rate/distance computations."""

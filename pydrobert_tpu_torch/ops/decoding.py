@@ -21,6 +21,9 @@ forms by construction and have no counterpart here. Where those
 contractions turn a picked ``-0.0`` into ``+0.0`` the port adds ``0.0`` to
 the gathered value, so the total-order ranking of zero masses agrees.
 
+:func:`compress_blank_frames` shortens the logits before a search by
+collapsing each run of blank-dominated frames to its first frame.
+
 With :data:`pydrobert_tpu_torch.config.USE_BEAM_KERNEL` forced, or with
 :data:`~pydrobert_tpu_torch.config.DECODE_RENORM` off, a search with no LM
 takes the JAX package's whole-loop route instead: the softmax, the exact
@@ -53,6 +56,7 @@ __all__ = [
     "RandomWalk",
     "SequenceLogProbabilities",
     "beam_search_advance",
+    "compress_blank_frames",
     "ctc_greedy_search",
     "ctc_prefix_search_advance",
     "ctc_prefix_search_advance_factored",
@@ -1376,3 +1380,63 @@ class SequenceLogProbabilities(torch.nn.Module):
 
     def forward(self, logits, hyp):
         return sequence_log_probs(logits, hyp, self.dim, self.eos)
+
+
+def compress_blank_frames(
+    logits: torch.Tensor,
+    in_lens: Optional[torch.Tensor] = None,
+    threshold: float = 0.99,
+    max_frames: Optional[int] = None,
+    batch_first: bool = False,
+    is_probs: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Collapse every run of frames whose blank probability is at least
+    ``threshold`` to its first frame, and pack the kept frames to the
+    front of the time axis, in order.
+
+    ``logits (T, N, V + 1)`` (``(N, T, V + 1)`` with ``batch_first``) hold
+    the blank last; ``in_lens (N,)`` masks the valid frames. The blank's
+    probability is ``softmax(logits)`` taken by the JAX package's steps
+    (the float32 max, the sum of exponentials, then ``exp(blank - max) /
+    den``), or the blank lane itself with ``is_probs``. One surviving blank
+    keeps repeated tokens on either side apart, so greedy transcripts are
+    unchanged for any ``threshold`` above 0.5. ``max_frames``, if given,
+    cuts the output to that many frames (kept frames past it are dropped
+    and not counted). Returns ``(new_logits, new_lens)`` in the input's
+    layout, contiguous; frames past ``new_lens[n]`` are arbitrary.
+    """
+    if logits.dim() != 3:
+        raise RuntimeError("logits must be 3-dimensional")
+    if not 0.0 < threshold <= 1.0:
+        raise RuntimeError(f"threshold must be in (0, 1], got {threshold}")
+    if batch_first:
+        logits = logits.transpose(0, 1)
+    T, N, _ = logits.shape
+    dev = logits.device
+    if in_lens is None:
+        in_lens = torch.full((N,), T, dtype=torch.int32, device=dev)
+    else:
+        in_lens = torch.as_tensor(in_lens, device=dev).to(torch.int32)
+    lp32 = logits[..., -1].float()  # the blank lane, (T, N)
+    if is_probs:
+        p_blank = lp32
+    else:
+        mx = logits.amax(2).float()
+        den = torch.exp(logits.float() - mx[..., None]).sum(2)
+        p_blank = torch.exp(lp32 - mx) / den
+    t_iota = torch.arange(T, dtype=torch.int32, device=dev)[:, None]
+    valid = t_iota < in_lens[None]  # (T, N)
+    dom = (p_blank >= threshold) & valid
+    prev_dom = torch.cat([torch.zeros_like(dom[:1]), dom[:-1]], 0)
+    keep = valid & ~(dom & prev_dom)
+    # a stable compaction: kept frames keyed by their position, the others
+    # pushed past T
+    order = torch.sort(torch.where(keep, t_iota, T + t_iota), dim=0, stable=True).indices
+    new_lens = keep.sum(0, dtype=torch.int32)
+    if max_frames is not None and max_frames < T:
+        order = order[:max_frames]
+        new_lens = torch.clamp(new_lens, max=max_frames)
+    out = torch.gather(logits, 0, order[..., None].expand(-1, -1, logits.shape[2]))
+    if batch_first:
+        out = out.transpose(0, 1).contiguous()
+    return out, new_lens

@@ -18,21 +18,34 @@ distribution of the draw and by applying the same drawn parameters. The
 spline's solves use ``torch.linalg.solve_ex``, which does not synchronize
 with the host, so a training step stays free of host syncs here.
 
-``grid_sample``, the dense and sparse image warps and ``random_shift`` are
-not ported yet.
+:func:`grid_sample` is the JAX package's gather form of torch's
+``grid_sample`` (``align_corners=False``): the same coordinate arithmetic
+op for op, so that ``nearest`` rounds half-pixel coordinates as the JAX
+package does. :func:`dense_image_warp` and :func:`sparse_image_warp` are
+built on it and on the spline. :func:`random_shift` draws its pads from a
+:class:`torch.Generator`; :func:`random_shift_pads` turns given uniforms
+into pads and :func:`random_shift_apply` pads by given amounts through
+:func:`~pydrobert_tpu_torch.ops.pad.pad_variable`.
 """
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import default_device
 from . import kernels
+from .pad import pad_variable
 
 __all__ = [
+    "dense_image_warp",
+    "grid_sample",
     "polyharmonic_spline",
+    "random_shift",
+    "random_shift_apply",
+    "random_shift_pads",
+    "sparse_image_warp",
     "spec_augment",
     "spec_augment_apply_parameters",
     "spec_augment_draw_parameters",
@@ -42,17 +55,24 @@ __all__ = [
 _F32_EPS = float(np.finfo(np.float32).eps)
 
 
-def _phi(r: torch.Tensor, k: int) -> torch.Tensor:
-    """Order-k polyharmonic radial basis."""
+def _phi(s: torch.Tensor, k: int) -> torch.Tensor:
+    """Order-k polyharmonic radial basis of the squared distances ``s``."""
+    r = torch.sqrt(s)
     if k % 2:
         return r**k
-    return (r**k) * torch.log(torch.clamp(r, min=_F32_EPS))
+    return s ** (k // 2) * torch.log(torch.clamp(r, min=_F32_EPS))
 
 
-def _cdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched pairwise Euclidean distance ``(N, P, I),(N, Q, I)->(N, P, Q)``."""
-    diff = a[:, :, None, :] - b[:, None, :, :]
-    return torch.sqrt(torch.clamp((diff * diff).sum(-1), min=0))
+def _basis(a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
+    """The order-k basis at the pairwise distances of ``a (N, P, I)`` and
+    ``b (N, Q, I)``: ``(N, P, Q)`` float32, evaluated in float64 and
+    rounded once. The spline's weights are ill-conditioned and amplify the
+    basis' rounding: evaluated in float32 (XLA simplifies the JAX
+    package's compiled basis in ways eager PyTorch does not), the port's
+    sparse warps lay farther than the JAX package's from a float64
+    solve."""
+    diff = a.double()[:, :, None, :] - b.double()[:, None, :, :]
+    return _phi((diff * diff).sum(-1), k).float()
 
 
 def polyharmonic_spline(
@@ -74,7 +94,7 @@ def polyharmonic_spline(
     f = train_values.float()
     x = query_points.float()
     order = int(order)
-    A = _phi(_cdist(c, c), order)  # (N, T, T)
+    A = _basis(c, c, order)  # (N, T, T)
     if regularization_weight > 0.0:
         A = A + torch.eye(A.shape[1], dtype=A.dtype, device=A.device)[None] * float(
             regularization_weight
@@ -100,7 +120,7 @@ def polyharmonic_spline(
             torch.matmul(Bt, Ainv_B), torch.matmul(Bt, Ainv_f)
         ).result
         w = Ainv_f - torch.matmul(Ainv_B, v)
-    phi_r = _phi(_cdist(x, c), order)  # (N, Q, T)
+    phi_r = _basis(x, c, order)  # (N, Q, T)
     x1 = torch.cat([x, torch.ones_like(x[..., :1])], 2)
     return torch.matmul(phi_r, w) + torch.matmul(x1, v)
 
@@ -146,6 +166,246 @@ def warp_1d_grid(
         t[None].expand(N, T)[..., None],
         interpolation_order,
     )[..., 0]
+
+
+def _reflect_coord(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Reflect continuous pixel coordinates into ``[-0.5, size - 0.5]``."""
+    lo, hi = -0.5, size - 0.5
+    rng = hi - lo
+    r = torch.remainder(x - lo, 2 * rng)
+    return lo + rng - torch.abs(r - rng)
+
+
+def grid_sample(
+    image: torch.Tensor,
+    grid: torch.Tensor,
+    mode: str = "bilinear",
+    padding_mode: str = "zeros",
+) -> torch.Tensor:
+    """torch's ``grid_sample`` with ``align_corners=False``, as gathers and
+    lerps. ``image`` is ``(N, C, H, W)``; ``grid`` is ``(N, H', W', 2)``,
+    ``grid[..., 0]`` the width (x) and ``grid[..., 1]`` the height (y)
+    coordinate in ``[-1, 1]``. ``mode`` is ``"bilinear"`` or
+    ``"nearest"`` (half-way coordinates round to even), ``padding_mode``
+    ``"zeros"``, ``"border"`` or ``"reflection"``."""
+    if mode not in ("bilinear", "nearest"):
+        raise ValueError(f"unsupported mode '{mode}'")
+    if padding_mode not in ("zeros", "border", "reflection"):
+        raise ValueError(f"unsupported padding_mode '{padding_mode}'")
+    N, C, H, W = image.shape
+    grid = grid.to(image.device)
+    ix = ((grid[..., 0] + 1) * W - 1) / 2
+    iy = ((grid[..., 1] + 1) * H - 1) / 2
+    if padding_mode == "reflection":
+        ix = _reflect_coord(ix, W)
+        iy = _reflect_coord(iy, H)
+    flat = image.reshape(N, C, H * W)
+
+    def gather(yi, xi):
+        """``image[n, :, yi[n], xi[n]]`` at clamped indices."""
+        lin = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).reshape(N, 1, -1)
+        out = torch.gather(flat, 2, lin.expand(N, C, lin.shape[2]))
+        return out.reshape((N, C) + yi.shape[1:])
+
+    def inside(yi, xi):
+        return (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+
+    if mode == "nearest":
+        xr = torch.round(ix).long()
+        yr = torch.round(iy).long()
+        out = gather(yr, xr)
+        if padding_mode == "zeros":
+            out = out * inside(yr, xr)[:, None].to(out.dtype)
+        return out
+    x0 = torch.floor(ix).long()
+    y0 = torch.floor(iy).long()
+    x1, y1 = x0 + 1, y0 + 1
+    wx1 = ix - x0
+    wy1 = iy - y0
+    wx0, wy0 = 1 - wx1, 1 - wy1
+    vals = []
+    for yi, wy in ((y0, wy0), (y1, wy1)):
+        for xi, wx in ((x0, wx0), (x1, wx1)):
+            v = gather(yi, xi)
+            w_ = wy * wx
+            if padding_mode == "zeros":
+                w_ = w_ * inside(yi, xi).to(w_.dtype)
+            vals.append(v * w_[:, None].to(v.dtype))
+    return vals[0] + vals[1] + vals[2] + vals[3]
+
+
+def dense_image_warp(
+    image: torch.Tensor,
+    flow: torch.Tensor,
+    indexing: str = "hw",
+    mode: str = "bilinear",
+    padding_mode: str = "border",
+) -> torch.Tensor:
+    """Warp ``image (N, C, H, W)`` by a per-pixel ``flow (N, H, W, 2)``:
+    ``out[h, w] = image[h - flow_h, w - flow_w]``, the flow's last axis in
+    ``indexing`` order (``"hw"`` or ``"wh"``), sampled by
+    :func:`grid_sample`."""
+    flow = flow.to(image.device).float()
+    N, C, H, W = image.shape
+    if indexing == "hw":
+        flow = flow.flip(-1)
+    elif indexing != "wh":
+        raise ValueError("Invalid indexing! must be one of 'wh' or 'hw'")
+    hg, wg = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=image.device),
+        torch.arange(W, dtype=torch.float32, device=image.device),
+        indexing="ij",
+    )
+    hw = torch.stack([wg, hg], 2)[None]  # (1, H, W, 2), (x=w, y=h)
+    WH = torch.tensor([W, H], dtype=torch.float32, device=image.device).reshape(1, 1, 1, 2)
+    grid = (2 * hw - 2 * flow + 1.0) / WH - 1.0
+    return grid_sample(image, grid, mode=mode, padding_mode=padding_mode)
+
+
+def _pinned_points(k: int, WH: torch.Tensor) -> torch.Tensor:
+    """``4k`` control points along the image's boundary, ``(N, 4k, 2)`` as
+    (w, h)."""
+    N = WH.shape[0]
+    w_max = (WH[:, :1] - 1).expand(N, k + 1)
+    h_max = (WH[:, 1:] - 1).expand(N, k + 1)
+    range_ = torch.linspace(0.0, 1.0, k + 1, device=WH.device)
+    w_range = w_max * range_
+    h_range = h_max * range_
+    zeros = torch.zeros_like(w_range)
+    bottom = torch.stack([w_range, zeros], 2)
+    left = torch.stack([zeros[:, 1:-1], h_range[:, 1:-1]], 2)
+    top = torch.stack([w_range, h_max], 2)
+    right = torch.stack([w_max[:, 1:-1], h_range[:, 1:-1]], 2)
+    return torch.cat([bottom, left, top, right], 1)
+
+
+def sparse_image_warp(
+    image: torch.Tensor,
+    source_points: torch.Tensor,
+    dest_points: torch.Tensor,
+    indexing: str = "hw",
+    field_interpolation_order: int = 2,
+    field_regularization_weight: float = 0.0,
+    field_full_matrix: bool = True,
+    pinned_boundary_points: int = 0,
+    dense_interpolation_mode: str = "bilinear",
+    dense_padding_mode: str = "border",
+    include_flow: bool = True,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Warp ``image (N, C, H, W)`` so that the control points
+    ``source_points (N, M, 2)`` move to ``dest_points`` (``indexing``
+    order), the dense flow interpolated by a polyharmonic spline, with
+    ``pinned_boundary_points`` fixed points along each side.
+
+    With ``include_flow`` returns ``(warped, flow)``, the flow ``(N, H, W,
+    2)`` through :func:`dense_image_warp`; without it the spline
+    interpolates ``grid_sample``'s grid directly and only the warped image
+    comes back.
+    """
+    source_points = source_points.to(image.device).float()
+    dest_points = dest_points.to(image.device).float()
+    if indexing not in ("hw", "wh"):
+        raise ValueError("Invalid indexing! must be one of 'wh' or 'hw'")
+    if indexing == "hw":
+        source_points = source_points.flip(-1)
+        dest_points = dest_points.flip(-1)
+    N, C, H, W = image.shape
+    M = source_points.shape[1]
+    if not M:
+        flow = torch.zeros((N, H, W, 2), dtype=torch.float32, device=image.device)
+        return (image, flow) if include_flow else image
+    WH = torch.tensor([W, H], dtype=torch.float32, device=image.device).expand(N, 2)
+    if pinned_boundary_points > 0:
+        pinned = _pinned_points(pinned_boundary_points, WH)
+        source_points = torch.cat([source_points, pinned], 1)
+        dest_points = torch.cat([dest_points, pinned], 1)
+    hg, wg = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=image.device),
+        torch.arange(W, dtype=torch.float32, device=image.device),
+        indexing="ij",
+    )
+    query = torch.stack([wg.reshape(-1), hg.reshape(-1)], 1)[None].expand(N, H * W, 2)
+    if include_flow:
+        flow = polyharmonic_spline(
+            dest_points, dest_points - source_points, query,
+            field_interpolation_order,
+            regularization_weight=field_regularization_weight,
+            full_matrix=field_full_matrix,
+        ).reshape(N, H, W, 2)
+        warped = dense_image_warp(
+            image, flow, indexing="wh", mode=dense_interpolation_mode,
+            padding_mode=dense_padding_mode,
+        )
+        if indexing == "hw":
+            flow = flow.flip(-1)
+        return warped, flow
+    train_values = (2.0 * source_points + 1.0) / WH[:, None] - 1.0
+    grid = polyharmonic_spline(
+        dest_points, train_values, query, field_interpolation_order,
+        regularization_weight=field_regularization_weight,
+        full_matrix=field_full_matrix,
+    ).reshape(N, H, W, 2)
+    return grid_sample(
+        image, grid, mode=dense_interpolation_mode, padding_mode=dense_padding_mode,
+    )
+
+
+def random_shift_pads(
+    in_lens: torch.Tensor, prop: Sequence[float], u: torch.Tensor
+) -> torch.Tensor:
+    """The ``(2, N)`` int32 left and right pads of :func:`random_shift`
+    from uniforms ``u (2, N)`` in ``[0, 1)``: each side's share ``prop``
+    of the length, times its uniform, truncated."""
+    lens_f = in_lens.float()
+    bound = torch.stack([prop[0] * lens_f, prop[1] * lens_f])
+    return (bound * u.to(bound.device, torch.float32)).to(torch.int32)
+
+
+def random_shift_apply(
+    input: torch.Tensor,
+    in_lens: torch.Tensor,
+    pad: torch.Tensor,
+    mode: str = "reflect",
+    value: float = 0.0,
+    out_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad each sequence of ``input (N, T, ...)`` by the given ``pad (2,
+    N)``: the padded sequences (``out_len`` frames, by default the longest)
+    and their lengths."""
+    out_lens = in_lens + pad.sum(0).to(in_lens.dtype)
+    if out_len is None:
+        out_len = int(out_lens.max()) if out_lens.numel() else 0
+    return pad_variable(input, in_lens, pad, mode, value, out_len=int(out_len)), out_lens
+
+
+def random_shift(
+    input: torch.Tensor,
+    in_lens: torch.Tensor,
+    prop: Sequence[float],
+    mode: str = "reflect",
+    value: float = 0.0,
+    training: bool = True,
+    out_len: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad each sequence left and right by random amounts, up to
+    ``prop[0]`` and ``prop[1]`` of its length; the uniforms come from
+    ``generator`` (on ``input``'s device). Returns the padded sequences and
+    their lengths; ``input`` and ``in_lens`` unchanged when not
+    ``training``."""
+    if input.dim() < 2:
+        raise RuntimeError("input must be at least 2 dimensional")
+    in_lens = torch.as_tensor(in_lens, device=input.device)
+    if in_lens.dim() != 1 or in_lens.shape[0] != input.shape[0]:
+        raise RuntimeError(
+            f"For input of shape {tuple(input.shape)}, expected in_lens to be of "
+            f"shape ({input.shape[0]},), got {tuple(in_lens.shape)}"
+        )
+    if not training:
+        return input, in_lens
+    u = torch.rand((2, in_lens.shape[0]), generator=generator, device=input.device)
+    pad = random_shift_pads(in_lens, prop, u)
+    return random_shift_apply(input, in_lens, pad, mode, value, out_len)
 
 
 def _check_spec_augment_input(feats, lengths):

@@ -212,3 +212,178 @@ def test_grad_criterion_passes_an_outlier_of_one_reduction_order(smoke):
         spread=smoke.grad_distances(planted, witness, planted_other),
     )
     assert not ok and res["grad_vs_f64_failed"] == ["conv.weight"]
+
+
+# Rehearsals of chip_smoke.py's blankskip, front_end and seq_losses phases
+# on the CPU at reduced sizes: torch.cuda's synchronize, the timing helpers
+# and nvidia-smi are stubbed, and the kernel wrappers the searches call are
+# wrapped to count their calls as the card's launches (their plain
+# versions count none).
+
+BENCH = os.path.join(REPO, "bench.py")
+
+
+def _bench_blankskip_copy(B, T, V):
+    """bench_ctc_blankskip's data, copied from bench.py:371-377."""
+    import numpy as np
+
+    rng = np.random.RandomState(8)
+    logits = rng.randn(T, B, V + 1).astype(np.float32)
+    logits[..., V] += 9.0
+    for n in range(B):
+        idx = rng.choice(T, size=T // 6, replace=False)
+        logits[idx, n, rng.randint(V, size=T // 6)] += 18.0
+    lens = rng.randint(T // 2, T + 1, (B,)).astype(np.int32)
+    return logits, lens
+
+
+def _draws(body):
+    """The statements of ``body`` from the ``RandomState`` through the
+    lengths, with ``jnp.asarray(x)`` read as ``x`` and ``x = x`` dropped."""
+    import ast
+
+    class Strip(ast.NodeTransformer):
+        def visit_Call(self, node):
+            self.generic_visit(node)
+            if ast.unparse(node.func) == "jnp.asarray":
+                return node.args[0]
+            return node
+
+    lines = [ast.unparse(Strip().visit(s)) for s in body]
+    lines = [l for l in lines if l.split(" = ") != [l.split(" = ")[0]] * 2]
+    start = next(i for i, l in enumerate(lines) if "RandomState" in l)
+    end = next(i for i, l in enumerate(lines) if l.startswith("lens = "))
+    return lines[start:end + 1]
+
+
+def test_blankskip_inputs_are_bench_py_draws(smoke):
+    """The phase's data are bench.py's: the copy above makes the same
+    draws as bench.py's function, statement for statement, and the same
+    arrays as the phase's generator."""
+    import ast
+    import inspect
+
+    import numpy as np
+
+    tree = ast.parse(open(BENCH).read())
+    bench = next(n for n in tree.body if getattr(n, "name", "") == "bench_ctc_blankskip")
+    copy = ast.parse(inspect.getsource(_bench_blankskip_copy)).body[0]
+    assert _draws(copy.body) == _draws(bench.body)
+    for B, T, V in ((4, 30, 16), (256, 12, 8)):
+        got, got_lens = smoke.blankskip_inputs(B, T, V)
+        exp, exp_lens = _bench_blankskip_copy(B, T, V)
+        np.testing.assert_array_equal(got, exp)
+        np.testing.assert_array_equal(got_lens, exp_lens)
+    assert smoke.BLANKSKIP == dict(B=256, T=500, V=1024, max_frames=128, threshold=0.99, seed=8)
+
+
+@pytest.fixture
+def rehearse(smoke, monkeypatch):
+    """chip_smoke stubbed for the CPU; yields the kernels module, whose
+    LAUNCHES count the wrapped calls."""
+    from pydrobert_tpu_torch.ops import decoding, kernels
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(smoke, "smi_line", lambda: "stub")
+    monkeypatch.setattr(smoke, "device_ms", lambda fn, kernel=None, calls=1: fn() and 0.0)
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, **kw: fn() and 0.0)
+
+    def host_ms(fns, reps=1, warmup=0):
+        for fn in fns:
+            fn()
+        return [1.0] * len(fns), [[1.0] for _ in fns]
+
+    monkeypatch.setattr(smoke, "host_ms", host_ms)
+    lines = []
+    monkeypatch.setattr(smoke, "emit", lines.append)
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapped(*args, **kwargs):
+            kernels.LAUNCHES[name] += 1
+            return fn(*args, **kwargs)
+
+        monkeypatch.setattr(mod, name, wrapped)
+
+    counted(decoding, "decode_prologue")
+    counted(decoding, "ctc_beam_search")
+    counted(kernels, "top_m")
+    kernels.lines = lines
+    yield kernels
+    del kernels.lines
+
+
+def test_blankskip_phase_rehearsal(smoke, rehearse):
+    from pydrobert_tpu_torch import config
+    from pydrobert_tpu_torch.ops.decoding import CTCPrefixSearch, compress_blank_frames
+
+    cfg = dict(B=5, T=40, V=16, max_frames=12, threshold=0.99, seed=8)
+    saved = config.USE_BEAM_KERNEL, config.DECODE_RENORM
+    launches, beam_launches, times = smoke.phase_blankskip(
+        (config, CTCPrefixSearch, compress_blank_frames), rehearse, cfg, dev="cpu", cpu_rows=3)
+    assert (config.USE_BEAM_KERNEL, config.DECODE_RENORM) == saved
+    assert launches["decode_prologue"] == 1 and launches["top_m"] == 0
+    assert beam_launches == {"decode_prologue": 0, "top_m": 1, "spec_augment_apply": 0,
+                             "edit_distance": 0, "ctc_beam_search": 1}
+    line = rehearse.lines[-1]
+    assert line["phase"] == "blankskip" and line["compress_equals_cpu_bits"]
+    assert line["cut_frames"] >= 0 and line["kept_frames"] <= line["valid_frames"]
+    assert line["vs_cpu_cut"]["ok"] and line["beam_route"]["vs_card_scan_raw_masses"]["ok"]
+    assert set(times) == {"decode_prologue", "top_m", "ctc_beam_search"}
+    vs_plain = times["ctc_beam_search"]["vs_plain"]
+    assert vs_plain["ok"] and vs_plain["buffer_exact"] and vs_plain["probs_bit_exact"]
+    assert all(t["bound_ms"] > 0 for t in times.values())
+
+
+def _front_end_pkg():
+    from pydrobert_tpu_torch.ops import feats, img, pad
+
+    return feats, pad, img
+
+
+SMALL_FRONT_END = dict(N=3, T=60, F=8, max_time_warp=5, lobe=2, order=2, width=2)
+
+
+def test_front_end_phase_rehearsal(smoke, rehearse):
+    res = smoke.phase_front_end(_front_end_pkg(), SMALL_FRONT_END, dev="cpu")
+    assert res["feat_deltas_vs_f64"]["limit_use"] <= 1.0
+    line = rehearse.lines[-1]
+    assert line["phase"] == "front_end" and set(line["ms"]) == {
+        "mean_var_norm", "feat_deltas", "random_shift_apply", "chunk_by_slices",
+        "sparse_image_warp", "sparse_image_warp_bypass"}
+
+
+def _tf32_round(x):
+    """float32 ``x`` with its mantissa cut to TF32's 10 bits (to nearest),
+    as a tensor core reads a float32 input."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_front_end_phase_fails_tf32_deltas(smoke, rehearse, monkeypatch):
+    """Deltas computed from TF32-rounded features, as a TF32 convolution
+    computes them, fail the phase."""
+    feats, pad, img = _front_end_pkg()
+    deltas = feats.feat_deltas
+    monkeypatch.setattr(feats, "feat_deltas",
+                        lambda x, **kw: deltas(_tf32_round(x), **kw))
+    with pytest.raises(AssertionError, match="feat_deltas_vs_f64"):
+        smoke.phase_front_end((feats, pad, img), SMALL_FRONT_END, dev="cpu")
+
+
+def test_seq_losses_phase_rehearsal(smoke, rehearse):
+    from pydrobert_tpu_torch.models import (
+        AttentionSeq2Seq, Seq2SeqConfig, Seq2SeqDecoderLM, adam, make_mer_train_step,
+    )
+    from pydrobert_tpu_torch.ops import decoding, straight_through, string
+
+    s2s = (AttentionSeq2Seq, Seq2SeqConfig, Seq2SeqDecoderLM, decoding.BeamSearch,
+           make_mer_train_step, adam)
+    res = smoke.phase_seq_losses((string, straight_through, decoding), s2s, dev="cpu")
+    assert res["optimal_completion"] and res["error_rate_1_1_2"]
+    assert res["ocd_grad"]["max_abs_err"] == 0.0
+    line = rehearse.lines[-1]
+    assert line["phase"] == "seq_losses"
+    assert line["shapes"] == {"ref": [13, 64], "hyp": [16, 64], "logits": [16, 64, 64],
+                              "vocab": 64, "eos": 63}

@@ -945,3 +945,108 @@ def test_transducer_streaming_session_on_card_matches_cpu(dev, mode):
             one_shot = card.beam(feats.to(dev), lens.to(dev), 3, 2)
     U = one_shot[0].shape[-1]
     assert torch.equal(got[1], one_shot[1]) and torch.equal(got[0][..., :U], one_shot[0])
+
+
+# The rest of the ops layer on the card: the mistake-counting scan's tie
+# order, the int-free OCD mask, deltas in true float32 and blank-frame
+# compression, each against the CPU.
+
+
+def test_cummin_last_argmin_tie_order_on_card(dev):
+    """The scan keeps the later index on ties on the card as on the CPU,
+    whatever order torch.cummin keeps; and an error rate at non-uniform
+    costs, which rides on it, equals the CPU's."""
+    v, i = pstr._cummin_last_argmin(torch.tensor([[3.0], [1.0], [1.0], [2.0], [1.0]], device=dev))
+    assert v[:, 0].tolist() == [3.0, 1.0, 1.0, 1.0, 1.0] and i[:, 0].tolist() == [0, 1, 2, 2, 4]
+    rng = np.random.RandomState(0)
+    u = torch.from_numpy(rng.randint(0, 3, (67, 40)).astype(np.float32))
+    gv, gi = pstr._cummin_last_argmin(u.to(dev))
+    ev, ei = pstr._cummin_last_argmin(u)
+    assert torch.equal(gv.cpu(), ev) and torch.equal(gi.cpu(), ei)
+    ref = torch.from_numpy(rng.randint(0, 4, (30, 64)))
+    hyp = torch.from_numpy(rng.randint(0, 4, (40, 64)))
+    for costs in ((1.0, 1.0, 2.0), (0.5, 1.25, 2.0)):
+        kw = dict(ins_cost=costs[0], del_cost=costs[1], sub_cost=costs[2], warn=False)
+        got = pstr.error_rate(ref.to(dev), hyp.to(dev), **kw)
+        assert torch.equal(got.cpu(), pstr.error_rate(ref, hyp, **kw))
+        got = pstr.prefix_error_rates(ref.to(dev), hyp.to(dev), **kw)
+        assert torch.equal(got.cpu(), pstr.prefix_error_rates(ref, hyp, **kw))
+
+
+def test_ocd_mask_on_card_is_int_free(dev):
+    """The OCD targets and loss on the card equal the CPU's; the JAX
+    package's int32 einsum would not run there."""
+    rng = np.random.RandomState(1)
+    mask = torch.from_numpy(rng.rand(9, 12, 32) > 0.7)
+    ref = torch.from_numpy(rng.randint(0, 4, (32, 12)))
+    got = pstr._mask_to_unique_targets(mask.to(dev), ref.to(dev), -1)
+    assert torch.equal(got.cpu(), pstr._mask_to_unique_targets(mask, ref, -1))
+    ref_t = torch.from_numpy(rng.randint(0, 9, (12, 32)))
+    hyp = torch.from_numpy(rng.randint(0, 9, (15, 32)))
+    logits = torch.from_numpy(rng.randn(15, 32, 10).astype(np.float32))
+    outs = []
+    for d in (dev, "cpu"):
+        lg = logits.to(d).requires_grad_(True)
+        loss = pstr.hard_optimal_completion_distillation_loss(
+            lg, ref_t.to(d), hyp.to(d), eos=9, warn=False)
+        loss.backward()
+        outs.append((loss.detach().cpu(), lg.grad.cpu()))
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=1e-6, atol=1e-6)
+
+
+def test_feat_deltas_on_card_are_true_float32(dev, monkeypatch):
+    """Deltas on the card lie within rtol and atol 1e-6 of a float64
+    evaluation of the same filter taps, with PyTorch's TF32 flags on; the
+    same features rounded to TF32 first miss that bound, so the test would
+    see a TF32 convolution."""
+    from pydrobert_tpu_torch.ops import feats as pfeats
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    x = torch.from_numpy(np.random.RandomState(2).randn(4, 300, 40).astype(np.float32))
+    filt = torch.from_numpy(pfeats.feat_delta_filters(2, 2)).double()
+    padded = x.double()[:, torch.arange(-4, 304).clamp(0, 299)]
+    exact = torch.cat([sum(padded[:, j:j + 300] * filt[k, j] for j in range(9))
+                       for k in range(3)], -1)
+
+    def within(got):
+        return bool(((got.cpu().double() - exact).abs() <= 1e-6 + 1e-6 * exact.abs()).all())
+
+    assert within(pfeats.feat_deltas(x.to(dev)))
+    b = x.to(dev).view(torch.int32)
+    tf32 = ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+    assert not within(pfeats.feat_deltas(tf32))
+
+
+@pytest.mark.parametrize("batch_first", [False, True])
+def test_compress_blank_frames_on_card_matches_cpu(dev, batch_first):
+    """Bit-equal frames and equal lengths, then a search of them equal to
+    the CPU's."""
+    rng = np.random.RandomState(3)
+    T, N, V = 200, 16, 64
+    x = rng.randn(T, N, V + 1).astype(np.float32)
+    x[..., V] += 6.0
+    for n in range(N):
+        idx = rng.choice(T, size=T // 6, replace=False)
+        x[idx, n, rng.randint(V, size=T // 6)] += 14.0
+    lens = torch.from_numpy(rng.randint(T // 2, T + 1, N))
+    x = torch.from_numpy(np.swapaxes(x, 0, 1).copy() if batch_first else x)
+    kw = dict(threshold=0.9, max_frames=80, batch_first=batch_first)
+    got, got_lens = pdec.compress_blank_frames(x.to(dev), lens.to(dev), **kw)
+    exp, exp_lens = pdec.compress_blank_frames(x, lens, **kw)
+    assert _bits_equal(got.cpu(), exp) and torch.equal(got_lens.cpu(), exp_lens)
+    uncut = pdec.compress_blank_frames(x, lens, threshold=0.9, batch_first=batch_first)[1]
+    assert int(uncut.sum()) < int(lens.sum())  # the data hold runs of dominant blanks
+    if batch_first:
+        got, exp = got.transpose(0, 1), exp.transpose(0, 1)
+    kernels.reset_launches()
+    gy, gl, gp = (t.cpu() for t in CTCPrefixSearch(8)(got, got_lens))
+    assert kernels.LAUNCHES["decode_prologue"] == 1
+    cy, cl, cp = CTCPrefixSearch(8)(exp, exp_lens)
+    assert torch.equal(gl, cl)
+    for n in range(N):
+        for w in range(8):
+            L = int(cl[n, w])
+            assert torch.equal(gy[:L, n, w], cy[:L, n, w])
+    torch.testing.assert_close(gp, cp, rtol=1e-5, atol=0)

@@ -1,7 +1,9 @@
 """Parity of pydrobert_tpu_torch.ops.decoding with the JAX package's CTC
 searches: lengths exact, hypotheses exact within each beam's length,
 probabilities within rtol 1e-5 (exp and reduction order differ between
-XLA and PyTorch in the last ulps)."""
+XLA and PyTorch in the last ulps). ``compress_blank_frames`` is exact (its
+output frames are copies of its input's), then a search of its output is
+held to the JAX search of the JAX compression."""
 
 import jax
 import jax.numpy as jnp
@@ -201,3 +203,94 @@ def test_ctc_greedy_search_bfloat16_matches_jax():
     np.testing.assert_array_equal(gl.numpy(), np.asarray(el))
     assert gm.dtype == torch.float32 and em.dtype == jnp.float32
     np.testing.assert_allclose(gm.numpy(), np.asarray(em), rtol=1e-5, atol=1e-6)
+
+
+def _spiky(T, N, V, seed, blank=5.0, spike=12.0):
+    """bench.py's blank-skip logits in small: a raised blank everywhere and
+    a token spike on about one frame in six."""
+    rng = np.random.RandomState(seed)
+    logits = rng.randn(T, N, V + 1).astype(np.float32)
+    logits[..., V] += blank
+    for n in range(N):
+        idx = rng.choice(T, size=T // 6, replace=False)
+        logits[idx, n, rng.randint(V, size=T // 6)] += spike
+    lens = rng.randint(T // 2, T + 1, (N,)).astype(np.int32)
+    lens[0] = T
+    return logits, lens
+
+
+def _blank_margin(logits, threshold):
+    """The smallest distance of a blank probability (float64) from the
+    threshold: far above the two frameworks' last-ulp differences, or the
+    compressions could part on a frame."""
+    x = logits.astype(np.float64)
+    p = np.exp(x[..., -1] - x.max(-1)) / np.exp(x - x.max(-1, keepdims=True)).sum(-1)
+    return np.abs(p - threshold).min()
+
+
+@pytest.mark.parametrize("threshold", [0.5, 0.9, 0.99])
+@pytest.mark.parametrize("max_frames", [None, 20, 100])
+@pytest.mark.parametrize("batch_first", [False, True])
+def test_compress_blank_frames_matches_jax(threshold, max_frames, batch_first):
+    logits, lens = _spiky(60, 6, 12, int(threshold * 100))
+    assert _blank_margin(logits, threshold) > 1e-5
+    x = np.swapaxes(logits, 0, 1).copy() if batch_first else logits
+    kw = dict(threshold=threshold, max_frames=max_frames, batch_first=batch_first)
+    exp, exp_lens = jdec.compress_blank_frames(jnp.asarray(x), jnp.asarray(lens), **kw)
+    got, got_lens = pdec.compress_blank_frames(torch.from_numpy(x), torch.from_numpy(lens), **kw)
+    np.testing.assert_array_equal(got_lens.numpy(), np.asarray(exp_lens))
+    assert got.shape == exp.shape and got.is_contiguous()
+    # frames past each length are arbitrary (the searches mask by length)
+    t = np.arange(got.shape[1 if batch_first else 0])
+    valid = t[None] < np.asarray(exp_lens)[:, None]
+    if not batch_first:
+        valid = valid.T
+    np.testing.assert_array_equal(got.numpy()[valid], np.asarray(exp)[valid])
+    assert got_lens.dtype == torch.int32
+    if threshold <= 0.9 and max_frames is None:  # 0.99: (almost) no blank dominates
+        assert int(got_lens.sum()) < int(lens.sum())
+
+
+def test_compress_blank_frames_probs_bfloat16_and_errors_match_jax():
+    logits, lens = _spiky(40, 4, 10, 3)
+    probs = np.asarray(jax.nn.softmax(jnp.asarray(logits), -1))
+    for x, kw in ((probs, dict(is_probs=True)), (logits, dict(threshold=0.95))):
+        exp, exp_lens = jdec.compress_blank_frames(jnp.asarray(x), None, **kw)
+        got, got_lens = pdec.compress_blank_frames(torch.from_numpy(x), None, **kw)
+        np.testing.assert_array_equal(got_lens.numpy(), np.asarray(exp_lens))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+    bf = jnp.asarray(logits).astype(jnp.bfloat16)
+    exp, exp_lens = jdec.compress_blank_frames(bf, jnp.asarray(lens), threshold=0.9)
+    got, got_lens = pdec.compress_blank_frames(
+        torch.from_numpy(logits).bfloat16(), torch.from_numpy(lens), threshold=0.9)
+    np.testing.assert_array_equal(got_lens.numpy(), np.asarray(exp_lens))
+    assert got.dtype == torch.bfloat16
+    for args, kw in (((logits[0],), {}), ((logits,), dict(threshold=0.0)),
+                     ((logits,), dict(threshold=1.5))):
+        with pytest.raises(RuntimeError):
+            jdec.compress_blank_frames(jnp.asarray(args[0]), **kw)
+        with pytest.raises(RuntimeError):
+            pdec.compress_blank_frames(torch.from_numpy(args[0]), **kw)
+
+
+@pytest.mark.parametrize("max_frames", [None, 24])
+@pytest.mark.parametrize("W", [1, 4])
+def test_search_of_compressed_frames_matches_jax(max_frames, W):
+    """bench_ctc_blankskip's pipeline in small: compress, then
+    CTCPrefixSearch of the kept frames, against the JAX package's."""
+    logits, lens = _spiky(72, 5, 16, 11 + W, blank=4.0, spike=9.0)
+    assert _blank_margin(logits, 0.9) > 1e-5
+    kw = dict(threshold=0.9, max_frames=max_frames)
+    jl, jlens = jdec.compress_blank_frames(jnp.asarray(logits), jnp.asarray(lens), **kw)
+    exp = jax.jit(jdec.CTCPrefixSearch(W))(jl, jlens)
+    pl, plens = pdec.compress_blank_frames(torch.from_numpy(logits), torch.from_numpy(lens), **kw)
+    got = pdec.CTCPrefixSearch(W)(pl, plens)
+    _compare_search(*got, *exp)
+    # batch-first compression, turned back to time-major, reaches the
+    # search unchanged
+    bl, blens = pdec.compress_blank_frames(
+        torch.from_numpy(np.swapaxes(logits, 0, 1).copy()), torch.from_numpy(lens),
+        batch_first=True, **kw)
+    again = pdec.CTCPrefixSearch(W)(bl.transpose(0, 1), blens)
+    for a, b in zip(again, got):
+        assert torch.equal(a, b)

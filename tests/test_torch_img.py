@@ -1,8 +1,11 @@
-"""The port's SpecAugment (pydrobert_tpu_torch.ops.img) against the JAX
-package's: the warp grid, the apply on parameters drawn by JAX (through the
-public path and through the Pallas kernel in interpret mode), the
-frequency-warp route, the masks' +0.0, and the port's own draw by shape,
-range and distribution. Each test states its tolerance."""
+"""The port's SpecAugment and image warps (pydrobert_tpu_torch.ops.img)
+against the JAX package's: the warp grid, the apply on parameters drawn by
+JAX (through the public path and through the Pallas kernel in interpret
+mode), the frequency-warp route, the masks' +0.0, the port's own draw by
+shape, range and distribution, ``grid_sample`` and ``dense_image_warp``
+(atol 1e-5), ``sparse_image_warp`` (the spline limit) and
+``random_shift`` from given pads (exact). Each test states its
+tolerance."""
 
 import jax
 import jax.numpy as jnp
@@ -336,3 +339,181 @@ def test_apply_wrapper_checks_and_stays_on_cpu():
         kernels.spec_augment_apply(feats, None, None, None, None, tm.float(), fm)
     with pytest.raises(ValueError):
         kernels.spec_augment_apply(feats[0], None, None, None, None, None, None)
+
+
+# grid_sample, the dense and sparse warps, random_shift
+
+
+def _image(seed, shape=(3, 2, 9, 12)):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border", "reflection"])
+def test_grid_sample_matches_jax(mode, padding_mode):
+    """Coordinates across and well past the image (reflection folds more
+    than once); atol 1e-5."""
+    img = _image(1)
+    grid = np.random.RandomState(2).uniform(-2.5, 2.5, (3, 7, 5, 2)).astype(np.float32)
+    exp = jimg.grid_sample(img, grid, mode, padding_mode)
+    got = pimg.grid_sample(torch.from_numpy(img), torch.from_numpy(grid), mode, padding_mode)
+    assert got.shape == exp.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border", "reflection"])
+def test_grid_sample_nearest_at_half_pixels_matches_jax(padding_mode):
+    """Every coordinate half-way between two pixels (and the edges' half
+    pixels), where nearest rounds half to even: the same pixels, exactly."""
+    img = _image(3, (2, 1, 8, 16))
+    H, W = 8, 16
+    ix = np.arange(-1, W + 1) + 0.5  # pixel coordinates on the half pixels
+    iy = np.arange(-1, H + 1) + 0.5
+    gx = (2 * ix + 1) / W - 1
+    gy = (2 * iy + 1) / H - 1
+    grid = np.stack(np.broadcast_arrays(gx[None], gy[:, None]), -1).astype(np.float32)
+    grid = np.broadcast_to(grid[None], (2,) + grid.shape).copy()
+    exp = np.asarray(jimg.grid_sample(img, grid, "nearest", padding_mode))
+    got = pimg.grid_sample(torch.from_numpy(img), torch.from_numpy(grid), "nearest",
+                           padding_mode).numpy()
+    np.testing.assert_array_equal(got, exp)
+
+
+def test_grid_sample_errors_match_jax():
+    img, grid = _image(0), np.zeros((3, 2, 2, 2), np.float32)
+    for kw in (dict(mode="bicubic"), dict(padding_mode="wrap")):
+        with pytest.raises(ValueError):
+            jimg.grid_sample(img, grid, **kw)
+        with pytest.raises(ValueError):
+            pimg.grid_sample(torch.from_numpy(img), torch.from_numpy(grid), **kw)
+
+
+@pytest.mark.parametrize("indexing", ["hw", "wh"])
+@pytest.mark.parametrize("mode,padding_mode", [("bilinear", "border"), ("nearest", "zeros"),
+                                               ("bilinear", "reflection")])
+def test_dense_image_warp_matches_jax(indexing, mode, padding_mode):
+    img = _image(4)
+    flow = (np.random.RandomState(5).randn(3, 9, 12, 2) * 3).astype(np.float32)
+    exp = jimg.dense_image_warp(img, flow, indexing, mode, padding_mode)
+    got = pimg.dense_image_warp(torch.from_numpy(img), torch.from_numpy(flow), indexing, mode,
+                                padding_mode)
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=0, atol=1e-5)
+    with pytest.raises(ValueError):
+        pimg.dense_image_warp(torch.from_numpy(img), torch.from_numpy(flow), "xy")
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_pinned_points_match_jax(k):
+    WH = np.array([[12.0, 9.0], [80.0, 1000.0]], np.float32)
+    exp = np.asarray(jimg._pinned_points(k, jnp.asarray(WH)))
+    got = pimg._pinned_points(k, torch.from_numpy(WH)).numpy()
+    np.testing.assert_allclose(got, exp, rtol=1e-7, atol=0)
+
+
+def _sparse_case(seed, N=3, H=9, W=12, M=4):
+    rng = np.random.RandomState(seed)
+    img = _image(seed, (N, 2, H, W))
+    src = np.stack([rng.uniform(1, H - 2, (N, M)), rng.uniform(1, W - 2, (N, M))], -1)
+    dst = src + rng.randn(N, M, 2) * 1.5
+    return img, src.astype(np.float32), dst.astype(np.float32)
+
+
+def _sparse_truth(img, src, dst, order, pinned, indexing, include_flow):
+    """The warp with its spline solved in float64 (numpy) and sampled in
+    float64 by the port's own gather form."""
+    if indexing == "hw":
+        src, dst = src[..., ::-1], dst[..., ::-1]
+    N, C, H, W = img.shape
+    WH = np.broadcast_to(np.array([W, H], np.float64), (N, 2))
+    src, dst = src.astype(np.float64), dst.astype(np.float64)
+    if pinned:
+        pins = pimg._pinned_points(pinned, torch.from_numpy(WH.copy())).numpy()
+        src, dst = np.concatenate([src, pins], 1), np.concatenate([dst, pins], 1)
+    hg, wg = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    query = np.broadcast_to(np.stack([wg.ravel(), hg.ravel()], 1)[None], (N, H * W, 2))
+    img64 = torch.from_numpy(img.astype(np.float64))
+    if include_flow:
+        flow = _spline_f64(dst, dst - src, query, order, 0.0).reshape(N, H, W, 2)
+        hw = np.stack([wg, hg], 2)[None]
+        grid = (2 * hw - 2 * flow + 1.0) / np.array([W, H]) - 1.0
+        warped = pimg.grid_sample(img64, torch.from_numpy(grid)).numpy()
+        return warped, (flow[..., ::-1] if indexing == "hw" else flow)
+    values = (2.0 * src + 1.0) / WH[:, None] - 1.0
+    grid = _spline_f64(dst, values, query, order, 0.0).reshape(N, H, W, 2)
+    return pimg.grid_sample(img64, torch.from_numpy(grid), padding_mode="border").numpy(), None
+
+
+@pytest.mark.parametrize("include_flow", [True, False])
+@pytest.mark.parametrize("indexing", ["hw", "wh"])
+@pytest.mark.parametrize("order,pinned", [(2, 0), (2, 1), (1, 2), (3, 1)])
+def test_sparse_image_warp_matches_jax(include_flow, indexing, order, pinned):
+    """The spline solve is ill-conditioned in float32 in either framework,
+    so both are held against a float64 solve, the port within 2x the JAX
+    package's own distance from it plus 1e-6 for the flow and 1e-5 for the
+    warped image; and the port's dense warp of the JAX flow equals the JAX
+    warp within atol 1e-5."""
+    img, src, dst = _sparse_case(order + 3 * pinned)
+    kw = dict(indexing=indexing, field_interpolation_order=order,
+              pinned_boundary_points=pinned, include_flow=include_flow)
+    exp = jimg.sparse_image_warp(img, src, dst, **kw)
+    got = pimg.sparse_image_warp(torch.from_numpy(img), torch.from_numpy(src),
+                                 torch.from_numpy(dst), **kw)
+    warped, flow = _sparse_truth(img, src, dst, order, pinned, indexing, include_flow)
+    if include_flow:
+        (exp, exp_flow), (got, got_flow) = exp, got
+        assert got_flow.shape == exp_flow.shape
+        dist = np.abs(np.asarray(exp_flow) - flow).max()
+        assert np.abs(got_flow.numpy() - flow).max() <= 2 * dist + 1e-6
+        again = pimg.dense_image_warp(torch.from_numpy(img),
+                                      torch.from_numpy(np.asarray(exp_flow)), indexing)
+        np.testing.assert_allclose(again.numpy(), np.asarray(exp), rtol=0, atol=1e-5)
+    assert got.shape == exp.shape
+    dist = np.abs(np.asarray(exp) - warped).max()
+    assert np.abs(got.numpy() - warped).max() <= 2 * dist + 1e-5
+
+
+def test_sparse_image_warp_without_points_matches_jax():
+    img = _image(6)
+    none = np.zeros((3, 0, 2), np.float32)
+    exp_img, exp_flow = jimg.sparse_image_warp(img, none, none)
+    got_img, got_flow = pimg.sparse_image_warp(torch.from_numpy(img), torch.from_numpy(none),
+                                               torch.from_numpy(none))
+    np.testing.assert_array_equal(got_img.numpy(), np.asarray(exp_img))
+    np.testing.assert_array_equal(got_flow.numpy(), np.asarray(exp_flow))
+
+
+@pytest.mark.parametrize("mode", ["reflect", "constant", "replicate"])
+@pytest.mark.parametrize("out_len", [None, 40])
+def test_random_shift_from_given_pads_matches_jax(mode, out_len):
+    """JAX's uniforms (drawn from its key as its random_shift draws them)
+    turned into pads by the port and applied: the same output, exactly."""
+    x = _feats(7, (4, 20, 3))
+    lens = np.array([20, 14, 9, 5], np.int32)
+    key = jax.random.PRNGKey(11)
+    prop = (0.5, 0.3)
+    exp, exp_lens = jimg.random_shift(key, x, lens, prop, mode, 1.5, out_len=out_len)
+    u = np.asarray(jax.random.uniform(key, (2, 4)))
+    pad = pimg.random_shift_pads(torch.from_numpy(lens), prop, torch.from_numpy(u))
+    got, got_lens = pimg.random_shift_apply(torch.from_numpy(x), torch.from_numpy(lens), pad,
+                                            mode, 1.5, out_len)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+    np.testing.assert_array_equal(got_lens.numpy(), np.asarray(exp_lens))
+
+
+def test_random_shift_follows_its_generator():
+    """The generator's draws: reproducible, within ``prop`` of each
+    length, and the input as it is when not training; errors as JAX's."""
+    x = torch.from_numpy(_feats(8, (4, 20, 3)))
+    lens = torch.tensor([20, 14, 9, 5])
+    outs = [pimg.random_shift(x, lens, (0.5, 0.3), generator=torch.Generator().manual_seed(3))
+            for _ in range(2)]
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    added = outs[0][1] - lens
+    assert bool((added >= 0).all()) and bool((added <= (0.8 * lens).long()).all())
+    same, same_lens = pimg.random_shift(x, lens, (0.5, 0.3), training=False)
+    assert same is x and torch.equal(same_lens, lens)
+    for args in ((x[0, 0], lens), (x, lens[:2])):
+        with pytest.raises(RuntimeError):
+            jimg.random_shift(jax.random.PRNGKey(0), *(np.asarray(a) for a in args), (0.1, 0.1))
+        with pytest.raises(RuntimeError):
+            pimg.random_shift(*args, (0.1, 0.1))

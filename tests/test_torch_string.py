@@ -1,9 +1,12 @@
 """The port's edit distances and error rates (pydrobert_tpu_torch.ops.string)
 against the JAX package's, and the plain version of the edit-distance
 kernel against the Pallas kernel in interpret mode. Distances are small
-integers or sums of the costs, so every comparison is exact; so is
-``fill_after_eos``. The minimum-error-rate loss, a softmax-weighted mean,
-agrees within rtol 1e-6, and its gradient within 1e-6."""
+integers or sums of the costs, so every comparison is exact; so are the
+mistake counts at non-uniform costs, the prefix error rates and edit
+distances, the optimal completions and ``fill_after_eos``. The
+minimum-error-rate loss, a softmax-weighted mean, agrees within rtol 1e-6,
+and its gradient within 1e-6; the OCD loss and its gradient within rtol
+1e-6 and atol 1e-6."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -144,11 +147,20 @@ def test_reference_matches_pallas_interpret(costs, shape, exclude_last):
 
 
 def test_nonuniform_error_rate_raises():
+    """An error rate at non-uniform costs raises the JAX package's warning
+    (mistake counts differ from distances there) and equals its result; a
+    distance at the same costs raises none."""
     ref, hyp = _tokens(0, 4, 5, 3)
-    with pytest.raises(NotImplementedError):
-        pstr.error_rate(torch.from_numpy(ref), torch.from_numpy(hyp), sub_cost=2.0)
-    # a distance with the same costs is ported
-    pstr.edit_distance(torch.from_numpy(ref), torch.from_numpy(hyp), sub_cost=2.0)
+    with pytest.warns(UserWarning, match="non-uniform"):
+        got = pstr.error_rate(torch.from_numpy(ref), torch.from_numpy(hyp), sub_cost=2.0)
+    with pytest.warns(UserWarning, match="non-uniform"):
+        exp = jstr.error_rate(ref, hyp, sub_cost=2.0)
+    _same(got, exp)
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        pstr.edit_distance(torch.from_numpy(ref), torch.from_numpy(hyp), sub_cost=2.0)
 
 
 def test_warnings_and_errors_match_jax():
@@ -407,3 +419,208 @@ def test_minimum_error_rate_loss_errors_match_jax():
             jstr.minimum_error_rate_loss(*(jnp.asarray(a) for a in args))
         with pytest.raises(RuntimeError):
             pstr.minimum_error_rate_loss(*(torch.from_numpy(np.ascontiguousarray(a)) for a in args))
+
+
+# Mistake counts, prefixes and the optimal completion (the plain DP the
+# JAX package runs for them; no kernel takes them).
+
+NONUNIFORM = [(1.0, 1.0, 2.0), (0.5, 1.25, 2.0), (2.0, 1.0, 1.0), (1.0, 3.0, 1.0), (0.3, 0.7, 0.1)]
+
+
+def _eos_tokens(seed, R, H, N, eos=3, V=5):
+    """Tokens over ``V`` with an ``eos`` at a random place in most
+    sequences (some at the start, some nowhere)."""
+    ref, hyp = _tokens(seed, R, H, N, V)
+    rng = np.random.RandomState(seed + 1)
+    for a in (ref, hyp):
+        a[a == eos] = 0
+        cut = rng.randint(0, a.shape[0] + 2, N)
+        for n, c in enumerate(cut):
+            if c < a.shape[0]:
+                a[c, n] = eos
+    return ref, hyp
+
+
+def _same_bits(got, exp):
+    exp = np.asarray(exp)
+    assert got.shape == exp.shape and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), exp.view(np.uint32))
+
+
+@pytest.mark.parametrize("costs", NONUNIFORM)
+@pytest.mark.parametrize("shape", [(11, 13, 50), (1, 6, 4), (7, 1, 5), (30, 40, 6)])
+@pytest.mark.parametrize("norm", [False, True])
+def test_nonuniform_error_rate_matches_jax(costs, shape, norm):
+    """Mistakes along the cheapest alignment, ties to substitution over
+    insertion over deletion; bit for bit."""
+    ref, hyp = _tokens(sum(shape) + 5, *shape, V=4)
+    kw = dict(ins_cost=costs[0], del_cost=costs[1], sub_cost=costs[2], norm=norm, warn=False)
+    _same_bits(pstr.error_rate(torch.from_numpy(ref), torch.from_numpy(hyp), **kw),
+               jstr.error_rate(ref, hyp, **kw))
+
+
+@pytest.mark.parametrize("fn", ["error_rate", "prefix_error_rates"])
+@pytest.mark.parametrize(
+    "costs", [(1.0, 1.0, np.inf), (np.inf, 1.0, 1.0), (1.0, np.inf, 1.0), (1.0, np.nan, 1.0)]
+)
+def test_mistake_dp_at_infinite_and_nan_costs_matches_jax(fn, costs):
+    """The mistake-counting DP where the deletion relaxation meets NaN
+    (at del=inf every ``row - del_shift`` is NaN, and the last-argmin scan
+    must still give an index, 0 as in the JAX package's combine); the
+    same values and NaNs as the JAX package."""
+    ref, hyp = _tokens(17, 7, 9, 5, V=4)
+    kw = dict(ins_cost=costs[0], del_cost=costs[1], sub_cost=costs[2], warn=False)
+    got = getattr(pstr, fn)(torch.from_numpy(ref), torch.from_numpy(hyp), **kw)
+    _same_or_nan(got.numpy(), np.asarray(getattr(jstr, fn)(ref, hyp, **kw)))
+
+
+@pytest.mark.parametrize("include_eos", [False, True])
+@pytest.mark.parametrize("batch_first", [False, True])
+def test_nonuniform_error_rate_eos_and_layout_match_jax(include_eos, batch_first):
+    ref, hyp = _eos_tokens(11, 9, 12, 20)
+    if batch_first:
+        ref, hyp = ref.T.copy(), hyp.T.copy()
+    for costs in NONUNIFORM[:3]:
+        kw = dict(eos=3, include_eos=include_eos, batch_first=batch_first, warn=False,
+                  ins_cost=costs[0], del_cost=costs[1], sub_cost=costs[2])
+        _same_bits(pstr.error_rate(torch.from_numpy(ref), torch.from_numpy(hyp), **kw),
+                   jstr.error_rate(ref, hyp, **kw))
+
+
+def test_cummin_last_argmin_matches_jax():
+    """The running minimum and the index of its last occurrence (ties go
+    to the later index) on rows built of ties, against the JAX package's
+    associative scan, and on the example ``[3, 1, 1, 2, 1]``."""
+    from pydrobert_tpu.ops.string import _cummin_last_argmin as jscan
+
+    v, i = pstr._cummin_last_argmin(torch.tensor([[3.0], [1.0], [1.0], [2.0], [1.0]]))
+    assert v[:, 0].tolist() == [3.0, 1.0, 1.0, 1.0, 1.0]
+    assert i[:, 0].tolist() == [0, 1, 2, 2, 4]
+    rng = np.random.RandomState(5)
+    for rows in (1, 2, 3, 7, 8, 9, 33):
+        u = rng.randint(0, 3, (rows, 6)).astype(np.float32)
+        ev, ei = jscan(jnp.asarray(u))
+        gv, gi = pstr._cummin_last_argmin(torch.from_numpy(u))
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(ev))
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(ei))
+
+
+@pytest.mark.parametrize("fn", ["prefix_error_rates", "prefix_edit_distances"])
+@pytest.mark.parametrize("costs", [(1.0, 1.0, 1.0), (2.0, 2.0, 2.0), (1.0, 1.0, 2.0), (0.5, 1.25, 2.0)])
+@pytest.mark.parametrize("exclude_last", [False, True])
+@pytest.mark.parametrize("batch_first", [False, True])
+def test_prefix_distances_match_jax(fn, costs, exclude_last, batch_first):
+    """Every prefix of every hypothesis, normalized or not, with eos,
+    padding past each length; bit for bit."""
+    ref, hyp = _eos_tokens(len(fn) + int(exclude_last), 8, 10, 12)
+    if batch_first:
+        ref, hyp = ref.T.copy(), hyp.T.copy()
+    for norm in (False, True):
+        kw = dict(eos=3, batch_first=batch_first, exclude_last=exclude_last, norm=norm,
+                  padding=-7, warn=False, ins_cost=costs[0], del_cost=costs[1],
+                  sub_cost=costs[2])
+        got = getattr(pstr, fn)(torch.from_numpy(ref), torch.from_numpy(hyp), **kw)
+        _same_bits(got, getattr(jstr, fn)(ref, hyp, **kw))
+
+
+@pytest.mark.parametrize("shape", [(6, 0, 3), (0, 5, 3), (1, 1, 2)])
+def test_prefix_distances_on_short_axes_match_jax(shape):
+    ref, hyp = _tokens(sum(shape), *shape)
+    for fn in ("prefix_error_rates", "prefix_edit_distances"):
+        for exclude_last in (False, True):
+            kw = dict(exclude_last=exclude_last, warn=False, sub_cost=2.0)
+            got = getattr(pstr, fn)(torch.from_numpy(ref), torch.from_numpy(hyp), **kw)
+            _same_bits(got, getattr(jstr, fn)(ref, hyp, **kw))
+
+
+@pytest.mark.parametrize("costs", [(1.0, 1.0, 1.0), (1.0, 1.0, 2.0), (2.0, 1.0, 1.0)])
+@pytest.mark.parametrize("exclude_last", [False, True])
+@pytest.mark.parametrize("batch_first", [False, True])
+def test_optimal_completion_matches_jax(costs, exclude_last, batch_first):
+    """The sorted, distinct optimal next tokens of every prefix, padded
+    to the reference length; exact, also where a reference repeats a
+    token (V=4 over 9 positions)."""
+    ref, hyp = _eos_tokens(int(exclude_last) + 3 * int(batch_first), 9, 11, 14, V=4)
+    if batch_first:
+        ref, hyp = ref.T.copy(), hyp.T.copy()
+    for eos, include_eos in ((3, True), (3, False), (None, True)):
+        kw = dict(eos=eos, include_eos=include_eos, batch_first=batch_first,
+                  exclude_last=exclude_last, padding=-1, warn=False,
+                  ins_cost=costs[0], del_cost=costs[1], sub_cost=costs[2])
+        got = pstr.optimal_completion(torch.from_numpy(ref), torch.from_numpy(hyp), **kw)
+        exp = np.asarray(jstr.optimal_completion(ref, hyp, **kw))
+        assert got.shape == exp.shape
+        np.testing.assert_array_equal(got.numpy(), exp)
+
+
+def test_mask_to_unique_targets_matches_jax():
+    """The int-free mark of every copy of an optimal token against the JAX
+    package's int32 einsum, on random masks over references full of
+    repeats."""
+    from pydrobert_tpu.ops.string import _mask_to_unique_targets as jtargets
+
+    rng = np.random.RandomState(9)
+    mask = rng.rand(5, 8, 6) > 0.7  # (H, R, N)
+    ref = rng.randint(0, 3, (6, 8)).astype(np.int32)  # (N, R)
+    exp = np.asarray(jtargets(jnp.asarray(mask), jnp.asarray(ref), -5))
+    got = pstr._mask_to_unique_targets(torch.from_numpy(mask), torch.from_numpy(ref), -5)
+    np.testing.assert_array_equal(got.numpy(), exp)
+
+
+def _ocd_inputs(seed, batch_first, V=7, H=9, N=6, R=8, eos=6):
+    rng = np.random.RandomState(seed)
+    ref = rng.randint(0, V - 1, (R, N)).astype(np.int32)
+    hyp = rng.randint(0, V - 1, (H, N)).astype(np.int32)
+    ref[rng.randint(2, R, N), np.arange(N)] = eos
+    hyp[rng.randint(1, H, N), np.arange(N)] = eos
+    logits = rng.randn(H, N, V).astype(np.float32)
+    if batch_first:
+        ref, hyp, logits = ref.T.copy(), hyp.T.copy(), logits.transpose(1, 0, 2).copy()
+    return logits, ref, hyp
+
+
+@pytest.mark.parametrize(
+    "batch_first,reduction,with_weight,include_eos",
+    [(False, "mean", False, True), (True, "mean", True, True), (False, "sum", True, False),
+     (True, "none", False, True)],
+)
+def test_ocd_loss_matches_jax(batch_first, reduction, with_weight, include_eos):
+    """The loss and its gradient in the logits; rtol 1e-6, atol 1e-6."""
+    import jax
+
+    logits, ref, hyp = _ocd_inputs(int(batch_first) + 7, batch_first)
+    weight = np.random.RandomState(1).rand(7).astype(np.float32) + 0.5 if with_weight else None
+    kw = dict(eos=6, include_eos=include_eos, batch_first=batch_first, reduction=reduction,
+              warn=False)
+
+    def jloss(lg):
+        return jstr.hard_optimal_completion_distillation_loss(
+            lg, jnp.asarray(ref), jnp.asarray(hyp),
+            weight=None if weight is None else jnp.asarray(weight), **kw)
+
+    exp = jloss(jnp.asarray(logits))
+    lg = torch.from_numpy(logits).requires_grad_(True)
+    got = pstr.hard_optimal_completion_distillation_loss(
+        lg, torch.from_numpy(ref), torch.from_numpy(hyp),
+        weight=None if weight is None else torch.from_numpy(weight), **kw)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(exp), rtol=1e-6, atol=1e-6)
+    got.sum().backward()
+    exp_g = jax.grad(lambda a: jloss(a).sum())(jnp.asarray(logits))
+    np.testing.assert_allclose(lg.grad.numpy(), np.asarray(exp_g), rtol=1e-6, atol=1e-6)
+
+
+def test_ocd_loss_errors_match_jax():
+    logits, ref, hyp = _ocd_inputs(3, False)
+    cases = [
+        (dict(), (logits[0], ref, hyp)),  # logits not 3-d
+        (dict(), (logits[:-1], ref, hyp)),  # logits and hyp differ
+        (dict(eos=7), (logits, ref, hyp)),  # eos not a class
+        (dict(eos=2, ignore_index=2), (logits, ref, hyp)),  # eos is ignored
+        (dict(eos=6, reduction="max"), (logits, ref, hyp)),
+    ]
+    for kw, args in cases:
+        with pytest.raises(RuntimeError):
+            jstr.hard_optimal_completion_distillation_loss(*(jnp.asarray(a) for a in args), **kw)
+        with pytest.raises(RuntimeError):
+            pstr.hard_optimal_completion_distillation_loss(
+                *(torch.from_numpy(np.ascontiguousarray(a)) for a in args), **kw)
