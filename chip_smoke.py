@@ -144,7 +144,28 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    shapes: ``optimal_completion``, the OCD loss and its gradient, the
    prefix error rates and edit distances, ``error_rate`` at costs (1, 1,
    2), and the two straight-through relaxations given the same uniforms,
-   on the card against the CPU; wall times.
+   on the card against the CPU; wall times;
+17. forced alignment of the first served request's logits (32, 500,
+   1025): to its width-16 hypotheses (512 rows), every path collapsing
+   back to its hypothesis with a finite score, paths equal to the port's
+   alignment on the CPU and scores within rtol 1e-6; to the greedy
+   transcripts, every path the per-frame argmax and every score the frame
+   maxima's float32 sum within rtol 1e-6; align ms (CUDA events, median of
+   7) and launches a frame;
+18. REINFORCE (BASELINE config #5 at ``phase_s2s_train``'s width): a
+   ``DirectEstimator`` over ``SequentialLanguageModelDistribution(
+   RandomWalk(decoder LM), batch_shape=(16,), max_iters=16)`` of the
+   negated error rate against 12-token references, 4 samples, and one
+   backward pass; one edit-distance launch equal to its plain version,
+   the value the mean of the sampled values, and the CPU given the card's
+   samples within rtol 1e-5 (value) and 1e-4 of each gradient's largest
+   entry; ms and launches;
+19. REBAR over the same served logits: ``RelaxEstimator`` with the
+   Gumbel REBAR control variate, 4 samples, of ``(b * w).sum((-2,
+   -1))``: the estimate within 4 standard errors of its exact mean, and
+   on the first 4 rows the value, logits gradient and
+   ``relax_variance_loss``'s control-variate gradient equal to the CPU's
+   on the same uniforms (rtol 1e-5, or 1e-4 of the largest entry); ms.
 
 ``python3 chip_smoke.py --train-witness N`` runs phase 1, then trains
 phase 5's model N times from N seeds and reports the card-vs-CPU step
@@ -232,43 +253,130 @@ def device_events(prof):
 
 
 TRACES = {}  # kernel name -> traces its last device_ms reading took
+TRACE_NOTES = {}  # kernel name -> where its last reading's short traces lost launches
+TRACE_PAD_S = 0.05  # idle host time on either side of a retaken trace's calls
 
 
-def device_ms(fn, kernel=None, calls=INNER):
+def launch_notes(prof, kernel):
+    """Where a trace's records of ``kernel`` lie: the host's launch records
+    (the runtime's ``*LaunchKernel`` calls) in launch order, which of them
+    have no device record, and for those that have one, how far (us) the
+    kernel's start lies after its launch's start and after the trace's
+    start, and how far its end lies after the host's last record ends
+    (the ``synchronize`` that closes the calls). A kernel that the device
+    ran but whose record lies outside the trace's window is dropped by
+    the profiler; these offsets show whether that is where the missing
+    ones went."""
+    from torch.autograd import DeviceType
+
+    res = prof.profiler.kineto_results
+    events = res.events()
+    launches = sorted(
+        (e for e in events if e.device_type() != DeviceType.CUDA and "LaunchKernel" in e.name()),
+        key=lambda e: e.start_ns(),
+    )
+    kernels = [e for e in events if e.device_type() == DeviceType.CUDA]
+    by_corr = {e.correlation_id(): e for e in kernels}  # CUPTI's id, a launch's too
+    host_end = max(e.end_ns() for e in events if e.device_type() != DeviceType.CUDA)
+    start = res.trace_start_ns()
+    missing, after_launch = [], []
+    for i, e in enumerate(launches):
+        k = by_corr.get(e.correlation_id())
+        if k is None:
+            missing.append(i)
+        elif kernel in k.name():
+            after_launch.append((k.start_ns() - e.start_ns()) / 1e3)
+    own = [k for k in kernels if kernel in k.name()]
+    return {
+        "host_launches": len(launches), "device_kernels": len(kernels),
+        "launches_without_kernel": missing,
+        "kernel_start_after_launch_us": [min(after_launch, default=None),
+                                         max(after_launch, default=None)],
+        "kernel_start_after_trace_start_us": [
+            min(((k.start_ns() - start) / 1e3 for k in own), default=None),
+            max(((k.start_ns() - start) / 1e3 for k in own), default=None)],
+        "kernel_end_after_host_end_us": max(((k.end_ns() - host_end) / 1e3 for k in own),
+                                            default=None),
+        "first_launch_after_trace_start_us": (
+            (launches[0].start_ns() - start) / 1e3 if launches else None),
+    }
+
+
+def device_ms(fn, kernel=None, calls=INNER, count=None):
     """Device milliseconds per call of ``fn()`` from torch.profiler's CUDA
     trace of ``calls`` calls: the kernels whose name holds ``kernel``, which
     each call must launch once, or every kernel when ``kernel`` is None.
     The traced calls follow a warm-up cycle of as many calls under the
-    profiler whose events are dropped, so that none of the traced launches
-    falls in the start of tracing, where CUPTI can miss kernels; a trace
-    that still misses some, or all, is taken again, up to five times (three
-    traces in a row have missed 18 of 20 launches), and the traces taken
-    are kept in ``TRACES[kernel]`` for the kernels line. None when no trace
-    holds the kernel's device time."""
+    profiler whose events are dropped. A trace that holds fewer of the
+    kernel's launches than ``calls`` is noted (``launch_notes``, kept in
+    ``TRACE_NOTES[kernel]``) and taken again, up to five times, with
+    ``TRACE_PAD_S`` of idle host time before the first call and after the
+    synchronize, so that a device record whose timestamp strays out of the
+    calls' window still falls inside the trace's; the traces taken are
+    kept in ``TRACES[kernel]`` for the kernels line. ``count`` gives the
+    wrapper's launch counter (its ``LAUNCHES`` entry): the traced calls
+    must add ``calls`` to it, or this raises. None when all five traces
+    missed the kernel, or held only some of its launches while the counter
+    shows that every call launched it; a trace holding more launches than
+    calls, or some without a counter to vouch for the rest, raises."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for attempt in range(1, 6):
         TRACES[kernel] = attempt
-        traced = []
+        pad = TRACE_PAD_S if attempt > 1 else 0.0
+        traced, notes = [], {}
+        if attempt == 1:
+            TRACE_NOTES.pop(kernel, None)
+
+        def ready(p):
+            traced.extend(device_events(p))
+            if kernel is not None:
+                notes.update(launch_notes(p, kernel))
+
         with profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
             schedule=schedule(wait=0, warmup=1, active=1),
-            on_trace_ready=lambda p: traced.extend(device_events(p)),
+            on_trace_ready=ready,
         ) as prof:
-            for _ in range(2):
+            for cycle in range(2):
+                before = count() if count else None
+                time.sleep(pad * cycle)
                 for _ in range(calls):
                     fn()
                 torch.cuda.synchronize()
+                time.sleep(pad * cycle)
+                counted = count() - before if count else None
                 prof.step()
+        if count and counted != calls:
+            raise AssertionError(f"{calls} calls counted {counted} launches of {kernel}")
         hits = [a for a in traced if kernel is None or kernel in a.key]
         launched = sum(a.count for a in hits)
         if hits and (kernel is None or launched == calls):
             return sum(a.self_device_time_total for a in hits) / 1e3 / calls
         if not hits and kernel is None:
             return None
-    if launched == 0:
+        if launched > calls:
+            raise AssertionError(f"{calls} calls launched {kernel} {launched} times")
+        TRACE_NOTES.setdefault(kernel, []).append(
+            dict(notes, trace=attempt, pad_s=pad, held=launched, calls=calls))
+    if launched == 0 or count:
         return None
     raise AssertionError(f"{calls} calls launched {kernel} {launched} times")
+
+
+def worst_rel(triples):
+    """Over ``(key, got, expected)`` triples, the largest ``max |got -
+    expected|`` over ``max |expected|`` (a tensor whose expected entries
+    are all zero is skipped) and the key where it falls: how the card's
+    gradients are held against the CPU's, each within a share of its own
+    largest entry."""
+    worst, at = 0.0, None
+    for k, a, b in triples:
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        scale = float(b.abs().max())
+        if scale > 0 and float((a - b).abs().max()) / scale > worst:
+            worst, at = float((a - b).abs().max()) / scale, k
+    return worst, at
 
 
 def cold(fn):
@@ -468,7 +576,7 @@ def phase_main_path(torch_pkg):
         "model_f32_card_vs_cpu_max_abs_err": model_err,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
     })
-    return model, recognize, requests, launches, captured[0]
+    return model, recognize, requests, launches, captured[0], outputs[0]
 
 
 def make_model(ConformerConfig, ConformerCTC):
@@ -589,13 +697,14 @@ def phase_times(kernels, model, recognize, requests, CTCPrefixSearch, logits):
     times, line = {}, {"phase": "times", "shape": list(HEADLINE), "m": m}
     for name, (kernel, plain, library) in fns.items():
         wrapper = cuda_ms(kernel)
-        own = device_ms(kernel, "prologue_kernel")
+        own = device_ms(kernel, "prologue_kernel", count=lambda: kernels.LAUNCHES[name])
         times[name] = {
             # the kernel's own device time; the events' time where the
             # profiler saw none
             "ms": wrapper if own is None else own,
             "ms_from": "cuda_events" if own is None else "profiler",
             "traces": TRACES["prologue_kernel"],
+            "trace_notes": TRACE_NOTES.get("prologue_kernel"),
             "wrapper_ms": wrapper,
             "plain_ms": cuda_ms(plain),
             "bound_ms": bounds[name][0],
@@ -797,13 +906,15 @@ def phase_beam_serve(pkg, kernels, model, requests):
             return kernels.ctc_beam_search(nonext, blank, out_lens, WIDTH, top)
 
         wrapper = cuda_ms(kernel)
-        own = device_ms(kernel, "ctc_beam_kernel")
+        own = device_ms(kernel, "ctc_beam_kernel",
+                        count=lambda: kernels.LAUNCHES["ctc_beam_search"])
         ms = wrapper if own is None else own
         frames = int(out_lens.clamp(max=T).max())
         bound = beam_bound_ms(out_lens, T, N, WIDTH, M)
         times = {
             "ms": ms, "ms_from": "cuda_events" if own is None else "profiler",
             "traces": TRACES["ctc_beam_kernel"],
+            "trace_notes": TRACE_NOTES.get("ctc_beam_kernel"),
             "wrapper_ms": wrapper,
             "plain_ms": cuda_ms(
                 lambda: kernels.ctc_beam_search_reference(nonext, blank, out_lens, WIDTH, top),
@@ -1024,12 +1135,14 @@ def phase_lm_serve(pkg, kernels, model, requests, lm):
     profiled = trace(decode)
 
     wrapper = cuda_ms(lambda: kernels.decode_prologue(x, M, g_bias))
-    own = device_ms(lambda: kernels.decode_prologue(x, M, g_bias), "prologue_kernel")
+    counted = dict(count=lambda: kernels.LAUNCHES["decode_prologue"])
+    own = device_ms(lambda: kernels.decode_prologue(x, M, g_bias), "prologue_kernel", **counted)
     bound = prologue_bound_ms(T, N, Vp1, M, x.element_size(), bias_bytes=4 * V)
     prologue = {
         "ms": wrapper if own is None else own,
         "ms_from": "cuda_events" if own is None else "profiler",
         "traces": TRACES["prologue_kernel"],
+        "trace_notes": TRACE_NOTES.get("prologue_kernel"),
         "wrapper_ms": wrapper,
         "plain_ms": cuda_ms(lambda: kernels.decode_prologue_reference(x, M, g_bias)),
         "bound_ms": bound[0], "bound_by": bound[1],
@@ -1039,9 +1152,10 @@ def phase_lm_serve(pkg, kernels, model, requests, lm):
         "bias": "0.5 * uni of the bench LM", "launches": launches["decode_prologue"],
     }
     # which of the two moved the time: M past a warp's 32, or the bias
-    prologue["m55_no_bias_ms"] = device_ms(lambda: kernels.decode_prologue(x, M), "prologue_kernel")
+    prologue["m55_no_bias_ms"] = device_ms(lambda: kernels.decode_prologue(x, M),
+                                           "prologue_kernel", **counted)
     prologue["m32_bias_ms"] = device_ms(
-        lambda: kernels.decode_prologue(x, M_HEADLINE, g_bias), "prologue_kernel"
+        lambda: kernels.decode_prologue(x, M_HEADLINE, g_bias), "prologue_kernel", **counted
     )
     emit({
         "phase": "lm_serve", "nvidia_smi": smi_line(),
@@ -1674,16 +1788,19 @@ def sa_times(kernels, img):
         img._span_mask(p[4], p[5], T), img._span_mask(p[6], p[7], F)
     ]
     wrapper = cuda_ms(lambda: kernels.spec_augment_apply(feats, *args))
-    own = device_ms(cold(lambda: kernels.spec_augment_apply(feats, *args)), "sa_kernel")
-    traces = TRACES["sa_kernel"]
+    counted = dict(count=lambda: kernels.LAUNCHES["spec_augment_apply"])
+    own = device_ms(cold(lambda: kernels.spec_augment_apply(feats, *args)), "sa_kernel",
+                    **counted)
+    traces, notes = TRACES["sa_kernel"], TRACE_NOTES.get("sa_kernel")
     bf16 = feats.bfloat16()
-    own_bf16 = device_ms(cold(lambda: kernels.spec_augment_apply(bf16, *args)), "sa_kernel")
+    own_bf16 = device_ms(cold(lambda: kernels.spec_augment_apply(bf16, *args)), "sa_kernel",
+                         **counted)
     bound = sa_bound_ms(feats, *args)
     bound_bf16 = sa_bound_ms(bf16, *args)
     return {
         "ms": wrapper if own is None else own,
         "ms_from": "cuda_events" if own is None else "profiler, L2 flushed",
-        "traces": traces,
+        "traces": traces, "trace_notes": notes,
         "wrapper_ms": wrapper,
         "plain_ms": cuda_ms(lambda: kernels.spec_augment_apply_reference(feats, *args)),
         "bound_ms": bound[0], "bound_by": bound[1],
@@ -1735,12 +1852,14 @@ def phase_score(pkg, kernels, logits, out_lens):
     hyp_lens = y_lens.int()
     ed = (refs, y.int(), ref_lens, hyp_lens, 1.0, 1.0, 1.0)  # as the kernel takes them
     wrapper = cuda_ms(lambda: kernels.edit_distance(*ed))
-    own = device_ms(cold(lambda: kernels.edit_distance(*ed)), "ed_wave")
+    own = device_ms(cold(lambda: kernels.edit_distance(*ed)), "ed_wave",
+                    count=lambda: kernels.LAUNCHES["edit_distance"])
     bound = ed_bound_ms(R_SCORE, B_TRAIN, hyp_lens)
     times = {
         "ms": wrapper if own is None else own,
         "ms_from": "cuda_events" if own is None else "profiler, L2 flushed",
         "traces": TRACES["ed_wave"],
+        "trace_notes": TRACE_NOTES.get("ed_wave"),
         "wrapper_ms": wrapper,
         "plain_ms": cuda_ms(lambda: kernels.edit_distance_reference(*ed), inner=2),
         "bound_ms": bound[0], "bound_by": bound[1],
@@ -1994,13 +2113,9 @@ def phase_s2s_train(s2s, decoding, kernels):
     lc, gc = mer_step_on(s2s, decoding, kernels, sd0, batch, walks[:1])
     sd64 = {k: v.double() for k, v in sd0.items()}
     l64, g64 = mer_step_on(s2s, decoding, kernels, sd64, batch, walks[:1], torch.float64)
-    grad_err, grad_err_at, card64, cpu64 = 0.0, None, 0.0, 0.0
+    grad_err, grad_err_at = worst_rel((k, grads_card[k], g) for k, g in gc.items())
+    card64, cpu64 = 0.0, 0.0
     for k, g in gc.items():
-        scale = float(g.abs().max())
-        if scale > 0:
-            d = float((grads_card[k] - g).abs().max()) / scale
-            if d > grad_err:
-                grad_err, grad_err_at = d, k
         s64 = float(g64[k].abs().max())
         if s64 > 0:
             card64 = max(card64, float((grads_card[k].double() - g64[k]).abs().max()) / s64)
@@ -2019,12 +2134,15 @@ def phase_s2s_train(s2s, decoding, kernels):
     args = eds[-1][0]
     ref, hyp, ref_lens, hyp_lens = args[:4]
     wrapper = cuda_ms(lambda: kernels.edit_distance(*args))
-    own = device_ms(cold(lambda: kernels.edit_distance(*args)), "ed_wave")
+    own = device_ms(cold(lambda: kernels.edit_distance(*args)), "ed_wave",
+                    count=lambda: kernels.LAUNCHES["edit_distance"])
     bound = ed_bound_ms(ref.shape[0], ref.shape[1], hyp_lens)
     times = {
         "ms": wrapper if own is None else own,
         "ms_from": "cuda_events" if own is None else "profiler, L2 flushed",
-        "traces": TRACES["ed_wave"], "wrapper_ms": wrapper,
+        "traces": TRACES["ed_wave"],
+        "trace_notes": TRACE_NOTES.get("ed_wave"),
+        "wrapper_ms": wrapper,
         "plain_ms": cuda_ms(lambda: kernels.edit_distance_reference(*args), inner=2),
         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
         "shape": [int(ref.shape[0]), int(hyp.shape[0]), int(ref.shape[1])],
@@ -2378,18 +2496,15 @@ def phase_rnnt_train(pkg, adamw):
         check[f"loss_{dev}"] = float(step(None, *(a.to(dev) for a in batch)))
         grads[dev] = {k: p.grad.cpu() for k, p in m.named_parameters()}
     check["loss_rel_err"] = abs(check["loss_cuda"] - check["loss_cpu"]) / abs(check["loss_cpu"])
-    check["grad_max_rel_err"], check["grad_max_rel_err_at"] = 0.0, None
+    check["grad_max_rel_err"], check["grad_max_rel_err_at"] = worst_rel(
+        (k, grads["cuda"][k], g) for k, g in grads["cpu"].items()
+        if not k.endswith("attn.key.bias"))
     check["key_bias_grad_rel"] = 0.0
     g_max = max(float(g.abs().max()) for g in grads["cpu"].values())
     for k, g in grads["cpu"].items():
-        scale = float(g.abs().max())
         if k.endswith("attn.key.bias"):  # rounding noise: softmax is blind to it
-            noise = max(scale, float(grads["cuda"][k].abs().max())) / g_max
+            noise = max(float(g.abs().max()), float(grads["cuda"][k].abs().max())) / g_max
             check["key_bias_grad_rel"] = max(check["key_bias_grad_rel"], noise)
-        elif scale > 0:
-            d = float((grads["cuda"][k] - g).abs().max()) / scale
-            if d > check["grad_max_rel_err"]:
-                check["grad_max_rel_err"], check["grad_max_rel_err_at"] = d, k
     if not (check["loss_rel_err"] <= 1e-4 and check["grad_max_rel_err"] <= 1e-3
             and check["key_bias_grad_rel"] <= 1e-3):
         raise AssertionError(f"rnnt train step on the card vs the CPU: {check}")
@@ -2551,10 +2666,12 @@ def phase_blankskip(pkg, kernels, cfg=BLANKSKIP, dev="cuda", cpu_rows=32):
     }
     for name, t in times.items():
         fn, kernel = calls[name]
-        # the trace's device time (None when every trace missed the kernel)
-        # and CUDA events around the wrapper, which a trace cannot miss
-        t["ms"] = device_ms(fn, kernel)
+        # the trace's device time (None when the traces missed the kernel,
+        # or some launches the counter vouches for), where the short traces
+        # lost them, and CUDA events around the wrapper
+        t["ms"] = device_ms(fn, kernel, count=lambda: kernels.LAUNCHES[name])
         t["traces"] = TRACES.get(kernel)
+        t["trace_notes"] = TRACE_NOTES.get(kernel)
         t["wrapper_ms"] = cuda_ms(fn)
         t["bound_ms"], t["bound_by"] = t.pop("bound")
     valid = int(lens_cpu.sum())
@@ -2866,6 +2983,355 @@ def phase_seq_losses(pkg, s2s, dev="cuda", rtol=1e-6, atol=1e-6):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Forced alignment, REINFORCE over the seq2seq decoder and REBAR over the
+# served logits: eager paths of the port's ops, held against the port on the
+# CPU. The alignments read logits the decode-prologue kernel's request
+# produced, REINFORCE scores its samples through the edit-distance kernel.
+
+
+def collapse(path, blank):
+    """A frame-level CTC path's label sequence: repeats merged, blanks
+    dropped."""
+    keep = path != blank
+    keep[1:] &= path[1:] != path[:-1]
+    return path[keep]
+
+
+def seq_f32_sum(m, lens):
+    """Per row, ``m[:, 0] + m[:, 1] + ...`` over each row's first ``lens``
+    frames, one float32 addition a frame: the order in which the Viterbi
+    pass adds a path's emissions."""
+    acc = m[:, 0].clone()
+    for t in range(1, m.shape[1]):
+        acc = torch.where(t < lens, acc + m[:, t], acc)
+    return acc
+
+
+def phase_align(decoding, logits, out_lens, served, dev="cuda", width=WIDTH, cpu_rows=None):
+    """Forced alignment of the main path's served request (BASELINE config
+    #1's logits, ``(32, 500, 1025)`` batch-first, the blank last): (a) to
+    its width-``width`` hypotheses, every path collapsing back to its
+    hypothesis with a finite score, paths equal to the port's alignment of
+    the same logits on the CPU and scores within rtol 1e-6; (b) to
+    ``ctc_greedy_search``'s transcripts, each path the per-frame argmax at
+    every valid frame and each score the float32 sum, in frame order, of
+    the frame maxima of the log-softmax, within rtol 1e-6 (the greedy path
+    is the global maximum); (c) the align time of the B=32 request (CUDA
+    events, median of 7), of the width-``width`` batch, and the launches
+    a frame."""
+    hyps, hyp_lens = served[0], served[1]
+    N, T, Vp1 = logits.shape
+    blank = Vp1 - 1
+    W = hyps.shape[1]
+    refs = hyps.reshape(N * W, -1)
+    ref_lens = hyp_lens.reshape(-1)
+    rep = logits.repeat_interleave(W, 0)
+    rep_lens = out_lens.repeat_interleave(W)
+    paths, scores = decoding.ctc_forced_align(rep, refs, rep_lens, ref_lens, batch_first=True)
+    res, fails = {}, []
+    paths_c, scores_c, refs_c = paths.cpu(), scores.cpu(), refs.cpu()
+    lens_c, rlens_c = rep_lens.cpu(), ref_lens.cpu()
+    bad = [i for i in range(N * W) if not torch.equal(
+        collapse(paths_c[i, :int(lens_c[i])], blank),
+        refs_c[i, :int(rlens_c[i])].to(paths_c.dtype))]
+    res["hyps_collapse_back"] = not bad
+    res["hyp_scores_finite"] = bool(torch.isfinite(scores_c).all())
+    rows = N * W if cpu_rows is None else cpu_rows
+    cp, cs = decoding.ctc_forced_align(rep[:rows].cpu(), refs_c[:rows], lens_c[:rows],
+                                       rlens_c[:rows], batch_first=True)
+    res["hyp_paths_equal_cpu"] = torch.equal(cp, paths_c[:rows])
+    rel = ((scores_c[:rows] - cs).abs() / cs.abs()).max()
+    res["hyp_scores_vs_cpu_max_rel_err"] = float(rel)
+    for name in ("hyps_collapse_back", "hyp_scores_finite", "hyp_paths_equal_cpu"):
+        if not res[name]:
+            fails.append(name)
+    if not float(rel) <= 1e-6:
+        fails.append("hyp_scores_vs_cpu")
+
+    _, g, g_lens = decoding.ctc_greedy_search(logits, out_lens, batch_first=True)
+
+    def align_b32():
+        return decoding.ctc_forced_align(logits, g, out_lens, g_lens, batch_first=True)
+
+    gpaths, gscores = align_b32()
+    lp = torch.log_softmax(logits, -1)
+    m = lp.amax(-1)
+    valid = torch.arange(T, device=logits.device)[None] < out_lens[:, None]
+    argmax_ok = torch.where(valid, gpaths == lp.argmax(-1), True)
+    res["greedy_paths_are_argmax"] = bool(argmax_ok.all())
+    ref_sum = seq_f32_sum(m, out_lens)
+    rel = float(((gscores - ref_sum).abs() / ref_sum.abs()).max())
+    f64 = torch.where(valid, m.double(), 0.0).sum(1)
+    res["greedy_score_vs_frame_max_sum_max_rel_err"] = rel
+    res["greedy_score_vs_f64_sum_max_rel_err"] = float(
+        ((gscores.double() - f64).abs() / f64.abs()).max())
+    if not res["greedy_paths_are_argmax"]:
+        fails.append("greedy_paths_are_argmax")
+    if not rel <= 1e-6:
+        fails.append("greedy_score")
+    if fails:
+        raise AssertionError(f"forced alignment failed {fails}: {res}")
+
+    align_ms = cuda_ms(align_b32, reps=REPS, inner=1)
+    wide_ms = cuda_ms(lambda: decoding.ctc_forced_align(rep, refs, rep_lens, ref_lens,
+                                                        batch_first=True), reps=REPS, inner=1)
+    profiled = trace(align_b32)
+    emit({
+        "phase": "align", "nvidia_smi": smi_line(),
+        "logits": [N, T, Vp1], "width": W, "checks": res,
+        "hyp_len_max": int(ref_lens.max()), "greedy_len_max": int(g_lens.max()),
+        "align_b32_ms": align_ms,
+        "align_width_ms": wide_ms, "align_width_rows": N * W,
+        "trace": {k: profiled[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                            "kernel_launches", "top_kernels")},
+        "launches_per_frame": profiled["kernel_launches"] / T,
+    })
+    return res
+
+
+def phase_reinforce(s2s, pkg, kernels, dev="cuda"):
+    """REINFORCE over BASELINE config #5's decoder at ``phase_s2s_train``'s
+    width: ``DirectEstimator(SequentialLanguageModelDistribution(
+    RandomWalk(Seq2SeqDecoderLM, eos=63), batch_shape=(16,),
+    initial_state=<encoder state>, max_iters=16), -error_rate(refs, b),
+    mc_samples=4)`` and one backward pass. The error rates go through the
+    edit-distance kernel, one launch a call, each result equal to its
+    plain version bit for bit; the value equals the mean of the sampled
+    ``-error_rate`` values (within 1e-5: the surrogate adds and removes the
+    REINFORCE term); the card's samples moved to the CPU give the port's
+    value there within rtol 1e-5 and every gradient within 1e-4 of its
+    tensor's largest entry. Then the call's time and launches."""
+    Seq2SeqDecoderLM = s2s[2]
+    decoding, mc, string = pkg
+    feats, feat_lens, refs, _ = s2s_inputs()
+    M, eos = MER_SAMPLES, S2S_EOS
+    drawn, rates = [], []
+
+    def run(model, samples=None, gen=None):
+        d = next(model.parameters()).device
+        lm = Seq2SeqDecoderLM(model)
+        state = lm.initial_state(feats.to(d), feat_lens.to(d))
+        dist = decoding.SequentialLanguageModelDistribution(
+            decoding.RandomWalk(lm, eos=eos), (S2S_B,), state, max_iters=S2S_ITERS)
+        if samples is not None:
+            dist.sample = lambda shape=(), generator=None: samples.to(d)
+        else:
+            sample = dist.sample
+
+            def recorded(shape=(), generator=None):
+                out = sample(shape, generator)
+                drawn.append(out.detach().cpu())
+                return out
+
+            dist.sample = recorded
+        tiled = refs.to(d).repeat(M, 1)
+
+        def func(b):
+            er = string.error_rate(tiled, b.reshape(-1, S2S_ITERS), eos=eos, batch_first=True,
+                                   warn=False)
+            rates.append(er.detach().cpu())
+            return -er.reshape(b.shape[:-1])
+
+        model.zero_grad(set_to_none=True)
+        v = mc.DirectEstimator(dist, func, M)(gen)
+        v.sum().backward()
+        return v.detach(), [p.grad for p in model.parameters()]
+
+    model = s2s_model(s2s, dev, SEED + 1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    eds = []
+    ed = kernels.edit_distance
+
+    def edit_distance(*args):
+        out = ed(*args)
+        eds.append((args, out))
+        return out
+
+    kernels.edit_distance = edit_distance
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        v, g = run(model, gen=gen)
+        torch.cuda.synchronize()
+        launches = {"edit_distance": kernels.LAUNCHES["edit_distance"]}
+    finally:
+        kernels.edit_distance = ed
+    res = {"launches": launches["edit_distance"], "kernel_calls": len(eds)}
+    fails = []
+    if launches["edit_distance"] != 1 or len(eds) != 1:
+        fails.append("edit_distance_launches")
+    res["edit_distance_equals_plain"] = all(
+        torch.equal(out.cpu(), kernels.edit_distance_reference(
+            *[a.cpu() if isinstance(a, torch.Tensor) else a for a in args]))
+        for args, out in eds)
+    if not res["edit_distance_equals_plain"]:
+        fails.append("edit_distance_equals_plain")
+    mean = (-rates[0]).reshape(M, S2S_B).mean(0)
+    res["value_vs_sample_mean_max_abs_err"] = float((v.cpu() - mean).abs().max())
+    if not res["value_vs_sample_mean_max_abs_err"] <= 1e-5:
+        fails.append("value_vs_sample_mean")
+    cpu = s2s_model(s2s, "cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in model.state_dict().items()})
+    vc, gc = run(cpu, samples=drawn[0])
+    res["value_vs_cpu_max_rel_err"] = float(
+        ((v.cpu() - vc).abs() / vc.abs().clamp_min(1e-30)).max())
+    if not torch.allclose(v.cpu(), vc, rtol=1e-5, atol=0):
+        fails.append("value_vs_cpu")
+    names = [k for k, _ in model.named_parameters()]
+    res["grad_vs_cpu_max_rel_err"], res["grad_vs_cpu_max_rel_err_at"] = worst_rel(zip(names, g, gc))
+    if not res["grad_vs_cpu_max_rel_err"] <= 1e-4:
+        fails.append("grad_vs_cpu")
+    if fails:
+        raise AssertionError(f"reinforce failed {fails}: {res}")
+    (call_ms,), runs = host_ms([lambda: run(model, gen=gen)])
+    profiled = trace(lambda: run(model, gen=gen))
+    emit({
+        "phase": "reinforce", "nvidia_smi": smi_line(),
+        "model": "AttentionSeq2Seq V64 F40 hidden 128 embed 64 attention 128",
+        "batch": S2S_B, "samples": M, "max_iters": S2S_ITERS, "eos": eos, "refs": MER_R,
+        "checks": res, "value_mean": float(v.mean()),
+        "call_ms": call_ms, "call_runs_ms": runs[0], "call_includes": "estimate + backward",
+        "trace": {k: profiled[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                            "kernel_launches", "top_kernels")},
+    })
+    return launches
+
+
+REBAR_SAMPLES, REBAR_ROWS = 4, 4
+
+
+def phase_rebar(st, mc, logits, dev="cuda", rows=REBAR_ROWS):
+    """REBAR over the served logits: ``RelaxEstimator`` with
+    ``GumbelOneHotCategoricalRebarControlVariate`` over
+    ``GumbelOneHotCategorical(logits=<the served logits, batch-first>)``,
+    each utterance's frames one event, ``mc_samples=4``, ``func(b) = (b *
+    w).sum((-2, -1))`` for a seeded ``w`` of ``V + 1`` entries, whose
+    exact mean is ``sum_t softmax(logits_t) . w``. (a) Summed over the
+    batch, the estimate lies within 4 standard errors of the exact mean
+    (the per-sample values' variance, pooled over the batch's independent
+    rows); (b) on the first ``rows``
+    rows and the same uniforms, the card's value, logits gradient and
+    ``relax_variance_loss``'s control-variate gradient equal the port's on
+    the CPU within rtol 1e-5, or 1e-4 of the tensor's largest entry; (c)
+    the estimate-and-backward time and ``relax_variance_loss``'s."""
+    N, T, Vp1 = logits.shape
+    wg = torch.Generator().manual_seed(SEED + 41)
+    w = torch.randn(Vp1, generator=wg)
+    draws = {}
+
+    class Recorded(st.GumbelOneHotCategorical):
+        """An utterance's frames as one event: log-probabilities summed
+        over time, so they match ``func``'s value per utterance. Draws its
+        uniforms from the generator in the open and keeps them, or replays
+        the kept ones (``draws``) on the given rows."""
+
+        replay = None
+
+        def tlog_prob(self, b):
+            return super().tlog_prob(b).sum(-1)
+
+        def clog_prob(self, zcond, b):
+            return super().clog_prob(zcond, b).sum(-1)
+
+        def rsample(self, sample_shape=(), generator=None, u=None):
+            shape = tuple(sample_shape) + tuple(self.logits.shape)
+            if self.replay is not None:
+                u = self.replay["z"][:, : shape[1]].to(self.logits.device)
+            else:
+                u = torch.rand(shape, generator=generator, device=self.logits.device)
+                draws["z"] = u
+            return super().rsample(sample_shape, u=u)
+
+        def csample(self, b, generator=None, u=None):
+            if self.replay is not None:
+                u = self.replay["c"][:, : b.shape[1]].to(b.device)
+            else:
+                u = torch.rand(b.shape, generator=generator, device=b.device)
+                draws["c"] = u
+            return super().csample(b, u=u)
+
+    def func_on(d):
+        wd = w.to(d)
+        return lambda b: (b * wd).sum((-2, -1))
+
+    def estimate(lg, cv, gen=None, replay=None):
+        prop = Recorded(logits=lg)
+        prop.replay = replay
+        return mc.RelaxEstimator(prop, func_on(lg.device), REBAR_SAMPLES, cv)(gen)
+
+    cv = mc.GumbelOneHotCategoricalRebarControlVariate(func_on(dev), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    lg = logits.detach().clone().requires_grad_(True)
+    v = estimate(lg, cv, gen)
+    v.sum().backward()
+    v = v.detach()
+    res, fails = {}, []
+    # (a) the exact mean against the per-sample values on the same draws
+    with torch.no_grad():
+        prop = st.GumbelOneHotCategorical(logits=logits)
+        f = func_on(logits.device)
+        z = prop.rsample((REBAR_SAMPLES,), u=draws["z"])
+        b = prop.threshold(z)
+        x = f(b) - cv(prop.csample(b, u=draws["c"])) + cv(z)  # (samples, N)
+        exact = (torch.softmax(logits.double(), -1) * w.to(logits.device).double()).sum((-2, -1))
+    se = float(torch.sqrt((x.double().var(0) / REBAR_SAMPLES).sum()))
+    err = float(v.double().sum() - exact.sum())
+    res.update(estimate_sum=float(v.double().sum()), exact_sum=float(exact.sum()),
+               std_error=se, z_score=err / se, value_vs_sample_mean_max_abs_err=float(
+                   (v - x.mean(0)).abs().max()))
+    if not abs(err) <= 4 * se:
+        fails.append("estimate_within_4_std_errors")
+
+    # (b) the first rows on the card and on the CPU, the same uniforms
+    def on(d, lg0, cv0):
+        lgr = lg0[:rows].detach().clone().to(d).requires_grad_(True)
+        val = estimate(lgr, cv0, replay=draws)
+        val.sum().backward()
+
+        def build(pp, cvm):
+            prop = Recorded(logits=pp)
+            prop.replay = draws
+            return mc.RelaxEstimator(prop, func_on(d), REBAR_SAMPLES, cvm)
+
+        loss = mc.relax_variance_loss(build, lgr, cv0)
+        g_cv = torch.autograd.grad(loss, [cv0.log_temp, cv0.eta])
+        return [val, lgr.grad, loss, *g_cv]
+
+    cv_cpu = mc.GumbelOneHotCategoricalRebarControlVariate(func_on("cpu"), device="cpu")
+    cv_cpu.load_state_dict({k: t.cpu() for k, t in cv.state_dict().items()})
+    card, cpu = on(dev, logits, cv), on("cpu", logits.cpu(), cv_cpu)
+    names = ["value", "logits_grad", "variance_loss", "cv_grad_log_temp", "cv_grad_eta"]
+    for name, a, c in zip(names, card, cpu):
+        res[f"{name}_vs_cpu"] = worst_rel([(name, a, c)])[0]
+        if not (torch.allclose(a.detach().cpu(), c.detach(), rtol=1e-5, atol=0)
+                or res[f"{name}_vs_cpu"] <= 1e-4):
+            fails.append(f"{name}_vs_cpu")
+    if fails:
+        raise AssertionError(f"rebar failed {fails}: {res}")
+
+    def step():
+        lgs = logits.detach().clone().requires_grad_(True)
+        estimate(lgs, cv, gen).sum().backward()
+
+    def variance_loss():
+        def build(pp, cvm):
+            return mc.RelaxEstimator(Recorded(logits=pp), func_on(dev), REBAR_SAMPLES, cvm)
+
+        loss = mc.relax_variance_loss(build, logits, cv, gen)
+        torch.autograd.grad(loss, [cv.log_temp, cv.eta])
+
+    (est_ms, rvl_ms), runs = host_ms([step, variance_loss])
+    emit({
+        "phase": "rebar", "nvidia_smi": smi_line(), "logits": [N, T, Vp1],
+        "samples": REBAR_SAMPLES, "cpu_rows": rows, "checks": res,
+        "estimate_backward_ms": est_ms, "relax_variance_loss_grad_ms": rvl_ms,
+        "runs_ms": {"estimate_backward": runs[0], "relax_variance_loss_grad": runs[1]},
+        "peak_mem_bytes": torch.cuda.max_memory_allocated() if dev == "cuda" else None,
+    })
+    return res
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2880,7 +3346,7 @@ def main(argv):
             Seq2SeqDecoderLM, adam, adamw, make_mer_train_step, make_train_step,
         )
         from pydrobert_tpu_torch.ops import (
-            _build, decoding, feats, img, kernels, pad, straight_through, string,
+            _build, decoding, feats, img, kernels, mc, pad, straight_through, string,
         )
         from pydrobert_tpu_torch.ops.decoding import (
             BeamSearch, CTCPrefixSearch, _lm_bias, compress_blank_frames, ctc_greedy_search,
@@ -2938,7 +3404,7 @@ def main(argv):
     errs = phase_kernels(kernels, _lm_bias(lm._uni_t, LM_BETA), lm_m)
     errs.update(phase_new_kernels(kernels, img))
     errs["ctc_beam_search"] = phase_beam_kernel(kernels)
-    model, recognize, requests, launches, (logits, out_lens) = phase_main_path(
+    model, recognize, requests, launches, (logits, out_lens), served = phase_main_path(
         (ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch, kernels)
     )
     times = phase_times(kernels, model, recognize, requests, CTCPrefixSearch, logits)
@@ -2982,6 +3448,10 @@ def main(argv):
                                   skip_times["ctc_beam_search"]["vs_plain"]["max_abs_err"])
     phase_front_end((feats, pad, img))
     phase_seq_losses((string, straight_through, decoding), s2s)
+    phase_align(decoding, logits, out_lens, served)
+    del served
+    reinforce_launches = phase_reinforce(s2s, (decoding, mc, string), kernels)
+    phase_rebar(straight_through, mc, logits)
 
     csrc = "pydrobert_tpu_torch/csrc/"
     rows = []
@@ -2996,6 +3466,7 @@ def main(argv):
     times["edit_distance"]["launches_by_path"] = {
         "score": score_launches["edit_distance"],
         "seq2seq train": mer_launches["edit_distance"],
+        "reinforce": reinforce_launches["edit_distance"],
     }
     for name, src, replaces, path, n in (
         ("decode_prologue", "prologue.cu", 1664, "serve, lm serve, blankskip",
@@ -3005,8 +3476,9 @@ def main(argv):
          beam_launches["top_m"] + skip_beam_launches["top_m"]),
         ("spec_augment_apply", "spec_augment.cu", 180, "train",
          train_launches["spec_augment_apply"]),
-        ("edit_distance", "edit_distance.cu", 49, "score, seq2seq train",
-         score_launches["edit_distance"] + mer_launches["edit_distance"]),
+        ("edit_distance", "edit_distance.cu", 49, "score, seq2seq train, reinforce",
+         score_launches["edit_distance"] + mer_launches["edit_distance"]
+         + reinforce_launches["edit_distance"]),
         ("ctc_beam_search", "ctc_beam.cu", 649, "beam serve, blankskip",
          beam_launches["ctc_beam_search"] + skip_beam_launches["ctc_beam_search"]),
     ):

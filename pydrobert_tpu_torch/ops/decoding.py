@@ -46,17 +46,22 @@ from ..lm import (
     SequentialLanguageModel,
 )
 from ..utils import pytree as _pytree
+from ._softmax import log_softmax
 from .kernels import ctc_beam_search, ctc_beam_search_fits, decode_prologue
 from .topk import exact_top_k, hoisted_top_k
 
 __all__ = [
     "BeamSearch",
+    "CTCForcedAligner",
     "CTCGreedySearch",
     "CTCPrefixSearch",
     "RandomWalk",
     "SequenceLogProbabilities",
+    "SequentialLanguageModelDistribution",
+    "TokenSequenceConstraint",
     "beam_search_advance",
     "compress_blank_frames",
+    "ctc_forced_align",
     "ctc_greedy_search",
     "ctc_prefix_search_advance",
     "ctc_prefix_search_advance_factored",
@@ -109,12 +114,8 @@ def ctc_greedy_search(
         logits = logits.float()
     if not batch_first:
         logits = logits.transpose(0, 1)
-    if not is_probs and logits.dtype == torch.float16:
-        # jax.nn.log_softmax's steps, each rounded to float16
-        shifted = logits - logits.amax(2, keepdim=True)
-        logits = shifted - torch.log(torch.exp(shifted).sum(2, keepdim=True))
-    elif not is_probs:
-        logits = torch.log_softmax(logits, 2)
+    if not is_probs:
+        logits = log_softmax(logits, 2)
     max_, argmax = logits.amax(2), logits.argmax(2)  # first max on ties
     keep = argmax != blank_idx
     keep[:, 1:] &= argmax[:, 1:] != argmax[:, :-1]
@@ -1046,7 +1047,7 @@ class BeamSearch:
         def lm_step(y_buf_k, state, t, Kp):
             hist = y_buf_k.clamp(0, V - 1).reshape(S, N * Kp)
             log_probs_t, in_next = lm.calc_idx_log_probs(hist, state, t)
-            return torch.log_softmax(log_probs_t.reshape(N, Kp, V), -1), in_next
+            return log_softmax(log_probs_t.reshape(N, Kp, V), -1), in_next
 
         def mask_eos(log_probs_t, eos_mask):
             if eos is None:
@@ -1314,7 +1315,7 @@ class RandomWalk:
             if eos is not None and bool(eos_mask.all()):
                 break
             log_probs_t, prev = lm.calc_idx_log_probs(y, prev, t)
-            log_probs_t = torch.log_softmax(log_probs_t, -1)
+            log_probs_t = log_softmax(log_probs_t, -1)
             log_probs, log_probs_t = self.update_log_probs_for_step(
                 log_probs, log_probs_t, y, y_lens, eos_mask
             )
@@ -1356,7 +1357,7 @@ def sequence_log_probs(
     dim = (hyp_dim + dim) % hyp_dim
     steps = hyp.shape[dim]
     num_classes = logits.shape[-1]
-    logits = torch.log_softmax(logits, -1)
+    logits = log_softmax(logits, -1)
     hyp = hyp.to(logits.device)
     mask = (hyp < 0) | (hyp >= num_classes)
     if eos is not None:
@@ -1380,6 +1381,304 @@ class SequenceLogProbabilities(torch.nn.Module):
 
     def forward(self, logits, hyp):
         return sequence_log_probs(logits, hyp, self.dim, self.eos)
+
+
+class TokenSequenceConstraint:
+    """Support of completed token sequences: a value is in the support when
+    its tokens lie in ``[0, vocab_size)`` and it is completed, its length
+    equal to ``max_iters`` or holding an ``eos`` within ``max_iters``
+    steps."""
+
+    is_discrete = True
+    event_dim = 1
+
+    def __init__(self, vocab_size: int, eos: Optional[int] = None, max_iters: Optional[int] = None):
+        self.vocab_size = argcheck.is_posi(vocab_size, "vocab_size")
+        if eos is None and max_iters is None:
+            raise ValueError("At least one of max_iters or eos must be non-none")
+        self.eos = None if eos is None else argcheck.is_int(eos, "eos")
+        self.max_iters = (
+            float("inf") if max_iters is None else argcheck.is_nonnegi(max_iters, "max_iters")
+        )
+
+    def check(self, value: torch.Tensor) -> torch.Tensor:
+        value = torch.as_tensor(value)
+        completed = torch.full(
+            value.shape[:-1], value.shape[-1] == self.max_iters, device=value.device
+        )
+        if self.eos is not None:
+            from .string import fill_after_eos
+
+            value = fill_after_eos(value, self.eos, -1)
+            completed = (
+                (value == self.eos).any(-1) & (value.shape[-1] <= self.max_iters)
+            ) | completed
+        in_vocab = ((value % 1 == 0) & (value >= 0) & (value < self.vocab_size)).all(-1)
+        return in_vocab & completed
+
+
+class SequentialLanguageModelDistribution:
+    """A :class:`RandomWalk`'s language model as a distribution over token
+    sequences, for the estimators of :mod:`pydrobert_tpu_torch.estimators`.
+
+    Samples come from the walk (``sample(sample_shape, generator)``), one
+    walk of ``batch_shape[0]`` paths per sample when ``batch_shape`` is
+    given; log-probabilities from the LM's whole step distributions,
+    summed up to the first eos. As in the JAX package, ``max_iters`` is
+    required and samples are padded to it with eos, and the sample cache
+    is keyed on the identity of the value, not on its contents.
+    """
+
+    def __init__(
+        self,
+        random_walk: RandomWalk,
+        batch_shape: Tuple[int, ...] = (),
+        initial_state: Optional[Dict[str, Any]] = None,
+        max_iters: Optional[int] = None,
+        cache_samples: bool = False,
+        validate_args: Optional[bool] = None,
+    ):
+        if max_iters is None:
+            raise ValueError("max_iters must be set (static sequence bound)")
+        if len(tuple(batch_shape)) > 1:
+            raise ValueError(f"batch_shape must be scalar or 1-D, got {tuple(batch_shape)}")
+        self.random_walk = random_walk
+        self.batch_shape = tuple(batch_shape)
+        self.event_shape = (argcheck.is_nonnegi(max_iters, "max_iters"),)
+        self.initial_state = dict() if initial_state is None else initial_state
+        self.max_iters = max_iters
+        self.cache_samples = argcheck.is_bool(cache_samples, "cache_samples")
+        self._samples_cache = None
+        self._log_probs_cache = None
+
+    @property
+    def support(self) -> TokenSequenceConstraint:
+        return TokenSequenceConstraint(
+            self.random_walk.lm.vocab_size, self.random_walk.eos, self.max_iters
+        )
+
+    def _pad_eos(self, y: torch.Tensor, y_lens: torch.Tensor) -> torch.Tensor:
+        if self.random_walk.eos is None:
+            return y
+        pos = torch.arange(y.shape[0], device=y.device)[:, None]
+        return torch.where(pos >= y_lens[None], self.random_walk.eos, y)
+
+    def sample(
+        self, sample_shape: Tuple[int, ...] = (), generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        shape = tuple(sample_shape) + self.batch_shape + self.event_shape
+        num_samples = int(np.prod(sample_shape, dtype=np.int64))
+        if num_samples == 0:
+            return torch.zeros(shape, dtype=torch.long)
+        walk, state = self.random_walk, self.initial_state
+        # the samples are discrete; only cached log-probabilities keep a graph
+        with torch.set_grad_enabled(torch.is_grad_enabled() and self.cache_samples):
+            if len(self.batch_shape):
+                samples, log_probs = [], []
+                for _ in range(num_samples):
+                    y, y_lens, lp = walk(generator, dict(state), self.batch_shape[0], self.max_iters)
+                    samples.append(self._pad_eos(y, y_lens).T)
+                    log_probs.append(lp)
+                samples, log_probs = torch.stack(samples), torch.stack(log_probs)
+            else:
+                y, y_lens, log_probs = walk(generator, dict(state), num_samples, self.max_iters)
+                samples = self._pad_eos(y, y_lens).T  # (num, S)
+        samples = samples.reshape(shape)
+        if self.cache_samples:
+            self._samples_cache = samples
+            self._log_probs_cache = log_probs.reshape(shape[:-1])
+        return samples
+
+    @property
+    def has_enumerate_support(self) -> bool:
+        return self.max_iters is not None
+
+    def enumerate_support(self, expand: bool = True) -> torch.Tensor:
+        from .combinatorics import enumerate_vocab_sequences
+
+        lm = self.random_walk.lm
+        support = enumerate_vocab_sequences(self.max_iters, lm.vocab_size, device="cpu")
+        if self.random_walk.eos is not None:
+            from .string import fill_after_eos
+
+            support = fill_after_eos(support, self.random_walk.eos, 1)
+            support = torch.from_numpy(np.unique(support.numpy(), axis=0))
+        # enumerated on the host (np.unique), returned where the walk runs
+        support = support.to(_search_device(lm, self.initial_state))
+        if len(self.batch_shape):
+            support = support.reshape((-1,) + (1,) * len(self.batch_shape) + support.shape[-1:])
+            if expand:
+                support = support.expand(
+                    (support.shape[0],) + self.batch_shape + support.shape[-1:]
+                )
+        return support
+
+    def clear_cache(self) -> None:
+        """Manually clear the sample cache."""
+        self._samples_cache = self._log_probs_cache = None
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        if self.cache_samples and self._samples_cache is not None and self._samples_cache is value:
+            return self._log_probs_cache
+        lm, eos = self.random_walk.lm, self.random_walk.eos
+        shape = value.shape[:-1]
+        if len(self.batch_shape):
+            flat = value.reshape((-1,) + tuple(value.shape[-2:])).long()  # (num, batch, S)
+            log_probs = torch.stack(
+                [lm(h.T[:-1], dict(self.initial_state)) for h in flat]
+            )  # (num, S, batch, V)
+            lp = sequence_log_probs(log_probs.transpose(1, 2), flat, dim=-1, eos=eos)
+        else:
+            flat = value.reshape(-1, value.shape[-1]).long()  # (num, S)
+            log_probs = lm(flat.T[:-1], dict(self.initial_state))  # (S, num, V)
+            lp = sequence_log_probs(log_probs.transpose(0, 1), flat, dim=-1, eos=eos)
+        lp = lp.reshape(shape)
+        if self.cache_samples:
+            self._samples_cache = value
+            self._log_probs_cache = lp
+        return lp
+
+
+def _emissions(lp: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """``emit (N, T, S)``: ``lp (N, T, V)`` at each state's label ``z (N,
+    S)``, as the JAX package's one-hot contraction ``sum_v lp[v] *
+    onehot(z)[v]`` gives it: a frame with a non-finite entry anywhere but
+    at ``z`` sums an ``inf * 0`` and gives NaN, and a label outside ``[0,
+    V)`` picks nothing, 0."""
+    V = lp.shape[2]
+    in_vocab = (z >= 0) & (z < V)
+    idx = torch.where(in_vocab, z, 0)[:, None].expand(-1, lp.shape[1], -1)
+    picked = torch.gather(lp, 2, idx)
+    nonfinite = ~torch.isfinite(lp)
+    at_z = torch.gather(nonfinite, 2, idx) & in_vocab[:, None]
+    others = nonfinite.sum(2, keepdim=True) - at_z.long()
+    picked = torch.where(in_vocab[:, None], picked, torch.zeros((), dtype=lp.dtype, device=lp.device))
+    return torch.where(others > 0, torch.full((), float("nan"), dtype=lp.dtype, device=lp.device), picked)
+
+
+def ctc_forced_align(
+    logits: torch.Tensor,
+    refs: torch.Tensor,
+    in_lens: Optional[torch.Tensor] = None,
+    ref_lens: Optional[torch.Tensor] = None,
+    blank_idx: int = -1,
+    batch_first: bool = False,
+    is_probs: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Viterbi forced alignment over the CTC lattice.
+
+    For each batch element, the most probable frame-level label sequence
+    (tokens and blanks) that collapses to the reference: the best path
+    through the states ``blank, r_1, blank, ..., r_U, blank`` with CTC's
+    stay, advance and skip-over-blank moves. ``logits (T, N, V)`` (``(N,
+    T, V)`` with ``batch_first``) are log-softmaxed unless ``is_probs``
+    (then logged); ``refs (U, N)`` (``(N, U)``) hold ``ref_lens`` valid
+    labels each, no blank among them. Returns ``(paths, scores)``:
+    ``paths (T, N)`` (``(N, T)``) the label of each frame, valid for frames
+    before ``in_lens`` (later frames repeat the final state's label), and
+    ``scores (N,)`` the best path's log probability, ``-inf`` for a
+    reference its frames cannot hold (the path is then arbitrary).
+
+    One Viterbi step a frame on the logits' device, backpointers kept as
+    int8, then a backtrace a frame, as the JAX package's forward and
+    reverse scans. Only bfloat16 is upcast; float16 takes ``jax.nn``'s
+    rounding steps. Emissions are gathered, but with the JAX package's
+    one-hot contraction's values: a frame holding a non-finite
+    log-probability off the state's label (a zero probability, a ``-inf``
+    logit) gives that state NaN, and NaN then spreads through the
+    maxima, so the score is NaN as in the JAX package.
+    """
+    if logits.dim() != 3:
+        raise RuntimeError("logits must be 3-dimensional")
+    if refs.dim() != 2:
+        raise RuntimeError("refs must be 2-dimensional")
+    if not batch_first:
+        logits, refs = logits.transpose(0, 1), refs.T
+    N, T, V = logits.shape
+    U = refs.shape[1]
+    if refs.shape[0] != N:
+        raise RuntimeError(f"batch dim of refs ({refs.shape[0]}) != logits ({N})")
+    if blank_idx < -V or blank_idx > (V - 1):
+        raise RuntimeError(
+            "Blank index out of range (expected to be in the range of "
+            f"[-{V},{V-1}], but got {blank_idx})"
+        )
+    blank_idx = (blank_idx + V) % V
+    dev = logits.device
+    refs = refs.to(dev).long()
+    in_lens = (
+        torch.full((N,), T, dtype=torch.long, device=dev)
+        if in_lens is None else torch.as_tensor(in_lens).to(dev).long()
+    )
+    ref_lens = (
+        torch.full((N,), U, dtype=torch.long, device=dev)
+        if ref_lens is None else torch.as_tensor(ref_lens).to(dev).long()
+    )
+    if logits.dtype == torch.bfloat16:
+        logits = logits.float()  # exact; the Viterbi runs in float32
+    lp = torch.log(logits) if is_probs else log_softmax(logits, -1)
+
+    S = 2 * U + 1
+    s_idx = torch.arange(S, device=dev)
+    is_tok = (s_idx % 2) == 1  # odd states carry reference tokens
+    tok_pos = ((s_idx - 1) // 2).clamp(0, max(U - 1, 0))
+    padded = torch.cat([refs, refs.new_zeros((N, 1))], 1)
+    z = torch.where(is_tok[None], padded[:, tok_pos], blank_idx)  # (N, S) state labels
+    valid_s = s_idx[None] < (2 * ref_lens[:, None] + 1)
+    # s - 2 -> s skips the blank between two different tokens
+    prev_tok = torch.roll(z, 2, 1)
+    can_skip = is_tok[None] & (s_idx[None] >= 2) & (z != prev_tok) & valid_s
+    emit = _emissions(lp, z).transpose(0, 1)  # (T, N, S)
+
+    neg = torch.full((), NEG_INF, dtype=lp.dtype, device=dev)
+    delta = torch.where((s_idx[None] < 2) & valid_s, emit[0], neg)
+    # stay reads pad[:, 2:], advance pad[:, 1:-1], skip pad[:, :-2]
+    pad = torch.full((N, S + 2), NEG_INF, dtype=lp.dtype, device=dev)
+    bps = torch.zeros((max(T - 1, 0), N, S), dtype=torch.int8, device=dev)
+    two, one = torch.tensor(2, dtype=torch.int8, device=dev), torch.tensor(1, dtype=torch.int8, device=dev)
+    zero = torch.tensor(0, dtype=torch.int8, device=dev)
+    for t in range(1, T):
+        pad[:, 2:] = delta
+        adv = pad[:, 1:-1]
+        skip = torch.where(can_skip, pad[:, :-2], neg)
+        best = torch.maximum(torch.maximum(delta, adv), skip)
+        bp = torch.where(skip >= best, two, torch.where(adv >= best, one, zero))
+        new = torch.where(valid_s, best + emit[t], neg)
+        live = (t < in_lens)[:, None]
+        delta = torch.where(live, new, delta)
+        bps[t - 1] = torch.where(live, bp, zero)
+
+    # the best final state: the last blank (2 U_b) or the last token
+    end_blank = 2 * ref_lens
+    end_tok = (2 * ref_lens - 1).clamp(0, S - 1)
+    d_blank = torch.gather(delta, 1, end_blank[:, None])[:, 0]
+    d_tok = torch.where(ref_lens > 0, torch.gather(delta, 1, end_tok[:, None])[:, 0], neg)
+    scores = torch.maximum(d_blank, d_tok)
+    state = torch.where(d_blank >= d_tok, end_blank, end_tok)
+    states = torch.empty((T, N), dtype=torch.long, device=dev)
+    states[T - 1] = state
+    for t in range(T - 2, -1, -1):
+        state = state - torch.gather(bps[t], 1, state[:, None])[:, 0]
+        states[t] = state
+    paths = torch.gather(z, 1, states.T)  # (N, T)
+    if not batch_first:
+        paths = paths.T
+    return paths, scores
+
+
+class CTCForcedAligner(torch.nn.Module):
+    """Module wrapper for :func:`ctc_forced_align`."""
+
+    def __init__(self, blank_idx: int = -1, batch_first: bool = False, is_probs: bool = False):
+        super().__init__()
+        self.blank_idx = argcheck.is_int(blank_idx, "blank_idx")
+        self.batch_first = argcheck.is_bool(batch_first, "batch_first")
+        self.is_probs = argcheck.is_bool(is_probs, "is_probs")
+
+    def forward(self, logits, refs, in_lens=None, ref_lens=None):
+        return ctc_forced_align(
+            logits, refs, in_lens, ref_lens, self.blank_idx, self.batch_first, self.is_probs
+        )
 
 
 def compress_blank_frames(

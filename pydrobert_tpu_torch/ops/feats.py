@@ -137,6 +137,10 @@ def feat_deltas(
             flat[:, T + p:] = float(value)
     outs = []
     for taps in filters:  # a correlation: tap j reads frame t + j
+        # each tap rounded to the input's dtype, as the JAX package casts
+        # its filters; the products and sums stay in float32
+        if dtype.is_floating_point:
+            taps = torch.tensor(taps).to(dtype).tolist()
         acc = flat[:, :T] * float(taps[0])
         for j in range(1, len(taps)):
             acc = acc + flat[:, j:j + T] * float(taps[j])

@@ -19,6 +19,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ._softmax import log_softmax
+
 __all__ = [
     "ConditionalStraightThrough",
     "Density",
@@ -251,7 +253,7 @@ class GumbelOneHotCategorical:
             logits = torch.as_tensor(logits)
             if logits.dim() < 1:
                 raise ValueError("logits must be at least 1 dimensional")
-            self._logits = torch.log_softmax(logits, -1)
+            self._logits = log_softmax(logits, -1)
             self._probs = None
 
     @property

@@ -12,8 +12,10 @@ completion mask, as in the JAX package (its kernel takes none of them).
 The plain DP advances one hypothesis token at a time and relaxes the
 deletions in closed form, ``cummin(row - i*del) + i*del``. Counting
 mistakes also needs the index of the last minimum of that scan (ties go to
-"no deletion"); :func:`_cummin_last_argmin` computes it with a log-depth
-scan of its own, so it depends on no tie order of ``torch.cummin``.
+"no deletion"); :func:`_cummin_last_argmin` reads it off two library
+scans, the values of ``torch.cummin`` and then a ``torch.cummax`` over the
+positions where a value equals its running minimum, so it depends on no
+tie order of ``torch.cummin``'s indices.
 
 The warnings read device data (``bool()`` on a CUDA tensor is a host
 sync); pass ``warn=False`` where a call must not wait on the card.
@@ -26,6 +28,7 @@ import torch
 
 from .. import config, default_device
 from . import kernels
+from ._softmax import log_softmax, softmax
 
 __all__ = [
     "edit_distance",
@@ -472,7 +475,7 @@ def hard_optimal_completion_distillation_loss(
         ins_cost=ins_cost, del_cost=del_cost, sub_cost=sub_cost,
         padding=ignore_index, exclude_last=True, warn=warn,
     ).long()  # (H, N, C) or (N, H, C)
-    log_probs = torch.log_softmax(logits, -1)
+    log_probs = log_softmax(logits, -1)
     pad_mask = optimals == ignore_index
     idx = torch.where(pad_mask, 0, optimals)
     gathered = torch.gather(log_probs, -1, idx)
@@ -547,7 +550,7 @@ def minimum_error_rate_loss(
     ).reshape(batch_size, samples)
     if sub_avg:
         er = er - er.mean(1, keepdim=True)
-    loss = er * torch.softmax(log_probs, 1)
+    loss = er * softmax(log_probs, 1)
     if reduction == "mean":
         loss = loss.mean()
     elif reduction == "sum":

@@ -43,6 +43,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from ..utils.pytree import tree_map
+from ._softmax import log_softmax
 from .topk import exact_top_k
 
 __all__ = [
@@ -144,7 +145,7 @@ def transducer_loss_from_joint(
         raise RuntimeError(f"refs must be (N, U) = {(N, U)}, got {tuple(refs.shape)}")
     if blank_idx < 0:
         blank_idx += V
-    lp = torch.log_softmax(joint_logits, -1)
+    lp = log_softmax(joint_logits, -1)
     blank_lp = lp[..., blank_idx]
     idx = refs.long().to(lp.device)[:, None, :, None].expand(N, T, U, 1)
     emit_lp = lp[:, :, :U].gather(3, idx)[..., 0]
@@ -387,7 +388,7 @@ def transducer_beam_advance(
     blank_col = torch.tensor([blank_idx], device=dev)
 
     def log_probs(enc_t, pred_out):
-        return torch.log_softmax(joint_fn(enc_t[:, None], pred_out.reshape(N, W, -1)), -1)
+        return log_softmax(joint_fn(enc_t[:, None], pred_out.reshape(N, W, -1)), -1)
 
     # frames past every row's length change nothing (one host sync)
     T_run = min(T, int(enc_lens.max())) if N else 0

@@ -7,11 +7,11 @@ and :func:`mix_by_mask` (CTC fusion selection) act on every tensor leaf
 along its first axis, so LMs need not implement them by hand.
 """
 
-from typing import Any, Callable
+from typing import Any, Callable, Sequence, Tuple
 
 import torch
 
-__all__ = ["extract_by_src", "lengths_to_mask", "mix_by_mask", "tree_map"]
+__all__ = ["broadcast_shapes", "extract_by_src", "lengths_to_mask", "mix_by_mask", "tree_map"]
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -63,3 +63,8 @@ def lengths_to_mask(lens: torch.Tensor, max_len: int, axis: int = -1) -> torch.T
     if axis != -1:
         mask = torch.movedim(mask, -1, axis)
     return mask
+
+
+def broadcast_shapes(a: Sequence[int], b: Sequence[int]) -> Tuple[int, ...]:
+    """Numpy-style broadcast of two shapes."""
+    return tuple(torch.broadcast_shapes(tuple(a), tuple(b)))

@@ -285,7 +285,8 @@ def rehearse(smoke, monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(smoke, "smi_line", lambda: "stub")
-    monkeypatch.setattr(smoke, "device_ms", lambda fn, kernel=None, calls=1: fn() and 0.0)
+    monkeypatch.setattr(smoke, "device_ms",
+                        lambda fn, kernel=None, calls=1, count=None: fn() and 0.0)
     monkeypatch.setattr(smoke, "cuda_ms", lambda fn, **kw: fn() and 0.0)
 
     def host_ms(fns, reps=1, warmup=0):
@@ -387,3 +388,92 @@ def test_seq_losses_phase_rehearsal(smoke, rehearse):
     assert line["phase"] == "seq_losses"
     assert line["shapes"] == {"ref": [13, 64], "hyp": [16, 64], "logits": [16, 64, 64],
                               "vocab": 64, "eos": 63}
+
+
+def _stub_trace(fn):
+    fn()
+    return {"wall_ms": 1.0, "device_busy_ms": 0.0, "idle_share": 1.0, "kernel_launches": 0,
+            "top_kernels": []}
+
+
+def test_align_phase_rehearsal(smoke, rehearse, monkeypatch):
+    """The align phase on the CPU at a small shape: a width-4 search's
+    hypotheses and the greedy transcripts of random logits."""
+    from pydrobert_tpu_torch.ops import decoding
+
+    monkeypatch.setattr(smoke, "trace", _stub_trace)
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn(3, 40, 9, generator=g) * 4
+    lens = torch.tensor([40, 31, 22])
+    y, y_lens, _ = decoding.CTCPrefixSearch(4)(logits.transpose(0, 1).contiguous(), lens)
+    res = smoke.phase_align(decoding, logits, lens, (y.permute(1, 2, 0), y_lens), dev="cpu")
+    assert res["hyps_collapse_back"] and res["hyp_paths_equal_cpu"]
+    assert res["greedy_paths_are_argmax"]
+    assert res["greedy_score_vs_frame_max_sum_max_rel_err"] == 0.0
+    line = rehearse.lines[-1]
+    assert line["phase"] == "align" and line["width"] == 4 and line["align_width_rows"] == 12
+
+
+def test_align_phase_fails_a_wrong_path(smoke, rehearse, monkeypatch):
+    """A path one frame off its hypothesis fails the phase."""
+    from pydrobert_tpu_torch.ops import decoding
+
+    monkeypatch.setattr(smoke, "trace", _stub_trace)
+    align = decoding.ctc_forced_align
+
+    class Shifted:
+        def __getattr__(self, name):
+            return getattr(decoding, name)
+
+        @staticmethod
+        def ctc_forced_align(*args, **kwargs):
+            paths, scores = align(*args, **kwargs)
+            return torch.roll(paths, 1, 1), scores
+
+    logits = torch.randn(2, 30, 7, generator=torch.Generator().manual_seed(1)) * 4
+    lens = torch.tensor([30, 20])
+    y, y_lens, _ = decoding.CTCPrefixSearch(2)(logits.transpose(0, 1).contiguous(), lens)
+    with pytest.raises(AssertionError, match="hyps_collapse_back"):
+        smoke.phase_align(Shifted(), logits, lens, (y.permute(1, 2, 0), y_lens), dev="cpu")
+
+
+def _s2s():
+    from pydrobert_tpu_torch.models import (
+        AttentionSeq2Seq, Seq2SeqConfig, Seq2SeqDecoderLM, adam, make_mer_train_step,
+    )
+    from pydrobert_tpu_torch.ops import decoding
+
+    return (AttentionSeq2Seq, Seq2SeqConfig, Seq2SeqDecoderLM, decoding.BeamSearch,
+            make_mer_train_step, adam)
+
+
+def test_reinforce_phase_rehearsal(smoke, rehearse, monkeypatch):
+    """The reinforce phase on the CPU at its full (small) size: one
+    edit-distance call, whose plain version the CPU runs."""
+    from pydrobert_tpu_torch.ops import decoding, kernels, mc, string
+
+    monkeypatch.setattr(smoke, "trace", _stub_trace)
+    ed = kernels.edit_distance
+
+    def counted(*args):
+        kernels.LAUNCHES["edit_distance"] += 1
+        return ed(*args)
+
+    monkeypatch.setattr(kernels, "edit_distance", counted)
+    launches = smoke.phase_reinforce(_s2s(), (decoding, mc, string), kernels, dev="cpu")
+    assert launches == {"edit_distance": 1}
+    line = rehearse.lines[-1]
+    assert line["phase"] == "reinforce" and line["checks"]["edit_distance_equals_plain"]
+    assert line["checks"]["grad_vs_cpu_max_rel_err"] == 0.0
+
+
+def test_rebar_phase_rehearsal(smoke, rehearse):
+    """The rebar phase on the CPU at a small shape; the estimate lies
+    within its 4 standard errors."""
+    from pydrobert_tpu_torch.ops import mc, straight_through
+
+    logits = torch.randn(6, 20, 11, generator=torch.Generator().manual_seed(2)) * 3
+    res = smoke.phase_rebar(straight_through, mc, logits, dev="cpu", rows=2)
+    assert abs(res["z_score"]) <= 4
+    assert res["value_vs_cpu"] == 0.0 and res["cv_grad_eta_vs_cpu"] == 0.0
+    assert rehearse.lines[-1]["phase"] == "rebar"

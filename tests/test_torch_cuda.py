@@ -1050,3 +1050,115 @@ def test_compress_blank_frames_on_card_matches_cpu(dev, batch_first):
             L = int(cl[n, w])
             assert torch.equal(gy[:L, n, w], cy[:L, n, w])
     torch.testing.assert_close(gp, cp, rtol=1e-5, atol=0)
+
+
+# ---- forced alignment and the estimators on the card (eager paths) ----
+
+
+@pytest.mark.parametrize("batch_first", [False, True])
+@pytest.mark.parametrize("is_probs", [False, True])
+def test_ctc_forced_align_on_card_matches_cpu(dev, batch_first, is_probs):
+    """Paths exact, scores within rtol 1e-6, and the backpointer pass
+    leaves no host sync behind (its output is a device tensor)."""
+    rng = np.random.RandomState(5)
+    T, N, V, U = 60, 8, 20, 12
+    x = rng.randn(T, N, V).astype(np.float32) * 3
+    if is_probs:
+        x = np.exp(x) / np.exp(x).sum(-1, keepdims=True)
+    refs = rng.randint(0, V - 1, (U, N))
+    refs[1] = refs[0]
+    in_lens = torch.from_numpy(rng.randint(40, T + 1, N))
+    ref_lens = torch.from_numpy(rng.randint(1, U + 1, N))
+    x = torch.from_numpy(np.swapaxes(x, 0, 1).copy() if batch_first else x)
+    refs = torch.from_numpy(refs.T.copy() if batch_first else refs)
+    args = dict(batch_first=batch_first, is_probs=is_probs)
+    gp, gs = pdec.ctc_forced_align(x.to(dev), refs.to(dev), in_lens.to(dev), ref_lens.to(dev),
+                                   **args)
+    assert gp.is_cuda and gs.is_cuda
+    cp, cs = pdec.ctc_forced_align(x, refs, in_lens, ref_lens, **args)
+    assert torch.equal(gp.cpu(), cp)
+    torch.testing.assert_close(gs.cpu(), cs, rtol=1e-6, atol=0)
+
+
+def test_relax_estimator_on_card_matches_cpu(dev):
+    """REBAR over a Gumbel relaxation given the same uniforms: the value,
+    the logits gradient and relax_variance_loss's control-variate
+    gradient within rtol 1e-5 (or 1e-4 of the tensor's largest entry)."""
+    from pydrobert_tpu_torch.ops import mc
+    from pydrobert_tpu_torch.ops import straight_through as pst
+
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randn(6, 9, 33, generator=g) * 2
+    u_z, u_c = torch.rand((4, 6, 9, 33), generator=g), torch.rand((4, 6, 9, 33), generator=g)
+    w = torch.randn(33, generator=g)
+
+    class Given(pst.GumbelOneHotCategorical):
+        def rsample(self, sample_shape=(), generator=None, u=None):
+            return super().rsample(sample_shape, u=u_z)
+
+        def csample(self, b, generator=None, u=None):
+            return super().csample(b, u=u_c)
+
+        def tlog_prob(self, b):
+            return super().tlog_prob(b).sum(-1)
+
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        wd = w.to(d)
+        func = lambda b: (b * wd).sum((-2, -1))  # noqa: E731
+        cv = mc.GumbelOneHotCategoricalRebarControlVariate(func, device=d)
+        lg = logits.to(d).requires_grad_(True)
+        v = mc.RelaxEstimator(Given(logits=lg), func, 4, cv)()
+        v.sum().backward()
+        loss = mc.relax_variance_loss(
+            lambda pp, cvm: mc.RelaxEstimator(Given(logits=pp), func, 4, cvm), lg, cv)
+        outs.append([v, lg.grad, *torch.autograd.grad(loss, [cv.log_temp, cv.eta])])
+    for a, b in zip(*outs):
+        a, b = a.detach().cpu(), b.detach()
+        assert torch.allclose(a, b, rtol=1e-5, atol=0) or float((a - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+
+
+def test_srswor_and_time_distributed_return_on_card(dev):
+    from pydrobert_tpu_torch.ops import combinatorics as pc
+    from pydrobert_tpu_torch.ops import rl as prl
+
+    total = torch.tensor([5, 7, 3], device=dev)
+    given = torch.tensor([2, 3, 3], device=dev)
+    u = torch.rand((3, 8), generator=torch.Generator().manual_seed(0))
+    got = pc.simple_random_sampling_without_replacement(None, total, given, 8, u=u.to(dev))
+    exp = pc.simple_random_sampling_without_replacement(None, total.cpu(), given.cpu(), 8, u=u)
+    assert got.is_cuda and torch.equal(got.cpu(), exp)
+    r = torch.randn(50, 4, generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(prl.time_distributed_return(r.to(dev), 0.9).cpu(),
+                               prl.time_distributed_return(r, 0.9), rtol=1e-5, atol=1e-5)
+
+
+def test_enumerate_estimator_over_sequences_on_card_matches_cpu(dev):
+    """EnumerateEstimator over a sequence distribution whose LM lies on the
+    card: the enumerated support, and so the function's input, lies on the
+    card, the negated error rates go through the edit-distance kernel, and
+    the value equals the CPU's within rtol 1e-5."""
+    from pydrobert_tpu_torch.ops import mc
+
+    V, eos, S, N = 5, 1, 3, 2
+    cpu_lm, card_lm = _lm_pair(dev, V, 3, 4)
+    refs = torch.tensor([[2, 3, 1], [4, 1, 1]])  # (N, R), batch-first
+    values = []
+    for lm, d in ((card_lm, dev), (cpu_lm, torch.device("cpu"))):
+        dist = pdec.SequentialLanguageModelDistribution(
+            pdec.RandomWalk(lm, eos), (N,), max_iters=S)
+        seen = []
+
+        def func(b):
+            seen.append(b.device.type)
+            r = refs.to(d).repeat(b.shape[0], 1)
+            er = pstr.error_rate(r, b.reshape(-1, S), eos=eos, batch_first=True, warn=False)
+            return -er.reshape(b.shape[:-1])
+
+        kernels.reset_launches()
+        values.append(mc.EnumerateEstimator(dist, func)())
+        assert seen == [d.type]
+        assert kernels.LAUNCHES["edit_distance"] == (1 if d.type == "cuda" else 0)
+    assert values[0].is_cuda
+    torch.testing.assert_close(values[0].cpu(), values[1], rtol=1e-5, atol=0)

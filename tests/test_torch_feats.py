@@ -69,6 +69,19 @@ def test_feat_deltas_match_jax(pad_mode, kw):
     _close(pfeats.feat_deltas(torch.from_numpy(x), **kw), jfeats.feat_deltas(x, **kw))
 
 
+@pytest.mark.parametrize("pad_mode", ["replicate", "constant", "reflect", "circular"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_feat_deltas_half_precision_match_jax(pad_mode, dtype):
+    """The JAX package rounds each filter tap to the input's dtype before
+    it convolves (ROADMAP C6); the port rounds them too and keeps its
+    float32 sums: bit-exact."""
+    x = np.random.RandomState(0).randn(4, 50, 13).astype(np.float32)
+    exp = jfeats.feat_deltas(jnp.asarray(x).astype(getattr(jnp, dtype)), pad_mode=pad_mode)
+    got = pfeats.feat_deltas(torch.from_numpy(x).to(getattr(torch, dtype)), pad_mode=pad_mode)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(exp.astype(jnp.float32)))
+
+
 def test_feat_deltas_errors_match_jax():
     x = _x(0)
     for err, kw in ((RuntimeError, dict(time_dim=3)), (RuntimeError, dict(dim=3)),

@@ -10,18 +10,30 @@ import importlib
 import pytest
 
 MODULES = [
+    "argcheck",
+    "distributions",
+    "estimators",
+    "functional",
+    "lm",
+    "models.seq2seq",
+    "modules",
+    "ops.attn",
+    "ops.combinatorics",
     "ops.decoding",
     "ops.feats",
     "ops.img",
+    "ops.mc",
     "ops.pad",
+    "ops.rl",
     "ops.straight_through",
     "ops.string",
+    "ops.transducer",
+    "serving",
+    "utils.pytree",
 ]
 
-# ROADMAP.md A4: the forced aligner is still to port
-QUEUED = {
-    "ops.decoding": {"CTCForcedAligner", "ctc_forced_align"},
-}
+# names still to port (ROADMAP.md queue A), by module
+QUEUED = {}
 
 
 @pytest.mark.parametrize("name", MODULES)

@@ -260,3 +260,98 @@ def test_sequence_log_probs_matches_jax(dim, eos):
                                   got.numpy())
     with pytest.raises(RuntimeError):
         pdec.sequence_log_probs(torch.from_numpy(logits), torch.from_numpy(hyp), 2)
+
+
+# ---- half-precision steps (ROADMAP C7): jax.nn.log_softmax's rounding ----
+
+
+def _bf16_ulp(x):
+    """One bfloat16 ulp at each of ``x``'s magnitudes (float32 keeps 16
+    more mantissa bits)."""
+    return np.spacing(np.abs(np.asarray(x, np.float32))) * 2.0**16
+
+
+def _half_table(V, dtype):
+    return (np.random.RandomState(9).randn(V + 1, V) * 3).astype(np.float32)
+
+
+def _half_lm(base, V, dtype):
+    """An LM over ``base`` whose step logits (unnormalized, in ``dtype``)
+    are the row of a fixed table picked by the previous token."""
+    table = _half_table(V, dtype)
+
+    class Half(base):
+        def calc_idx_log_probs(self, hist, prev, idx):
+            if isinstance(hist, torch.Tensor):
+                tab = torch.from_numpy(table).to(getattr(torch, dtype))
+                tok = torch.full((hist.shape[1],), V) if idx == 0 else hist[idx - 1].clamp(0, V)
+                return tab[tok.long()], prev
+            tab = jnp.asarray(table).astype(getattr(jnp, dtype))
+            S = hist.shape[0]
+            tok = jnp.take(hist, jnp.clip(idx - 1, 0, max(S - 1, 0)), axis=0) if S else 0
+            tok = jnp.where(idx == 0, V, jnp.clip(tok, 0, V))
+            return tab[tok], prev
+
+    return Half(V)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_sequence_log_probs_half_precision_matches_jax(dtype):
+    """float16 bit-exact; bfloat16 within one bfloat16 ulp."""
+    rng = np.random.RandomState(3)
+    logits = (rng.randn(20, 4, 37) * 3).astype(np.float32)
+    hyp = rng.randint(0, 37, (20, 4))
+    exp = np.asarray(jdec.sequence_log_probs(jnp.asarray(logits).astype(getattr(jnp, dtype)),
+                                             jnp.asarray(hyp)).astype(jnp.float32))
+    got = pdec.sequence_log_probs(torch.from_numpy(logits).to(getattr(torch, dtype)),
+                                  torch.from_numpy(hyp)).float().numpy()
+    if dtype == "float16":
+        np.testing.assert_array_equal(got, exp)
+    else:
+        assert (np.abs(got - exp) <= _bf16_ulp(exp)).all()
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_random_walk_step_log_softmax_half_precision_matches_jax(dtype):
+    """Each step's normalized log-probabilities, as the walk hands them to
+    ``update_log_probs_for_step``, equal ``jax.nn.log_softmax`` of the same
+    half-precision logits: float16 bit-exact, bfloat16 within one ulp."""
+    V, N = 23, 4
+    seen = []
+
+    class Walk(pdec.RandomWalk):
+        def update_log_probs_for_step(self, lp_prev, lp_t, y_prev, y_prev_lens, eos_mask):
+            seen.append((lp_t.clone(), y_prev.clone()))
+            return lp_prev, lp_t
+
+    lm = _half_lm(plm_mod.SequentialLanguageModel, V, dtype)
+    Walk(lm)(torch.Generator().manual_seed(0), {"x": torch.zeros(1)}, N, 3)
+    table = jnp.asarray(_half_table(V, dtype)).astype(getattr(jnp, dtype))
+    for t, (lp_t, y) in enumerate(seen):
+        tok = np.full(N, V) if t == 0 else y[t - 1].numpy()
+        exp = np.asarray(jax.nn.log_softmax(table[tok], -1).astype(jnp.float32))
+        got = lp_t.float().numpy()
+        if dtype == "float16":
+            np.testing.assert_array_equal(got, exp)
+        else:
+            assert (np.abs(got - exp) <= _bf16_ulp(exp)).all()
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_beam_search_half_precision_lm_matches_jax(dtype):
+    """The dense route's step log-softmax in the LM's dtype: paths and
+    lengths exact, scores (float32 sums of half-precision steps) exact in
+    float16 and within a bfloat16 ulp of each step in bfloat16."""
+    V, N, W, S = 19, 3, 4, 6
+    jlm = _half_lm(jlm_mod.ExtractableSequentialLanguageModel, V, dtype)
+    plm = _half_lm(plm_mod.ExtractableSequentialLanguageModel, V, dtype)
+    exp = jax.jit(lambda: jdec.BeamSearch(jlm, W, eos=0)(batch_size=N, max_iters=S))()
+    got = pdec.BeamSearch(plm, W, eos=0)({"x": torch.zeros(())}, batch_size=N, max_iters=S)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(exp[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(exp[1]))
+    e = np.asarray(exp[2], np.float32)
+    if dtype == "float16":
+        np.testing.assert_array_equal(got[2].float().numpy(), e)
+    else:
+        fin = np.isfinite(e)
+        assert (np.abs(got[2].float().numpy()[fin] - e[fin]) <= S * _bf16_ulp(e[fin])).all()

@@ -167,3 +167,20 @@ def test_sampling_follows_its_generator():
     assert abs(float(bits.mean()) - 0.5) < 0.02
     with pytest.raises(ValueError):
         lb.rsample(u=torch.rand(3))
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_gumbel_half_precision_logits_match_jax(dtype):
+    """``GumbelOneHotCategorical(logits=)`` normalizes with jax.nn's
+    rounding steps in the logits' dtype (ROADMAP C7): float16 bit-exact,
+    bfloat16 within one bfloat16 ulp (XLA and PyTorch still round a few
+    bfloat16 steps apart)."""
+    x = (np.random.RandomState(6).randn(20, 37) * 3).astype(np.float32)
+    exp = jst.GumbelOneHotCategorical(logits=jnp.asarray(x).astype(getattr(jnp, dtype))).logits
+    got = pst.GumbelOneHotCategorical(logits=torch.from_numpy(x).to(getattr(torch, dtype))).logits
+    assert got.dtype == getattr(torch, dtype)
+    got, exp = got.float().numpy(), np.asarray(exp.astype(jnp.float32))
+    if dtype == "float16":
+        np.testing.assert_array_equal(got, exp)
+    else:  # one bfloat16 ulp: float32's spacing times 2 ** 16
+        assert (np.abs(got - exp) <= np.spacing(np.abs(exp)) * 2.0**16).all()

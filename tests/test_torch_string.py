@@ -624,3 +624,51 @@ def test_ocd_loss_errors_match_jax():
         with pytest.raises(RuntimeError):
             pstr.hard_optimal_completion_distillation_loss(
                 *(torch.from_numpy(np.ascontiguousarray(a)) for a in args), **kw)
+
+
+# ---- half precision (ROADMAP C7): jax.nn's rounding steps ----
+
+
+def _bf16_ulp(x):
+    """One bfloat16 ulp at each of ``x``'s magnitudes."""
+    return np.spacing(np.abs(np.asarray(x, np.float32))) * 2.0**16
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_ocd_loss_half_precision_matches_jax(dtype):
+    """The log-softmax in the logits' dtype, each step rounded: float16
+    bit-exact; bfloat16 within one bfloat16 ulp (its sums still round
+    apart)."""
+    rng = np.random.RandomState(11)
+    H, N, V, R = 6, 4, 7, 5
+    ref, hyp = rng.randint(0, 6, (R, N)), rng.randint(0, 6, (H, N))
+    logits = (rng.randn(H, N, V) * 3).astype(np.float32)
+    kw = dict(eos=6, reduction="none", warn=False)
+    exp = np.asarray(jstr.hard_optimal_completion_distillation_loss(
+        jnp.asarray(logits).astype(getattr(jnp, dtype)), jnp.asarray(ref), jnp.asarray(hyp),
+        **kw).astype(jnp.float32))
+    got = pstr.hard_optimal_completion_distillation_loss(
+        torch.from_numpy(logits).to(getattr(torch, dtype)), torch.from_numpy(ref),
+        torch.from_numpy(hyp), **kw).float().numpy()
+    if dtype == "float16":
+        np.testing.assert_array_equal(got, exp)
+    else:
+        assert (np.abs(got - exp) <= _bf16_ulp(exp)).all()
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_minimum_error_rate_loss_half_precision_matches_jax(dtype):
+    """The softmax of half-precision path scores, each step rounded:
+    bit-exact in both dtypes."""
+    rng = np.random.RandomState(12)
+    H, N, M, R = 6, 4, 4, 5
+    ref, hyp = rng.randint(0, 6, (R, N)), rng.randint(0, 6, (H, N, M))
+    lp = (rng.randn(N, M) * 3).astype(np.float32)
+    kw = dict(reduction="none", warn=False)
+    exp = np.asarray(jstr.minimum_error_rate_loss(
+        jnp.asarray(lp).astype(getattr(jnp, dtype)), jnp.asarray(ref), jnp.asarray(hyp), **kw
+    ).astype(jnp.float32))
+    got = pstr.minimum_error_rate_loss(
+        torch.from_numpy(lp).to(getattr(torch, dtype)), torch.from_numpy(ref),
+        torch.from_numpy(hyp), **kw).float().numpy()
+    np.testing.assert_array_equal(got, exp)

@@ -520,3 +520,30 @@ def test_streaming_rejects_noncausal_configs(models):
     model = pm.ConformerTransducer(pm.TransducerConfig(cfg, 12, 12), device="cpu")
     with pytest.raises(ValueError, match="chunk"):
         pm.streaming_transducer_greedy(model, *_t(feats, lens), 0)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_transducer_loss_from_joint_half_precision_log_softmax(dtype, monkeypatch):
+    """The joint's log-softmax in its dtype with jax.nn's rounding steps
+    (ROADMAP C7). The JAX package's loss does not run on half-precision
+    joints (its scan concatenates float32 and half arrays), so the node
+    log-probabilities handed to the loss are held to ``jax.nn.log_softmax``
+    of the same joint, as the JAX package computes them: float16 bit-exact,
+    bfloat16 within one bfloat16 ulp."""
+    rng = np.random.RandomState(4)
+    N, T, U, V = 3, 5, 2, 13
+    jl = (rng.randn(N, T, U + 1, V) * 3).astype(np.float32)
+    refs = rng.randint(0, V - 1, (N, U))
+    seen = {}
+    monkeypatch.setattr(pt, "transducer_loss", lambda b, e, *a, **k: seen.update(b=b, e=e))
+    pt.transducer_loss_from_joint(torch.from_numpy(jl).to(getattr(torch, dtype)),
+                                  torch.from_numpy(refs))
+    lp = np.asarray(jax.nn.log_softmax(jnp.asarray(jl).astype(getattr(jnp, dtype)), -1)
+                    .astype(jnp.float32))
+    emit = np.take_along_axis(lp[:, :, :U], refs[:, None, :, None], 3)[..., 0]
+    for got, exp in ((seen["b"], lp[..., -1]), (seen["e"], emit)):
+        got = got.float().numpy()
+        if dtype == "float16":
+            np.testing.assert_array_equal(got, exp)
+        else:  # one bfloat16 ulp: float32's spacing times 2 ** 16
+            assert (np.abs(got - exp) <= np.spacing(np.abs(exp)) * 2.0**16).all()
