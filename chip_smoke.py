@@ -165,7 +165,31 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    -1))``: the estimate within 4 standard errors of its exact mean, and
    on the first 4 rows the value, logits gradient and
    ``relax_variance_loss``'s control-variate gradient equal to the CPU's
-   on the same uniforms (rtol 1e-5, or 1e-4 of the largest entry); ms.
+   on the same uniforms (rtol 1e-5, or 1e-4 of the largest entry); ms;
+20. the training recipe (examples/train_ctc_asr.py's path) through the
+   port's entry points at phase 5's model: a SpectDataSet of 128
+   utterances (500-1000 frames, 10-60 tokens) written with ``save_tensor``
+   and validated by ``get-torch-spect-data-dir-info``; 2 epochs of
+   ``SpectDataLoader(batch_size=32, do_mvn=True)`` with SpecAugment (one
+   ``spec_augment_apply`` launch a step), the epoch-2 mean below epoch 1's;
+   ``TrainingStateController`` checkpoints, resumed into a fresh model and
+   AdamW bit for bit; greedy hypotheses written with ``write_hyp`` and
+   scored by ``compute-torch-token-data-dir-error-rates`` (one
+   ``edit_distance`` launch a 32-utterance batch, equal to the command on
+   the CPU; 1.0 for all-blank hypotheses), and references with seeded edits
+   scored likewise; epoch s, steps a second, the loader's host share,
+   checkpoint ms and bytes, and a traced epoch's idle share;
+21. the mixture-of-experts step: phase 5's model with 4 experts, top-2,
+   capacity 1.25, aux weight 0.01, 3 steps at B=32, T=1000; a float32
+   2-layer copy's step held to the float64 witness (as phase 5's), its
+   routing (top-1 experts and dropped counts equal, aux within rtol 1e-5)
+   equal to the CPU's at seeded and trained weights; step ms, peak memory,
+   the share of choices dropped at capacity;
+22. remat: phase 5's dense step with ``remat=True`` against ``remat=False``
+   from one generator state, cuDNN deterministic: loss and gradients
+   bit-equal (or within the card's own spread), and a planted remat that
+   does not set the generator back fails the comparison; both steps' ms
+   and peak memory.
 
 ``python3 chip_smoke.py --train-witness N`` runs phase 1, then trains
 phase 5's model N times from N seeds and reports the card-vs-CPU step
@@ -602,12 +626,14 @@ def make_requests(cfg):
     return requests
 
 
-def trace(fn):
+def trace(fn, warmup=True):
     """Wall ms, device-busy ms, kernel launches and the top kernels of one
-    ``fn()`` under torch.profiler."""
+    ``fn()`` under torch.profiler (after one untraced call, with
+    ``warmup``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()  # warm-up
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1344,14 +1370,14 @@ def phase_new_kernels(kernels, img):
     return worst
 
 
-def make_train_batch(cfg):
+def make_train_batch(cfg, dev="cuda", B=B_TRAIN, T=T_TRAIN, U=U_TRAIN):
     """bench_train_mfu's batch: B=32 utterances of 1000 frames, 100 random
-    tokens each."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    feats = torch.randn((B_TRAIN, T_TRAIN, cfg.num_filts), generator=gen, device="cuda")
-    feat_lens = torch.full((B_TRAIN,), T_TRAIN, device="cuda")
-    refs = torch.randint(0, cfg.vocab_size, (B_TRAIN, U_TRAIN), generator=gen, device="cuda")
-    ref_lens = torch.full((B_TRAIN,), U_TRAIN, device="cuda")
+    tokens each (other sizes for a rehearsal on the CPU)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    feats = torch.randn((B, T, cfg.num_filts), generator=gen, device=dev)
+    feat_lens = torch.full((B,), T, device=dev)
+    refs = torch.randint(0, cfg.vocab_size, (B, U), generator=gen, device=dev)
+    ref_lens = torch.full((B,), U, device=dev)
     return feats, feat_lens, refs, ref_lens
 
 
@@ -1517,7 +1543,7 @@ CUDNN_VARIANTS = (
 SPREAD_VARIANT = CUDNN_VARIANTS[1]
 
 
-def step_check(pkg, kernels, cfg, sd, batch, sa_args, hold_gap=True, variants=()):
+def step_check(pkg, kernels, cfg, sd, batch, sa_args, hold_gap=True, variants=(), dev="cuda"):
     """One float32 step from ``sd`` on the card, twice, and on the CPU,
     and a float64 step on the CPU as the witness of the true gradient, all
     on the same SpecAugment'ed input. The readings, and the checks that
@@ -1563,21 +1589,21 @@ def step_check(pkg, kernels, cfg, sd, batch, sa_args, hold_gap=True, variants=()
     (not held to a bound; ``SPREAD_VARIANT``'s step is reused): its worst
     distance from the witness, with its tensor, and its distance at the
     default step's worst tensor, beside the default's and the CPU's there
-    (``grad_at_worst``)."""
+    (``grad_at_worst``). ``dev`` is the card (the CPU in a rehearsal)."""
     feats = batch[0]
     aug = kernels.spec_augment_apply(feats, *sa_args).double()
-    card_args = [a.cuda() for a in sa_args]
+    card_args = [a.to(dev) for a in sa_args]
     on_card = lambda g, f, l: kernels.spec_augment_apply(f, *card_args)  # noqa: E731
     on_cpu = lambda g, f, l: kernels.spec_augment_apply(f, *sa_args)  # noqa: E731
     lc, pc, gc = one_step(pkg, cfg, sd, batch, on_cpu, "cpu")
-    lg, pg, gg = one_step(pkg, cfg, sd, batch, on_card, "cuda")
-    _, _, gg2 = one_step(pkg, cfg, sd, batch, on_card, "cuda")
+    lg, pg, gg = one_step(pkg, cfg, sd, batch, on_card, dev)
+    _, _, gg2 = one_step(pkg, cfg, sd, batch, on_card, dev)
     l64, _, g64 = one_step(pkg, cfg, sd, batch, lambda g, f, l: aug, "cpu", torch.float64)
-    _, _, gg64 = one_step(pkg, cfg, sd, batch, lambda g, f, l: aug.cuda(), "cuda", torch.float64)
+    _, _, gg64 = one_step(pkg, cfg, sd, batch, lambda g, f, l: aug.to(dev), dev, torch.float64)
     stepped = {}
     for name, flags in (SPREAD_VARIANT,) + tuple(v for v in variants if v != SPREAD_VARIANT):
         with torch.backends.cudnn.flags(**{"allow_tf32": False, **flags}):
-            stepped[name] = one_step(pkg, cfg, sd, batch, on_card, "cuda")[2]
+            stepped[name] = one_step(pkg, cfg, sd, batch, on_card, dev)[2]
     res = {
         "loss_cpu": lc, "loss_card": lg, "loss_f64": l64,
         "loss_rel_err": abs(lg - lc) / abs(lc),
@@ -1645,7 +1671,7 @@ def step_check(pkg, kernels, cfg, sd, batch, sa_args, hold_gap=True, variants=()
     return res, failed
 
 
-def train_inputs(img, cfg):
+def train_inputs(img, cfg, dev="cuda", T=T_TRAIN, U=U_TRAIN):
     """The step's batch: the first 8 utterances of the training batch, made
     ragged, and SpecAugment's apply arguments for it. The warp grid is
     solved once, on the CPU, and every step applies its lerp indices and
@@ -1653,9 +1679,11 @@ def train_inputs(img, cfg):
     device's own solve rounds differently, and at 1000 frames that moves a
     lerp by up to about 1e-3, enough to move the gradients of a loss this
     large by more than the float32 products do."""
-    feats, feat_lens, refs, ref_lens = (a[:8].cpu() for a in make_train_batch(cfg))
-    feat_lens = feat_lens - torch.arange(8) * (T_TRAIN // 16)  # ragged
-    ref_lens = ref_lens - torch.arange(8) * (U_TRAIN // 12)
+    feats, feat_lens, refs, ref_lens = (
+        a[:8].cpu() for a in make_train_batch(cfg, dev, T=T, U=U)
+    )
+    feat_lens = feat_lens - torch.arange(8) * (T // 16)  # ragged
+    ref_lens = ref_lens - torch.arange(8) * (U // 12)
     gen = torch.Generator().manual_seed(SEED + 6)
     p = img.spec_augment_draw_parameters(gen, feats, *SA_DRAW, lengths=feat_lens)
     T, F = feats.shape[1:]
@@ -1666,14 +1694,18 @@ def train_inputs(img, cfg):
     return (feats, feat_lens, refs, ref_lens), sa_args
 
 
-def train_step_check(pkg, kernels, model, seeded=True, variants=()):
+def train_step_check(pkg, kernels, model, seeded=True, variants=(), dev="cuda", T=T_TRAIN,
+                     U=U_TRAIN, replay=None):
     """A float32, dropout-0, 2-layer copy of ``model`` (its subsampler,
     first two blocks and CTC head, as the card trained them) takes one step
     on the card and one on the CPU, with a float64 witness
     (:func:`step_check`, the card's gradients held to the witness); so do,
     with ``seeded``, the seeded weights of that configuration (held to the
     CPU's gradients as well). The readings of each, with the checks that
-    failed under ``failed``."""
+    failed under ``failed``. ``dev``, ``T`` and ``U`` shrink it to a
+    rehearsal on the CPU. ``replay``, when given, makes a context for each
+    weight set's steps (``ReplayedRouting``), whose ``flips`` join the
+    readings."""
     _, ConformerCTC, _, _, img = pkg
     cfg = dataclasses.replace(model.cfg, num_layers=2, dropout=0.0, dtype=torch.float32)
     keep = ("subsample.", "block_0.", "block_1.", "ctc_head.")
@@ -1684,12 +1716,16 @@ def train_step_check(pkg, kernels, model, seeded=True, variants=()):
         weights["seeded"] = ConformerCTC(
             cfg, device="cpu", generator=torch.Generator().manual_seed(SEED)
         ).state_dict()
-    batch, sa_args = train_inputs(img, model.cfg)
+    batch, sa_args = train_inputs(img, model.cfg, dev, T, U)
     out = {}
     for name, sd in weights.items():
-        res, failed = step_check(
-            pkg, kernels, cfg, sd, batch, sa_args, name == "seeded", variants
-        )
+        ctx = replay() if replay else None
+        with ctx or contextlib.nullcontext():
+            res, failed = step_check(
+                pkg, kernels, cfg, sd, batch, sa_args, name == "seeded", variants, dev
+            )
+        if ctx is not None:
+            res["routing_flips"] = ctx.flips
         out[name] = {"batch": 8, **res, "failed": failed}
     return out
 
@@ -3332,13 +3368,564 @@ def phase_rebar(st, mc, logits, dev="cuda", rows=REBAR_ROWS):
     return res
 
 
+# ---------------------------------------------------------------------------
+# The training recipe (examples/train_ctc_asr.py's path through the port's
+# entry points), the mixture-of-experts step and the remat step.
+
+# phase_train's model: bench.py:606's config, d512/L8/H8, V=1024, bf16
+RECIPE_MODEL = dict(vocab_size=1024, num_filts=80, d_model=512, num_layers=8, num_heads=8,
+                    dropout=0.1, attn_dropout=0.0)
+RECIPE = dict(utts=128, t_min=500, t_max=1000, u_min=10, u_max=60, batch=32, epochs=2,
+              score_batch=32, model=RECIPE_MODEL, sa=SA_ARGS)
+MOE = dict(model=dict(RECIPE_MODEL, num_experts=4, expert_top_k=2, expert_capacity_factor=1.25,
+                      moe_aux_weight=0.01),
+           B=B_TRAIN, T=T_TRAIN, U=U_TRAIN, steps=3, sa=SA_ARGS)
+REMAT = dict(model=RECIPE_MODEL, B=B_TRAIN, T=T_TRAIN, U=U_TRAIN, sa=SA_ARGS)
+
+
+def peak_reset(dev):
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_bytes(dev):
+    return torch.cuda.max_memory_allocated() if dev == "cuda" else None
+
+
+def recipe_data(save_tensor, root, cfg):
+    """``cfg["utts"]`` utterances of ``t_min``-``t_max`` frames of 80 (the
+    model's) float32 features and ``u_min``-``u_max`` reference tokens, from
+    ``RandomState(SEED + 50)``, written with the port's ``save_tensor``;
+    returns the frame and token counts."""
+    rng = np.random.RandomState(SEED + 50)
+    F, V = cfg["model"]["num_filts"], cfg["model"]["vocab_size"]
+    frames = tokens = 0
+    for n in range(cfg["utts"]):
+        T = int(rng.randint(cfg["t_min"], cfg["t_max"] + 1))
+        U = int(rng.randint(cfg["u_min"], cfg["u_max"] + 1))
+        save_tensor(torch.from_numpy(rng.randn(T, F).astype(np.float32)),
+                    os.path.join(root, "feat", f"utt{n:03d}.pt"))
+        save_tensor(torch.from_numpy(rng.randint(0, V, U).astype(np.int64)),
+                    os.path.join(root, "ref", f"utt{n:03d}.pt"))
+        frames, tokens = frames + T, tokens + U
+    return frames, tokens
+
+
+def noisy_hyps(load_tensor, save_tensor, ref_dir, out_dir, V):
+    """Each reference with seeded substitutions, deletions and insertions
+    (each token: kept 80%, substituted 10%, deleted 10%, and an inserted
+    token after it 10% of the time), written to ``out_dir``."""
+    rng = np.random.RandomState(SEED + 52)
+    for name in sorted(os.listdir(ref_dir)):
+        hyp = []
+        for t in load_tensor(os.path.join(ref_dir, name)).tolist():
+            r = rng.rand()
+            if r < 0.1:
+                hyp.append(int(rng.randint(V)))
+            elif r < 0.9:
+                hyp.append(t)
+            if rng.rand() < 0.1:
+                hyp.append(int(rng.randint(V)))
+        save_tensor(torch.tensor(hyp, dtype=torch.int64), os.path.join(out_dir, name))
+
+
+def phase_recipe(pkg, kernels, cfg=RECIPE, dev="cuda"):
+    """The training recipe of examples/train_ctc_asr.py through the port's
+    entry points, at the bench model's width: (a) a SpectDataSet of 128
+    utterances written with ``save_tensor`` into a temporary directory and
+    validated by ``get-torch-spect-data-dir-info --strict``; (b) 2 epochs
+    of ``SpectDataLoader(batch_size=32, do_mvn=True, seed=7,
+    init_epoch=epoch)`` on the card, SpecAugment at ``SA_ARGS`` (one
+    ``spec_augment_apply`` launch a step), losses finite and epoch 2's mean
+    below epoch 1's; (c) ``TrainingStateController(num_epochs=3, seed=1)``
+    updated after each epoch; a fresh controller reports epoch 2 and loads
+    its checkpoint into a fresh model and AdamW, whose parameters and state
+    equal the live ones bit for bit; (d) greedy hypotheses of all 128
+    utterances written with ``write_hyp`` and scored by
+    ``compute-torch-token-data-dir-error-rates --batch-size 32`` (one
+    ``edit_distance`` launch a batch): exactly 1.0 when every hypothesis is
+    empty, and equal to the command on the CPU (the plain DP); the same for
+    the references with seeded edits. (e) Epoch seconds, steps a second,
+    the loader's host share of an epoch (time in ``next(loader)``),
+    checkpoint save and load ms and bytes, and the device idle share over
+    a third, traced epoch. Returns the launches."""
+    (ConformerConfig, ConformerCTC, adamw, make_train_step, img, data, training,
+     command_line, serial, ctc_greedy_search) = pkg
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_recipe_")
+    try:
+        root = os.path.join(work, "data")
+        t0 = time.perf_counter()
+        frames, tokens = recipe_data(serial.save_tensor, root, cfg)
+        write_s = time.perf_counter() - t0
+        data_bytes = sum(
+            os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs
+        )
+        info_path = os.path.join(work, "info.txt")
+        if command_line.get_torch_spect_data_dir_info([root, info_path, "--strict"]) != 0:
+            raise AssertionError("get-torch-spect-data-dir-info failed on the recipe's data")
+        with open(info_path) as f:
+            info = dict(line.split() for line in f)
+        expect = {"num_utterances": cfg["utts"], "num_filts": cfg["model"]["num_filts"],
+                  "total_frames": frames, "total_tokens": tokens}
+        if {k: int(info[k]) for k in expect} != expect:
+            raise AssertionError(f"data dir info {info} != {expect}")
+
+        mcfg = ConformerConfig(**cfg["model"])
+        model = ConformerCTC(mcfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+        optim = adamw(model.parameters(), LR)
+        step = make_train_step(
+            model, optim, lambda g, f, l: img.spec_augment(g, f, lengths=l.float(), **cfg["sa"])
+        )
+        gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+        tparams = training.TrainingStateParams(num_epochs=3, seed=1)
+        hist, states = os.path.join(work, "hist.csv"), os.path.join(work, "states")
+        ctl = training.TrainingStateController(tparams, hist, states)
+        lp = data.SpectDataLoaderParams(batch_size=cfg["batch"], do_mvn=True)
+
+        def epoch_run(epoch):
+            loader = data.SpectDataLoader(root, lp, seed=7, init_epoch=epoch, device=dev)
+            batches = iter(loader)
+            losses, host_s = [], 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            while True:
+                h0 = time.perf_counter()
+                batch = next(batches, None)
+                host_s += time.perf_counter() - h0
+                if batch is None:
+                    break
+                feats, refs, feat_lens, ref_lens = batch
+                losses.append(step(gen, feats, feat_lens, refs.clamp(min=0), ref_lens))
+            torch.cuda.synchronize()
+            return [float(v) for v in losses], time.perf_counter() - t0, host_s
+
+        torch.cuda.synchronize()
+        peak_reset(dev)
+        kernels.reset_launches()
+        epochs, save_ms = [], []
+        for epoch in range(cfg["epochs"]):
+            losses, wall_s, host_s = epoch_run(epoch)
+            mean = float(np.mean(losses))
+            t0 = time.perf_counter()
+            ctl.update_for_epoch(model, optim, mean, mean)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            epochs.append({"losses": losses, "mean_loss": mean, "s": wall_s,
+                           "steps_per_s": len(losses) / wall_s, "loader_host_s": host_s,
+                           "loader_host_share": host_s / wall_s})
+        train_launches = dict(kernels.LAUNCHES)
+        peak = peak_bytes(dev)
+        steps = sum(len(e["losses"]) for e in epochs)
+        if train_launches["spec_augment_apply"] != steps:
+            raise AssertionError(f"recipe training launches {train_launches}, expected "
+                                 f"{steps} spec_augment_apply")
+        if not all(math.isfinite(v) for e in epochs for v in e["losses"]):
+            raise AssertionError(f"recipe losses not finite: {epochs}")
+        if not epochs[-1]["mean_loss"] < epochs[0]["mean_loss"]:
+            raise AssertionError(f"epoch means did not fall: {[e['mean_loss'] for e in epochs]}")
+
+        # resume into a fresh model and optimizer
+        ctl2 = training.TrainingStateController(tparams, hist, states)
+        if ctl2.get_last_epoch() != cfg["epochs"]:
+            raise AssertionError(f"a fresh controller reports epoch {ctl2.get_last_epoch()}")
+        model2 = ConformerCTC(mcfg, device=dev, generator=torch.Generator().manual_seed(SEED + 1))
+        optim2 = adamw(model2.parameters(), LR)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctl2.load_model_and_optimizer_for_epoch(model2, optim2)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        same_params = all(
+            torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                              model2.state_dict().values())
+        )
+        s1, s2 = optim.state_dict(), optim2.state_dict()
+        same_state = (
+            s1["param_groups"] == s2["param_groups"]
+            and set(s1["state"]) == set(s2["state"])
+            and all(torch.equal(s1["state"][i][k].cpu(), s2["state"][i][k].cpu())
+                    for i in s1["state"] for k in s1["state"][i])
+        )
+        if not (same_params and same_state):
+            raise AssertionError(f"resume: parameters equal {same_params}, AdamW state equal "
+                                 f"{same_state}")
+        info_ckpt = ctl.get_info(cfg["epochs"])
+        ckpt_bytes = {
+            "model": os.path.getsize(ctl.get_model_path_with_info(info_ckpt)),
+            "optimizer": os.path.getsize(ctl.get_optimizer_path_with_info(info_ckpt)),
+        }
+        del model2, optim2
+
+        # decode, write hyps, score
+        ds = data.SpectDataSet(root, params=lp)
+        eval_loader = data.SpectDataLoader(
+            root, lp, shuffle=False, device=dev, suppress_uttids=False
+        )
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hyp_lens = []
+        with torch.no_grad():
+            for feats, _, feat_lens, _, utt_ids in eval_loader:
+                logits, out_lens = model(feats, feat_lens)
+                _, y, y_lens = ctc_greedy_search(logits, out_lens, batch_first=True)
+                y, y_lens = y.cpu(), y_lens.cpu()
+                for n, utt in enumerate(utt_ids):
+                    ds.write_hyp(utt, y[n, : int(y_lens[n])])
+                    hyp_lens.append(int(y_lens[n]))
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        ref_dir = os.path.join(root, "ref")
+        noisy_dir = os.path.join(work, "noisy")
+        noisy_hyps(serial.load_tensor, serial.save_tensor, ref_dir, noisy_dir,
+                   cfg["model"]["vocab_size"])
+        batches = -(-cfg["utts"] // cfg["score_batch"])
+        scores = {}
+        for name, hyp_dir in (("trained", os.path.join(root, "hyp")), ("noisy", noisy_dir)):
+            out = {}
+            for side, where in (("card", dev), ("cpu", "cpu")):
+                path = os.path.join(work, f"{name}_{side}.txt")
+                kernels.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = command_line.compute_torch_token_data_dir_error_rates(
+                    [ref_dir, hyp_dir, path, "--quiet", "--batch-size", str(cfg["score_batch"]),
+                     "--device", where])
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                if rc != 0:
+                    raise AssertionError(f"the error-rate command exited {rc} ({name}, {where})")
+                with open(path) as f:
+                    out[side] = (f.read(), ms, kernels.LAUNCHES["edit_distance"])
+            rate = float(out["card"][0])
+            if out["card"][2] != batches:
+                raise AssertionError(f"{name} scoring launched edit_distance {out['card'][2]} "
+                                     f"times, expected {batches}")
+            if out["card"][0] != out["cpu"][0]:
+                raise AssertionError(f"{name} error rate on the card {out['card'][0]!r} != the "
+                                     f"CPU's {out['cpu'][0]!r}")
+            if not (math.isfinite(rate) and rate >= 0):
+                raise AssertionError(f"{name} error rate {rate}")
+            scores[name] = {"error_rate": rate, "ms": out["card"][1], "cpu_ms": out["cpu"][1],
+                            "launches": out["card"][2], "equals_cpu": True}
+        all_blank = max(hyp_lens) == 0
+        if all_blank and scores["trained"]["error_rate"] != 1.0:
+            raise AssertionError(f"empty hypotheses scored {scores['trained']['error_rate']}")
+        if not 0 < scores["noisy"]["error_rate"] < 1:
+            raise AssertionError(f"seeded edits scored {scores['noisy']['error_rate']}")
+        score_launches = {"edit_distance": sum(v["launches"] for v in scores.values())}
+
+        # a third epoch, traced: the device's idle share
+        kernels.reset_launches()
+        traced = trace(lambda: epoch_run(cfg["epochs"]), warmup=False)
+        if kernels.LAUNCHES["spec_augment_apply"] != len(epochs[0]["losses"]):
+            raise AssertionError(f"traced epoch launches {dict(kernels.LAUNCHES)}")
+        train_launches["spec_augment_apply"] += kernels.LAUNCHES["spec_augment_apply"]
+        emit({
+            "phase": "recipe", "model": "ConformerCTC d512 L8 H8 V1024 bf16, dropout 0.1",
+            "utterances": cfg["utts"], "frames": frames, "tokens": tokens,
+            "data_bytes": data_bytes, "write_s": write_s, "batch": cfg["batch"],
+            "epochs": epochs, "peak_mem_bytes": peak,
+            "checkpoint_save_ms": save_ms, "checkpoint_load_ms": load_ms,
+            "checkpoint_bytes": ckpt_bytes, "resume_bit_equal": True,
+            "decode_ms": decode_ms, "hyp_len_max": max(hyp_lens), "all_blank": all_blank,
+            "scores": scores, "traced_epoch": traced,
+            "launches": {"spec_augment_apply": train_launches["spec_augment_apply"],
+                         **score_launches},
+        })
+        return {"spec_augment_apply": train_launches["spec_augment_apply"], **score_launches}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def moe_layers(model):
+    return [m for m in model.modules() if type(m).__name__ == "_MoEFeedForward"]
+
+
+def moe_layer_inputs(model, feats, lens):
+    """Each mixture-of-experts layer's input ``(x, pad_mask)`` in one
+    deterministic forward of ``model``, on the CPU."""
+    got = []
+    handles = [m.register_forward_hook(
+        lambda module, args, out: got.append((args[0].detach().cpu(), args[1].cpu())))
+        for m in moe_layers(model)]
+    try:
+        with torch.no_grad():
+            model(feats, lens)
+    finally:
+        for h in handles:
+            h.remove()
+    return got
+
+
+def moe_routes(layers, inputs, dev):
+    """Each layer's routing of its given input on ``dev``: every token's
+    top-1 expert, each expert's count of choices dropped at capacity, the
+    choices routed and kept, and the layer's aux loss."""
+    routes = []
+    for layer, (x, pad_mask) in zip(layers, inputs):
+        x, pad_mask = x.to(dev), pad_mask.to(dev)
+        with torch.no_grad():
+            r = layer.route(layer.ln(x), pad_mask)
+            aux = layer(x, pad_mask)[1]
+        routed = r["gates"] > 0
+        dropped = routed & ~r["keep"]
+        routes.append({
+            "top1": r["experts"][:, 0].cpu(),
+            "dropped": torch.bincount(r["experts"][dropped], minlength=layer.wi.shape[0]).cpu(),
+            "routed": int(routed.sum()), "kept": int(r["keep"].sum()), "aux": float(aux),
+        })
+    return routes
+
+
+class ReplayedRouting:
+    """Within ``with``, every mixture-of-experts layer routes as in the
+    first forward run inside it: that forward's layers record their top-k
+    experts, and each later forward's layers take them in place of their
+    own (``route(..., experts=)``), their gates still from their own router
+    probabilities. ``flips`` counts, for each later forward, the choices
+    whose own expert differed from the recorded one.
+
+    A routing decision is discrete. A token whose router probabilities lie
+    within rounding of each other can pick another expert on another
+    device or in float64, and that moves every later token's capacity slot
+    and which choices drop, so the gradients part far more than float32
+    rounding parts them. The step check holds the arithmetic to the
+    float64 witness, so it replays one run's decisions (the CPU's float32
+    step, the first) on every step, as it applies one CPU-solved
+    SpecAugment grid; the routing itself is compared on its own
+    (``moe_routes``)."""
+
+    def __init__(self, moe_cls, layers):
+        self.cls, self.layers = moe_cls, layers
+        self.recorded, self.flips, self.calls = [], [], 0
+
+    def __enter__(self):
+        real = self.real = self.cls.route
+        replay = self
+
+        def route(module, y, pad_mask):
+            own = real(module, y, pad_mask)
+            i = replay.calls % replay.layers
+            replay.calls += 1
+            if len(replay.recorded) < replay.layers:
+                replay.recorded.append(own["experts"].cpu())
+                return own
+            experts = replay.recorded[i].to(own["experts"].device)
+            if i == 0:
+                replay.flips.append(0)
+            replay.flips[-1] += int((experts != own["experts"]).sum())
+            return real(module, y, pad_mask, experts=experts)
+
+        self.cls.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.route = self.real
+
+
+def phase_moe(pkg, kernels, cfg=MOE, dev="cuda"):
+    """The mixture-of-experts step: the recipe's model with ``num_experts=4,
+    expert_top_k=2, expert_capacity_factor=1.25, moe_aux_weight=0.01`` takes
+    3 steps at B=32, T=1000 (one ``spec_augment_apply`` launch a step,
+    losses finite). A float32, dropout-0, 2-layer copy at its seeded and at
+    its trained weights takes the step check of ``train_step_check`` (the
+    card's gradients held to a float64 witness by ``grad_criterion``), with
+    the CPU float32 step's routing replayed on every step
+    (``ReplayedRouting``; the choices that flipped are reported); on
+    the same copies, each layer given the input the CPU's forward gave it,
+    the card's routing equals the CPU's: every token's top-1 expert and
+    each expert's count of dropped choices equal, each layer's aux loss
+    within rtol 1e-5. Step ms, peak memory and the share
+    of routed choices dropped at capacity. Returns the launches."""
+    ConformerConfig, ConformerCTC, adamw, make_train_step, img = pkg
+    mcfg = ConformerConfig(**cfg["model"])
+    model = ConformerCTC(mcfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    step = make_train_step(
+        model, adamw(model.parameters(), LR),
+        lambda g, f, l: img.spec_augment(g, f, lengths=l.float(), **cfg["sa"]),
+    )
+    batch = make_train_batch(mcfg, dev, cfg["B"], cfg["T"], cfg["U"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 55)
+    seeded_routes = moe_routes(
+        moe_layers(model), moe_layer_inputs(model, batch[0], batch[1]), dev
+    )
+    torch.cuda.synchronize()
+    peak_reset(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    losses = [step(gen, *batch) for _ in range(cfg["steps"])]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = peak_bytes(dev)
+    losses = [float(v) for v in losses]
+    if launches["spec_augment_apply"] != cfg["steps"]:
+        raise AssertionError(f"moe steps launches {launches}, expected {cfg['steps']}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"moe losses not finite: {losses}")
+    (step_ms,), runs = host_ms([lambda: step(gen, *batch)])
+    routed = sum(r["routed"] for r in seeded_routes)
+    dropped = sum(int(r["dropped"].sum()) for r in seeded_routes)
+
+    moe_cls = type(model.block_0.moe)
+    check = train_step_check(pkg, kernels, model, dev=dev, T=cfg["T"], U=cfg["U"],
+                             replay=lambda: ReplayedRouting(moe_cls, 2))
+    failed = {name: res["failed"] for name, res in check.items() if res["failed"]}
+    # routing of the same float32 copies, card against CPU, each layer on
+    # the input the CPU's forward gave it (the forwards' own rounding would
+    # otherwise reach the routers as different inputs)
+    copy_cfg = dataclasses.replace(mcfg, num_layers=2, dropout=0.0, dtype=torch.float32)
+    keep = ("subsample.", "block_0.", "block_1.", "ctc_head.")
+    (feats, feat_lens, _, _), _ = train_inputs(img, mcfg, dev, cfg["T"], cfg["U"])
+    routing = {}
+    for name, sd in (
+        ("seeded", ConformerCTC(copy_cfg, device="cpu",
+                                generator=torch.Generator().manual_seed(SEED)).state_dict()),
+        ("trained", {k: v.cpu() for k, v in model.state_dict().items() if k.startswith(keep)}),
+    ):
+        copies = {}
+        for where in (dev, "cpu"):
+            copies[where] = ConformerCTC(copy_cfg, device=where)
+            copies[where].load_state_dict(sd)
+        inputs = moe_layer_inputs(copies["cpu"], feats, feat_lens)
+        card, cpu = (moe_routes(moe_layers(copies[w]), inputs, w) for w in (dev, "cpu"))
+        res = {
+            "top1_equal": all(torch.equal(a["top1"], b["top1"]) for a, b in zip(card, cpu)),
+            "dropped_equal": all(torch.equal(a["dropped"], b["dropped"])
+                                 for a, b in zip(card, cpu)),
+            "aux_max_rel_err": max(abs(a["aux"] - b["aux"]) / abs(b["aux"])
+                                   for a, b in zip(card, cpu)),
+            "dropped_per_expert": [a["dropped"].tolist() for a in card],
+        }
+        routing[name] = res
+        if not (res["top1_equal"] and res["dropped_equal"] and res["aux_max_rel_err"] <= 1e-5):
+            failed.setdefault(name, []).append("routing")
+    if failed:
+        raise AssertionError(f"moe step on the card vs the CPU: {failed} failed: "
+                             f"{check} {routing}")
+    emit({
+        "phase": "moe", "model": "ConformerCTC d512 L8 H8 V1024 bf16, dropout 0.1, "
+                                 "E=4 top-2 capacity 1.25 aux 0.01",
+        "batch": cfg["B"], "t_raw": cfg["T"], "u": cfg["U"], "losses": losses,
+        "launches": launches, "first_steps_s": first_s, "step_ms": step_ms,
+        "step_runs_ms": runs[0], "peak_mem_bytes": peak,
+        "tokens_routed": routed, "dropped_at_capacity": dropped,
+        "dropped_share": dropped / max(routed, 1),
+        "dropped_per_block_expert": [r["dropped"].tolist() for r in seeded_routes],
+        "card_vs_cpu_step": check, "card_vs_cpu_routing": routing,
+    })
+    return {"spec_augment_apply": launches["spec_augment_apply"]}
+
+
+def remat_compare(ref, spread_run, other):
+    """``other``'s loss and gradients against ``ref``'s: bit-equal when the
+    card's two plain steps (``ref``, ``spread_run``) are; otherwise the
+    loss and each gradient within 4 times the two plain steps' largest
+    distance apart (each over its tensor's largest entry)."""
+    (l0, g0), (l1, g1), (l2, g2) = ref, spread_run, other
+
+    def rel(a, b):
+        scale = float(b.abs().max())
+        return float((a - b).abs().max()) / scale if scale > 0 else float((a - b).abs().max())
+
+    spread = max((rel(g1[k], g0[k]) for k in g0), default=0.0)
+    dist = {k: rel(g2[k], g0[k]) for k in g0}
+    at = max(dist, key=dist.get)
+    bit_spread = l1 == l0 and all(torch.equal(g1[k], g0[k]) for k in g0)
+    if bit_spread:
+        ok = l2 == l0 and all(torch.equal(g2[k], g0[k]) for k in g0)
+    else:
+        ok = abs(l2 - l0) <= 4 * abs(l1 - l0) and dist[at] <= 4 * spread
+    return {"ok": ok, "plain_steps_bit_equal": bit_spread, "loss": l2, "loss_plain": l0,
+            "grad_spread": spread, "grad_max_rel_err": dist[at], "grad_max_rel_err_at": at}
+
+
+def phase_remat(pkg, kernels, conformer, cfg=REMAT, dev="cuda"):
+    """Remat on the dense d512/L8 step (B=32, T=1000, dropout 0.1): one step
+    with ``remat=True`` against ``remat=False`` from the same weights and
+    generator state, under ``torch.backends.cudnn.deterministic``: the loss
+    and every gradient bit-equal when two plain steps are, else within
+    ``remat_compare``'s bound of the card's own spread. A planted fault, a
+    remat that does not set the generator back for the recomputation, must
+    fail the comparison. Both steps' ms and peak memory. Returns the
+    launches (one ``spec_augment_apply`` a step)."""
+    ConformerConfig, ConformerCTC, adamw, make_train_step, img = pkg
+    mcfg = ConformerConfig(**cfg["model"])
+    batch = make_train_batch(mcfg, dev, cfg["B"], cfg["T"], cfg["U"])
+    augment = lambda g, f, l: img.spec_augment(g, f, lengths=l.float(), **cfg["sa"])  # noqa: E731
+
+    def build(remat):
+        model = ConformerCTC(dataclasses.replace(mcfg, remat=remat), device=dev,
+                             generator=torch.Generator().manual_seed(SEED))
+        return model, make_train_step(model, adamw(model.parameters(), LR), augment)
+
+    def one(remat):
+        model, step = build(remat)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+        torch.cuda.synchronize()
+        peak_reset(dev)
+        t0 = time.perf_counter()
+        loss = float(step(gen, *batch))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+        return (loss, grads), ms, peak_bytes(dev)
+
+    real = conformer._remat_block
+
+    def planted(block, *args):  # a plain checkpoint: the generator is not replayed
+        return torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False)
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        kernels.reset_launches()
+        plain, plain_ms, plain_peak = one(False)
+        again, _, _ = one(False)
+        remat, remat_ms, remat_peak = one(True)
+        conformer._remat_block = planted
+        try:
+            fault, _, _ = one(True)
+        finally:
+            conformer._remat_block = real
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    if launches["spec_augment_apply"] != 4:
+        raise AssertionError(f"remat steps launches {launches}, expected 4 spec_augment_apply")
+    res = remat_compare(plain, again, remat)
+    res_fault = remat_compare(plain, again, fault)
+    if not res["ok"]:
+        raise AssertionError(f"remat step differs from the plain step: {res}")
+    if res_fault["ok"]:
+        raise AssertionError(f"the planted generator fault passed the remat check: {res_fault}")
+    del plain, again, remat, fault
+    steps = {}
+    for remat in (False, True):
+        model, step = build(remat)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 62)
+        (steps[remat],), _ = host_ms([lambda: step(gen, *batch)])
+        del model, step
+    emit({
+        "phase": "remat", "model": "ConformerCTC d512 L8 H8 V1024 bf16, dropout 0.1",
+        "batch": cfg["B"], "t_raw": cfg["T"], "launches": launches,
+        "vs_plain": res, "planted_fault": res_fault,
+        "step_ms": {"plain": steps[False], "remat": steps[True]},
+        "first_step_ms": {"plain": plain_ms, "remat": remat_ms},
+        "peak_mem_bytes": {"plain": plain_peak, "remat": remat_peak},
+    })
+    return {"spec_augment_apply": launches["spec_augment_apply"]}
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     try:
-        from pydrobert_tpu_torch import config
+        from pydrobert_tpu_torch import command_line, config, training
+        from pydrobert_tpu_torch import data as tdata
         from pydrobert_tpu_torch.data import parse_arpa_lm
+        from pydrobert_tpu_torch.models import conformer
+        from pydrobert_tpu_torch.utils import serial
         from pydrobert_tpu_torch.export import ctc_recognizer
         from pydrobert_tpu_torch.lm import LookupLanguageModel
         from pydrobert_tpu_torch.models import (
@@ -3452,6 +4039,11 @@ def main(argv):
     del served
     reinforce_launches = phase_reinforce(s2s, (decoding, mc, string), kernels)
     phase_rebar(straight_through, mc, logits)
+    recipe_launches = phase_recipe(
+        train_pkg + (tdata, training, command_line, serial, ctc_greedy_search), kernels
+    )
+    moe_launches = phase_moe(train_pkg, kernels)
+    remat_launches = phase_remat(train_pkg, kernels, conformer)
 
     csrc = "pydrobert_tpu_torch/csrc/"
     rows = []
@@ -3467,6 +4059,12 @@ def main(argv):
         "score": score_launches["edit_distance"],
         "seq2seq train": mer_launches["edit_distance"],
         "reinforce": reinforce_launches["edit_distance"],
+        "recipe": recipe_launches["edit_distance"],
+    }
+    sa_paths = {"train": train_launches, "recipe": recipe_launches, "moe": moe_launches,
+                "remat": remat_launches}
+    times["spec_augment_apply"]["launches_by_path"] = {
+        k: v["spec_augment_apply"] for k, v in sa_paths.items()
     }
     for name, src, replaces, path, n in (
         ("decode_prologue", "prologue.cu", 1664, "serve, lm serve, blankskip",
@@ -3474,11 +4072,11 @@ def main(argv):
          + skip_launches["decode_prologue"]),
         ("top_m", "prologue.cu", 1359, "beam serve, blankskip",
          beam_launches["top_m"] + skip_beam_launches["top_m"]),
-        ("spec_augment_apply", "spec_augment.cu", 180, "train",
-         train_launches["spec_augment_apply"]),
-        ("edit_distance", "edit_distance.cu", 49, "score, seq2seq train, reinforce",
+        ("spec_augment_apply", "spec_augment.cu", 180, "train, recipe, moe, remat",
+         sum(v["spec_augment_apply"] for v in sa_paths.values())),
+        ("edit_distance", "edit_distance.cu", 49, "score, seq2seq train, reinforce, recipe",
          score_launches["edit_distance"] + mer_launches["edit_distance"]
-         + reinforce_launches["edit_distance"]),
+         + reinforce_launches["edit_distance"] + recipe_launches["edit_distance"]),
         ("ctc_beam_search", "ctc_beam.cu", 649, "beam serve, blankskip",
          beam_launches["ctc_beam_search"] + skip_beam_launches["ctc_beam_search"]),
     ):

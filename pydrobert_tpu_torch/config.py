@@ -10,10 +10,26 @@ import os
 
 __all__ = [
     "DECODE_RENORM",
+    "DEFT_ALI_SUBDIR",
+    "DEFT_CHUNK_SIZE",
+    "DEFT_CTM_CHANNEL",
     "DEFT_DEL_COST",
+    "DEFT_DTYPE",
+    "DEFT_FEAT_SUBDIR",
+    "DEFT_FILE_PREFIX",
+    "DEFT_FILE_SUFFIX",
+    "DEFT_FLOAT_PRINT_PRECISION",
+    "DEFT_FRAME_SHIFT_MS",
+    "DEFT_HYP_SUBDIR",
     "DEFT_INS_COST",
+    "DEFT_NUM_WORKERS",
     "DEFT_PAD_VALUE",
+    "DEFT_PDFS_SUBDIR",
+    "DEFT_REF_SUBDIR",
     "DEFT_SUB_COST",
+    "DEFT_TEXTGRID_SUFFIX",
+    "DEFT_TEXTGRID_TIER_ID",
+    "DEFT_TEXTGRID_TIER_NAME",
     "EPS_0",
     "EPS_INF",
     "EPS_NINF",
@@ -103,3 +119,61 @@ EPS_0 = math.log1p(-2 * 1.1920928955078125e-07)
 
 EPS_INF = math.log(3.4028234663852886e38) / 2
 """A large enough log-space value that exponentiating it is near infinity."""
+
+DEFT_FRAME_SHIFT_MS = 10.0
+"""The default frame shift in milliseconds for commands."""
+
+DEFT_TEXTGRID_SUFFIX = ".TextGrid"
+"""The default suffix indicating TextGrid files for commands."""
+
+DEFT_CHUNK_SIZE = 1000
+"""Default number of units to process at once when multiprocessing."""
+
+
+def _cpu_count() -> int:
+    if hasattr(os, "sched_getaffinity"):
+        return len(os.sched_getaffinity(0))
+    cpu_count = os.cpu_count()
+    return 0 if cpu_count is None else cpu_count
+
+
+DEFT_NUM_WORKERS = _cpu_count()
+"""Default number of workers when multiprocessing."""
+
+DEFT_FILE_PREFIX = ""
+"""Default prefix of a data file in a data directory."""
+
+DEFT_FILE_SUFFIX = ".pt"
+"""Default suffix of a data file in a data directory (``torch.save``
+files, interchangeable with the JAX package's; see
+:mod:`pydrobert_tpu_torch.utils.serial`)."""
+
+DEFT_FLOAT_PRINT_PRECISION = 3
+"""Default precision to write floating point values to file with."""
+
+DEFT_CTM_CHANNEL = "A"
+"""Default channel to write to CTM files."""
+
+DEFT_TEXTGRID_TIER_ID = 0
+"""Default TextGrid tier to read transcripts from."""
+
+DEFT_TEXTGRID_TIER_NAME = "transcript"
+"""Default TextGrid tier to write transcripts to."""
+
+DEFT_FEAT_SUBDIR = "feat"
+"""Default subdirectory of a data directory containing features."""
+
+DEFT_ALI_SUBDIR = "ali"
+"""Default subdirectory of a data directory containing alignments."""
+
+DEFT_REF_SUBDIR = "ref"
+"""Default subdirectory of a data directory containing reference tokens."""
+
+DEFT_PDFS_SUBDIR = "pdfs"
+"""Default subdirectory of a data directory to write pdfs to."""
+
+DEFT_HYP_SUBDIR = "hyp"
+"""Default subdirectory of a data directory to write hypothesis tokens to."""
+
+DEFT_DTYPE = "float32"
+"""Default floating-point dtype name for feature computation."""

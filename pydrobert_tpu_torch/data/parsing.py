@@ -1,5 +1,6 @@
-"""ARPA language-model parsing (counterpart of
-:func:`pydrobert_tpu.data.parsing.parse_arpa_lm`).
+"""ARPA language-model parsing and the transcript/token conversions
+(counterpart of :func:`pydrobert_tpu.data.parsing.parse_arpa_lm`,
+``transcript_to_token`` and ``token_to_transcript``).
 
 Host-side pure Python: the same format, the same edge-case semantics
 (base-10 to base-e conversion, implicit backoffs, count validation against
@@ -12,9 +13,12 @@ import math
 import re
 import warnings
 from logging import Logger
-from typing import IO, Any, Dict, List, Optional, Union
+from typing import IO, Any, Dict, List, Optional, Sequence, Union
 
-__all__ = ["parse_arpa_lm"]
+import numpy as np
+import torch
+
+__all__ = ["parse_arpa_lm", "token_to_transcript", "transcript_to_token"]
 
 
 def parse_arpa_lm(
@@ -115,3 +119,82 @@ def parse_arpa_lm(
         if len(dict_) != count:
             raise IOError(f"Expected {count} {ngram_m1}-grams, got {len(dict_)}")
     return prob_dicts
+
+
+def transcript_to_token(
+    transcript: Sequence[Any],
+    token2id: Optional[dict] = None,
+    frame_shift_ms: Optional[float] = None,
+    unk: Optional[Union[str, int]] = None,
+    skip_frame_times: bool = False,
+) -> torch.Tensor:
+    """Convert a transcript to a token sequence tensor.
+
+    Returns int64 ``(R, 3)`` (or ``(R,)`` with `skip_frame_times`) of
+    ``(id, start_frame, end_frame)``; missing times are ``-1``. The
+    seconds->frames rule matches the reference exactly
+    (``_parsing.py:740-855``): ``start = floor(1000 s / shift)``,
+    ``end = max(start + [s == e], round(1000 e / shift))`` via floor of
+    ``+ 0.5 * shift``.
+    """
+    if token2id is not None and unk in token2id:
+        unk = token2id[unk]
+    shape = (len(transcript),) if skip_frame_times else (len(transcript), 3)
+    tok = np.empty(shape, dtype=np.int64)
+    for i, token in enumerate(transcript):
+        start = end = -1
+        try:
+            if len(token) == 3 and np.isreal(token[1]) and np.isreal(token[2]):
+                token, start, end = token
+                if frame_shift_ms:
+                    if start == end:
+                        start = end = (1000 * start) // frame_shift_ms
+                    else:
+                        start = (1000 * start) // frame_shift_ms
+                        end = (1000 * end + 0.5 * frame_shift_ms) // frame_shift_ms
+                        end = max(end, start + 1)
+                else:
+                    start, end = int(start), int(end)
+        except TypeError:
+            pass
+        if token2id is None:
+            id_ = token
+        else:
+            id_ = token2id.get(token, token if unk is None else unk)
+        if skip_frame_times:
+            tok[i] = id_
+        else:
+            tok[i] = (id_, start, end)
+    return torch.from_numpy(tok)
+
+
+def token_to_transcript(
+    ref,
+    id2token: Optional[Dict[int, str]] = None,
+    frame_shift_ms: Optional[float] = None,
+) -> List[Any]:
+    """Convert a token sequence array back to a transcript.
+
+    Inverse of :func:`transcript_to_token` (reference ``_parsing.py:858-903``).
+    """
+    if isinstance(ref, torch.Tensor):
+        ref = ref.detach().cpu().numpy()
+    ref = np.asarray(ref)
+    transcript: List[Any] = []
+    for tup in ref:
+        start = end = -1
+        if np.ndim(tup):
+            id_ = int(tup[0])
+            if np.size(tup) == 3:
+                start, end = int(tup[1]), int(tup[2])
+        else:
+            id_ = int(tup)
+        token = id2token.get(id_, id_) if id2token is not None else id_
+        if start == -1 or end == -1:
+            transcript.append(token)
+        else:
+            if frame_shift_ms:
+                start = start * frame_shift_ms / 1000
+                end = end * frame_shift_ms / 1000
+            transcript.append((token, start, end))
+    return transcript

@@ -6,6 +6,7 @@ from .conformer import (
     adamw,
     ctc_loss,
     make_train_step,
+    moe_aux_loss,
     state_dict_from_jax,
     streaming_logits,
 )
@@ -40,6 +41,7 @@ __all__ = [
     "make_mer_train_step",
     "make_train_step",
     "make_transducer_train_step",
+    "moe_aux_loss",
     "state_dict_from_jax",
     "streaming_logits",
     "streaming_transducer_beam",

@@ -22,8 +22,15 @@ quantized rate and scale (:class:`_FastDropout`), flax's attention-weight
 dropout, :func:`ctc_loss` and :func:`make_train_step` (SpecAugment, forward,
 CTC loss, backward, AdamW with optax's defaults from :func:`adamw`). Random
 bits come from an explicit :class:`torch.Generator`, so they differ from
-``jax.random``'s. Mixture-of-experts blocks, rematerialization and sequence
-sharding are not ported yet.
+``jax.random``'s.
+
+With ``num_experts > 1`` each block's second feed-forward is a top-k routed
+mixture of experts (:class:`_MoEFeedForward`); the forward then also
+returns each block's load-balance loss when asked (``return_aux=True``),
+and :func:`make_train_step` adds ``moe_aux_weight`` times their sum
+(:func:`moe_aux_loss`). With ``remat=True`` each block recomputes its
+activations in the backward pass (:func:`_remat_block`), replaying the
+step generator's dropout bits. Sequence sharding is not ported.
 """
 
 import dataclasses
@@ -36,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import default_device
+from ..ops.topk import exact_top_k
 
 __all__ = [
     "ConformerCTC",
@@ -43,6 +51,7 @@ __all__ = [
     "adamw",
     "ctc_loss",
     "make_train_step",
+    "moe_aux_loss",
     "state_dict_from_jax",
     "streaming_logits",
 ]
@@ -51,8 +60,7 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class ConformerConfig:
     """Hyperparameters for :class:`ConformerCTC`: the JAX package's
-    ``ConformerConfig`` without its mixture-of-experts and sharding
-    fields."""
+    ``ConformerConfig`` without its sharding field."""
 
     vocab_size: int = 1024  # excludes the CTC blank (blank = vocab_size)
     num_filts: int = 80
@@ -68,16 +76,14 @@ class ConformerConfig:
     # limited attention context (left, right) in post-subsampling frames
     attention_context: Tuple[Optional[int], Optional[int]] = (None, None)
     causal_conv: bool = False
-    remat: bool = False  # not ported: raises when set
-    num_experts: int = 1  # not ported: raises above 1
-
-    def __post_init__(self):
-        if self.num_experts > 1:
-            raise NotImplementedError(
-                "mixture-of-experts blocks are not ported yet"
-            )
-        if self.remat:
-            raise NotImplementedError("remat is a training option, not ported")
+    # recompute each block's activations in the backward pass
+    remat: bool = False
+    # above 1, each block's second feed-forward is a top-k routed mixture
+    # of experts with per-expert capacity buffers (_MoEFeedForward)
+    num_experts: int = 1
+    expert_top_k: int = 2
+    expert_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     @property
     def subsampling(self) -> int:
@@ -161,6 +167,107 @@ class _FeedForward(nn.Module):
     def forward(self, x, deterministic=True, generator=None):
         h = self.drop(F.silu(self.wi(self.ln(x))), deterministic, generator)
         return self.drop(self.wo(h), deterministic, generator)
+
+
+class _MoEFeedForward(nn.Module):
+    """The JAX package's ``_MoEFeedForward``: top-k routed experts with
+    static per-expert capacity ``C = ceil(S * k * capacity_factor / E)``
+    over the ``S`` tokens of the batch.
+
+    The router runs in float32 and ranks with :func:`exact_top_k`
+    (``lax.top_k``'s tie order). With ``k == 1`` the raw probability is the
+    gate; with ``k > 1`` the gates are renormalized over the chosen
+    experts. Each choice is ranked in its expert's buffer by the JAX
+    package's slot-major float32 cumulative sum (every token's first choice
+    before any second choice; exact below ``2**24`` tokens); choices past
+    ``C`` drop, and padded frames never route.
+
+    JAX builds ``(k S, E, C)`` one-hots and contracts them. Here the kept
+    tokens are scattered into an ``(E C, d)`` buffer, the experts run as
+    batched matrix products, and each token gathers its ``k`` outputs back,
+    weighted by the gates rounded to the compute dtype. Dispatch copies one
+    row per slot and combine sums at most ``k`` products, as the one-hot
+    contractions do, without their ``O(S E C)`` memory.
+    """
+
+    def __init__(self, cfg: ConformerConfig):
+        super().__init__()
+        E, d = int(cfg.num_experts), cfg.d_model
+        f = d * cfg.ffn_factor
+        self.cfg = cfg
+        self.ln = _LayerNorm(d, cfg.dtype)
+        self.gate = _Dense(d, E, torch.float32)
+        self.wi = nn.Parameter(torch.empty(E, d, f))
+        self.bi = nn.Parameter(torch.zeros(E, f))
+        self.wo = nn.Parameter(torch.empty(E, f, d))
+        self.bo = nn.Parameter(torch.zeros(E, d))
+        self.drop = _FastDropout(cfg.dropout)
+
+    def route(
+        self, y: torch.Tensor, pad_mask: torch.Tensor, experts: Optional[torch.Tensor] = None
+    ) -> Dict[str, torch.Tensor]:
+        """The router over normalized tokens ``y (N, T, d)``: ``probs (S,
+        E)`` (zero on padded frames), ``gates (S, k)`` and ``experts (S,
+        k)`` per choice, ``pos (S, k)`` each choice's slot in its expert's
+        buffer, ``keep (S, k)`` whether it fits, and the capacity ``C``.
+        Given ``experts`` replace the router's own top-k choices (to replay
+        another run's decisions); the gates still come from ``probs``."""
+        cfg = self.cfg
+        E = int(cfg.num_experts)
+        k = min(int(cfg.expert_top_k), E)
+        S = y.shape[0] * y.shape[1]
+        C = max(1, -(-int(S * k * cfg.expert_capacity_factor) // E))
+        valid = pad_mask.reshape(S).float()
+        logits = self.gate(y.reshape(S, -1).float())
+        probs = torch.softmax(logits, -1) * valid[:, None]
+        if experts is None:
+            _, experts = exact_top_k(probs.detach(), k)
+        gates = probs.gather(1, experts)
+        if k > 1:
+            gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+            gates = gates * valid[:, None]
+        routed = (gates > 0).float()  # (S, k)
+        # slot-major ranks: a float32 cumsum over (k S, E), as JAX ranks
+        assign = F.one_hot(experts.T.reshape(-1), E).float() * routed.T.reshape(-1, 1)
+        before = torch.cumsum(assign, 0) - assign
+        pos = before.gather(1, experts.T.reshape(-1, 1)).reshape(k, S).T
+        keep = (pos < C) & (routed > 0)
+        return {
+            "probs": probs, "gates": gates, "experts": experts,
+            "pos": pos.long(), "keep": keep, "capacity": C,
+        }
+
+    def forward(self, x, pad_mask, deterministic=True, generator=None):
+        """``(out (N, T, d), aux)``: the block's output and its Switch
+        load-balance loss ``E * sum_e f_e P_e`` over unpadded tokens."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        E = int(cfg.num_experts)
+        N, T, d = x.shape
+        S = N * T
+        y = self.ln(x)
+        r = self.route(y, pad_mask)
+        C, experts, keep = r["capacity"], r["experts"], r["keep"]
+        slot = experts * C + r["pos"]  # (S, k), valid where keep
+        tok = torch.arange(S, device=x.device)[:, None].expand_as(slot)
+        yf = y.reshape(S, d).to(dt)
+        xe = torch.zeros((E * C, d), dtype=dt, device=x.device)
+        xe = xe.index_put((slot[keep],), yf[tok[keep]])
+        h = F.silu(
+            torch.bmm(xe.view(E, C, d), self.wi.to(dt)) + self.bi.to(dt)[:, None]
+        )
+        h = self.drop(h, deterministic, generator)
+        oe = torch.bmm(h, self.wo.to(dt)) + self.bo.to(dt)[:, None]
+        oe = oe.reshape(E * C, d)
+        gates = torch.where(keep, r["gates"], 0.0).to(dt)
+        picked = oe[torch.where(keep, slot, 0)]  # a dropped choice's gate is 0
+        out = (picked.float() * gates.float()[..., None]).sum(1).to(dt)
+        valid = pad_mask.reshape(S).float()
+        nvalid = valid.sum().clamp(min=1.0)
+        top1 = F.one_hot(experts[:, 0], E).float() * valid[:, None]
+        aux = E * torch.sum((top1.sum(0) / nvalid) * (r["probs"].sum(0) / nvalid))
+        out = self.drop(out.reshape(N, T, d), deterministic, generator)
+        return out, aux
 
 
 class _Attention(nn.Module):
@@ -281,15 +388,63 @@ class _ConformerBlock(nn.Module):
         self.ffn1 = _FeedForward(cfg)
         self.mhsa = _MHSA(cfg)
         self.conv = _ConvModule(cfg)
-        self.ffn2 = _FeedForward(cfg)
+        if cfg.num_experts > 1:
+            self.moe = _MoEFeedForward(cfg)
+        else:
+            self.ffn2 = _FeedForward(cfg)
         self.ln_out = _LayerNorm(cfg.d_model, cfg.dtype)
 
     def forward(self, x, pad_mask, deterministic=True, generator=None):
+        """``(x, aux)``: the block's output and the mixture of experts'
+        load-balance loss (None for a dense block)."""
         x = x + 0.5 * self.ffn1(x, deterministic, generator)
         x = x + self.mhsa(x, pad_mask, deterministic, generator)
         x = x + self.conv(x, pad_mask, deterministic, generator)
-        x = x + 0.5 * self.ffn2(x, deterministic, generator)
-        return self.ln_out(x)
+        aux = None
+        if hasattr(self, "moe"):
+            y, aux = self.moe(x, pad_mask, deterministic, generator)
+        else:
+            y = self.ffn2(x, deterministic, generator)
+        return self.ln_out(x + 0.5 * y), aux
+
+
+def _remat_block(
+    block: nn.Module,
+    x: torch.Tensor,
+    pad_mask: torch.Tensor,
+    deterministic: bool,
+    generator: Optional[torch.Generator],
+):
+    """``block(x, pad_mask, deterministic, generator)`` under
+    :func:`torch.utils.checkpoint.checkpoint`: its activations are
+    recomputed in the backward pass instead of kept (the JAX package's
+    ``nn.remat``).
+
+    ``checkpoint`` replays the default CPU and CUDA generators only. The
+    dropout bits here come from ``generator``, which the rest of the
+    forward has moved on by the time the backward recomputes, so the
+    recomputation would draw other masks and give wrong gradients without
+    an error. The forward records ``generator``'s state before the block;
+    the recomputation sets it back, runs, and then restores the state it
+    found."""
+    if generator is None or deterministic:
+        return torch.utils.checkpoint.checkpoint(
+            block, x, pad_mask, deterministic, generator, use_reentrant=False
+        )
+    start = []
+
+    def run(x, pad_mask):
+        if not start:  # the forward
+            start.append(generator.get_state())
+            return block(x, pad_mask, deterministic, generator)
+        found = generator.get_state()
+        generator.set_state(start[0])
+        try:
+            return block(x, pad_mask, deterministic, generator)
+        finally:
+            generator.set_state(found)
+
+    return torch.utils.checkpoint.checkpoint(run, x, pad_mask, use_reentrant=False)
 
 
 class _Conv2d(nn.Conv2d):
@@ -361,7 +516,9 @@ def _encoder_body(
     """The shared conformer encoder (the JAX package's ``_encoder_body``):
     mask, subsample, positions, dropout, the block stack, over the
     submodules :func:`_add_encoder` gave ``module``. Returns ``(x (N, T',
-    d_model) in cfg.dtype, pad_mask (N, T'), out_lens (N,))``."""
+    d_model) in cfg.dtype, pad_mask (N, T'), out_lens (N,), aux)``, ``aux``
+    the list of the mixture-of-experts blocks' load-balance losses (empty
+    for a dense config)."""
     dev = module.subsample.proj.weight.device
     feats = feats.to(dev)
     lens = lens.to(dev, torch.long)
@@ -375,9 +532,16 @@ def _encoder_body(
     pad_mask = torch.arange(T4, device=dev)[None] < out_lens[:, None]
     x = x + _sinusoidal_pos_emb(T4, cfg.d_model, cfg.dtype, dev, pos_offset)[None]
     x = module.drop(x, deterministic, generator)
+    aux = []
     for i in range(cfg.num_layers):
-        x = getattr(module, f"block_{i}")(x, pad_mask, deterministic, generator)
-    return x, pad_mask, out_lens
+        block = getattr(module, f"block_{i}")
+        if cfg.remat:
+            x, a = _remat_block(block, x, pad_mask, deterministic, generator)
+        else:
+            x, a = block(x, pad_mask, deterministic, generator)
+        if a is not None:
+            aux.append(a)
+    return x, pad_mask, out_lens, aux
 
 
 @torch.no_grad()
@@ -388,12 +552,14 @@ def _init_params(module: nn.Module, generator: Optional[torch.Generator]) -> Non
         leaf = name.rsplit(".", 1)[-1]
         if isinstance(module.get_submodule(name.rsplit(".", 1)[0]), nn.LayerNorm):
             p.fill_(1.0 if leaf == "weight" else 0.0)
-        elif leaf == "bias":
+        elif leaf in ("bias", "bi", "bo"):
             p.zero_()
         else:
             fan_in = p[0].numel() if p.dim() > 1 else 1
             if leaf == "kernel":  # depthwise (K, C): one input per tap
                 fan_in = p.shape[0]
+            elif leaf in ("wi", "wo"):  # experts (E, in, out)
+                fan_in = p.shape[1]
             p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
 
 
@@ -412,6 +578,9 @@ class ConformerCTC(nn.Module):
     None). The module's ``train()``/``eval()`` mode plays no part.
     ``pos_offset`` shifts the sinusoidal positions, so a chunk of a stream
     encodes with its frames' global positions (:func:`streaming_logits`).
+    With ``return_aux=True`` it returns ``(logits, out_lens, aux)``,
+    ``aux`` the list of the mixture-of-experts blocks' load-balance losses
+    (:func:`moe_aux_loss` sums them).
     """
 
     def __init__(
@@ -435,11 +604,13 @@ class ConformerCTC(nn.Module):
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
         pos_offset: int = 0,
+        return_aux: bool = False,
     ):
-        x, _, out_lens = _encoder_body(
+        x, _, out_lens, aux = _encoder_body(
             self, self.cfg, feats, lens, deterministic, generator, pos_offset
         )
-        return self.ctc_head(x.float()), out_lens
+        logits = self.ctc_head(x.float())
+        return (logits, out_lens, aux) if return_aux else (logits, out_lens)
 
 
 def streaming_margin(cfg: ConformerConfig, what: str) -> int:
@@ -507,8 +678,9 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     Dense kernels ``(in, out)`` transpose to ``(out, in)``; attention
     kernels ``(d, H, hd)`` and ``(H, hd, d)`` flatten their head axes;
-    conv kernels HWIO become OIHW; LayerNorm ``scale`` becomes ``weight``.
-    The map is linear, so it also carries a gradient tree of the same
+    conv kernels HWIO become OIHW; LayerNorm ``scale`` becomes ``weight``;
+    the experts' ``wi (E, d, f)``, ``bi``, ``wo (E, f, d)`` and ``bo`` keep
+    their layouts. The map is linear, so it also carries a gradient tree of the same
     structure onto the names of the port's ``.grad``s.
     """
     out = _encoder_state_dict(params)
@@ -543,7 +715,12 @@ def _encoder_state_dict(params: Dict[str, Any], prefix: str = "") -> Dict[str, n
     i = 0
     while f"block_{i}" in params:
         blk, pre = params[f"block_{i}"], f"block_{i}"
-        for f in ("ffn1", "ffn2"):
+        if "moe" in blk:
+            moe = blk["moe"]
+            put(f"{pre}.moe.ln", ln(moe["ln"]))
+            put(f"{pre}.moe.gate", _linear(moe["gate"]["kernel"], moe["gate"]["bias"]))
+            put(f"{pre}.moe", {w: np.asarray(moe[w]) for w in ("wi", "bi", "wo", "bo")})
+        for f in ("ffn1", "ffn2") if "ffn2" in blk else ("ffn1",):
             put(f"{pre}.{f}.ln", ln(blk[f]["ln"]))
             for w in ("wi", "wo"):
                 put(f"{pre}.{f}.{w}", _linear(blk[f][w]["kernel"], blk[f][w]["bias"]))
@@ -578,6 +755,16 @@ def _encoder_state_dict(params: Dict[str, Any], prefix: str = "") -> Dict[str, n
         put(f"{pre}.ln_out", ln(blk["ln_out"]))
         i += 1
     return out
+
+
+def moe_aux_loss(aux) -> torch.Tensor:
+    """The sum of the mixture-of-experts load-balance losses that the
+    forward returned with ``return_aux=True`` (one scalar per block); 0.0
+    when no block routes."""
+    aux = list(aux)
+    if not aux:
+        return torch.zeros(())
+    return torch.stack(aux).sum()
 
 
 def ctc_loss(
@@ -634,17 +821,22 @@ def make_train_step(
     package's pure step, this one updates ``model``'s parameters and
     ``optimizer``'s state in place, the PyTorch idiom, and returns the
     detached loss. The same generator feeds the augmentation and every
-    dropout site, in that order.
+    dropout site, in that order. A mixture-of-experts config adds
+    ``moe_aux_weight`` times :func:`moe_aux_loss` to the loss.
     """
-    blank_id = model.cfg.vocab_size
+    cfg = model.cfg
+    blank_id = cfg.vocab_size
 
     def step(generator, feats, feat_lens, refs, ref_lens):
         if augment is not None:
             feats = augment(generator, feats, feat_lens)
-        logits, out_lens = model(
-            feats, feat_lens, deterministic=False, generator=generator
+        logits, out_lens, aux = model(
+            feats, feat_lens, deterministic=False, generator=generator,
+            return_aux=True,
         )
         loss = ctc_loss(logits, out_lens, refs, ref_lens, blank_id)
+        if cfg.num_experts > 1:
+            loss = loss + cfg.moe_aux_weight * moe_aux_loss(aux)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()

@@ -54,6 +54,7 @@ from .conformer import (
     _encoder_state_dict,
     _init_params,
     _linear,
+    moe_aux_loss,
     streaming_margin,
 )
 
@@ -117,11 +118,11 @@ class _Encoder(nn.Module):
         self.cfg = cfg
         _add_encoder(self, cfg)
 
-    def forward(self, feats, lens, deterministic=True, generator=None, pos_offset=0):
-        x, _, out_lens = _encoder_body(
+    def forward(self, feats, lens, deterministic=True, generator=None, pos_offset=0, return_aux=False):
+        x, _, out_lens, aux = _encoder_body(
             self, self.cfg, feats, lens, deterministic, generator, pos_offset
         )
-        return x.float(), out_lens
+        return (x.float(), out_lens, aux) if return_aux else (x.float(), out_lens)
 
 
 _GATES = ("i", "f", "g", "o")
@@ -268,12 +269,21 @@ class ConformerTransducer(nn.Module):
         """``(enc (N, T', d_model) float32, enc_lens (N,))``."""
         return self.encoder(feats, lens, deterministic, generator, pos_offset)
 
-    def forward(self, feats, lens, refs, ref_lens, deterministic=True, generator=None):
-        enc, enc_lens = self.encode(feats, lens, deterministic, generator)
+    def forward(
+        self, feats, lens, refs, ref_lens, deterministic=True, generator=None,
+        return_aux=False,
+    ):
+        """The mean transducer loss, or ``(loss, aux)`` with
+        ``return_aux=True``: ``aux`` the encoder's mixture-of-experts
+        load-balance losses, one per block (empty for a dense encoder)."""
+        enc, enc_lens, aux = self.encoder(
+            feats, lens, deterministic, generator, return_aux=True
+        )
         refs = refs.to(enc.device).long()
         pred = self.predictor(refs)
         blank_lp, emit_lp = streamed_node_log_probs(self.joint, enc, pred, refs)
-        return transducer_loss(blank_lp, emit_lp, enc_lens, ref_lens.to(enc.device))
+        loss = transducer_loss(blank_lp, emit_lp, enc_lens, ref_lens.to(enc.device))
+        return (loss, aux) if return_aux else loss
 
     def greedy(self, feats, lens, max_symbols_per_frame: int = 4):
         """Greedy RNN-T decode: ``(hyps (N, U_max), hyp_lens (N,))``,
@@ -471,12 +481,20 @@ def make_transducer_train_step(
     As :func:`~pydrobert_tpu_torch.models.conformer.make_train_step`, it
     updates ``model`` and ``optimizer`` in place and returns the detached
     loss; the same generator feeds the augmentation and every dropout
-    site."""
+    site. A mixture-of-experts encoder adds ``moe_aux_weight`` times
+    :func:`~pydrobert_tpu_torch.models.conformer.moe_aux_loss` to the
+    loss."""
+    enc = model.cfg.encoder
 
     def step(generator, feats, feat_lens, refs, ref_lens):
         if augment is not None:
             feats = augment(generator, feats, feat_lens)
-        loss = model(feats, feat_lens, refs, ref_lens, deterministic=False, generator=generator)
+        loss, aux = model(
+            feats, feat_lens, refs, ref_lens, deterministic=False,
+            generator=generator, return_aux=True,
+        )
+        if enc.num_experts > 1:
+            loss = loss + enc.moe_aux_weight * moe_aux_loss(aux)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()

@@ -477,3 +477,133 @@ def test_rebar_phase_rehearsal(smoke, rehearse):
     assert abs(res["z_score"]) <= 4
     assert res["value_vs_cpu"] == 0.0 and res["cv_grad_eta_vs_cpu"] == 0.0
     assert rehearse.lines[-1]["phase"] == "rebar"
+
+
+# The recipe, moe and remat phases at a reduced size on the CPU: the same
+# code paths as on the card, with SpecAugment and the edit distance counted
+# by hand (their plain versions count no launch).
+SMALL_MODEL = dict(vocab_size=16, num_filts=8, d_model=16, num_layers=2, num_heads=2,
+                   subsample_channels=4, conv_kernel=5, dropout=0.1, dtype=torch.float32)
+SMALL_SA = dict(max_time_warp=4.0, max_time_mask=5, max_freq_mask=2)
+SMALL_RECIPE = dict(utts=8, t_min=40, t_max=80, u_min=2, u_max=6, batch=4, epochs=2,
+                    score_batch=3, model=SMALL_MODEL, sa=SMALL_SA)
+SMALL_MOE = dict(model=dict(SMALL_MODEL, num_experts=4, expert_top_k=2,
+                            expert_capacity_factor=1.25, moe_aux_weight=0.01),
+                 B=8, T=64, U=6, steps=2, sa=SMALL_SA)
+SMALL_REMAT = dict(model=SMALL_MODEL, B=4, T=64, U=6, sa=SMALL_SA)
+
+
+@pytest.fixture
+def rehearse_train(smoke, rehearse, monkeypatch):
+    """The rehearsal stubs, with ``trace`` stubbed and the SpecAugment and
+    edit-distance wrappers counted."""
+    from pydrobert_tpu_torch.ops import kernels
+
+    monkeypatch.setattr(smoke, "trace", lambda fn, warmup=True: _stub_trace(fn))
+    for name in ("spec_augment_apply", "edit_distance"):
+        fn = getattr(kernels, name)
+
+        def counted(*args, _fn=fn, _name=name):
+            kernels.LAUNCHES[_name] += 1
+            return _fn(*args)
+
+        monkeypatch.setattr(kernels, name, counted)
+    return rehearse
+
+
+def _train_pkg():
+    from pydrobert_tpu_torch.models import ConformerConfig, ConformerCTC, adamw, make_train_step
+    from pydrobert_tpu_torch.ops import img
+
+    return ConformerConfig, ConformerCTC, adamw, make_train_step, img
+
+
+def _recipe_pkg():
+    from pydrobert_tpu_torch import command_line, data, training
+    from pydrobert_tpu_torch.ops.decoding import ctc_greedy_search
+    from pydrobert_tpu_torch.utils import serial
+
+    return _train_pkg() + (data, training, command_line, serial, ctc_greedy_search)
+
+
+def test_recipe_phase_rehearsal(smoke, rehearse_train):
+    launches = smoke.phase_recipe(_recipe_pkg(), rehearse_train, SMALL_RECIPE, dev="cpu")
+    # 2 epochs and a traced third of 2 steps; 2 scored directories of 3 batches
+    assert launches == {"spec_augment_apply": 6, "edit_distance": 6}
+    line = rehearse_train.lines[-1]
+    assert line["phase"] == "recipe" and line["resume_bit_equal"]
+    assert line["epochs"][1]["mean_loss"] < line["epochs"][0]["mean_loss"]
+    assert set(line["scores"]) == {"trained", "noisy"}
+    assert all(s["equals_cpu"] for s in line["scores"].values())
+    assert 0 < line["scores"]["noisy"]["error_rate"] < 1
+    assert line["checkpoint_bytes"]["model"] > 0 and line["checkpoint_bytes"]["optimizer"] > 0
+
+
+def test_recipe_phase_fails_a_wrong_resume(smoke, rehearse_train, monkeypatch):
+    """A resume that restores the model but leaves the optimizer fresh
+    fails the phase."""
+    from pydrobert_tpu_torch import training
+
+    def wrong(self, model, optimizer, epoch=None, strict=True):
+        return self.load_model_for_epoch(model, self.get_last_epoch(), strict)
+
+    monkeypatch.setattr(training.TrainingStateController,
+                        "load_model_and_optimizer_for_epoch", wrong)
+    with pytest.raises(AssertionError, match="resume"):
+        smoke.phase_recipe(_recipe_pkg(), rehearse_train, SMALL_RECIPE, dev="cpu")
+
+
+def test_moe_phase_rehearsal(smoke, rehearse_train):
+    launches = smoke.phase_moe(_train_pkg(), rehearse_train, SMALL_MOE, dev="cpu")
+    assert launches == {"spec_augment_apply": 2}
+    line = rehearse_train.lines[-1]
+    assert line["phase"] == "moe" and 0 <= line["dropped_share"] < 1
+    for res in line["card_vs_cpu_routing"].values():
+        assert res["top1_equal"] and res["dropped_equal"]
+    assert not any(r["failed"] for r in line["card_vs_cpu_step"].values())
+
+
+def test_remat_phase_rehearsal(smoke, rehearse_train):
+    from pydrobert_tpu_torch.models import conformer
+
+    launches = smoke.phase_remat(_train_pkg(), rehearse_train, conformer, SMALL_REMAT, dev="cpu")
+    assert launches == {"spec_augment_apply": 4}
+    line = rehearse_train.lines[-1]
+    assert line["vs_plain"]["ok"] and line["vs_plain"]["plain_steps_bit_equal"]
+    assert line["vs_plain"]["grad_max_rel_err"] == 0.0
+    assert not line["planted_fault"]["ok"]
+    assert conformer._remat_block.__name__ == "_remat_block"
+
+
+def test_remat_phase_fails_a_generator_fault(smoke, rehearse_train, monkeypatch):
+    """A remat that never sets the generator back fails the phase."""
+    from pydrobert_tpu_torch.models import conformer
+
+    def never_restores(block, *args):
+        return torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False)
+
+    monkeypatch.setattr(conformer, "_remat_block", never_restores)
+    with pytest.raises(AssertionError, match="remat step differs"):
+        smoke.phase_remat(_train_pkg(), rehearse_train, conformer, SMALL_REMAT, dev="cpu")
+
+
+def test_replayed_routing_replays_the_first_forward(smoke):
+    """Inside ReplayedRouting a layer routes as the first call did,
+    whatever its own router says (gates from its own probabilities), and
+    the flipped choices are counted; outside, its own routing returns."""
+    from pydrobert_tpu_torch.models import ConformerConfig, ConformerCTC
+
+    cfg = ConformerConfig(**SMALL_MOE["model"])
+    a, b = (ConformerCTC(cfg, device="cpu", generator=torch.Generator().manual_seed(s)).block_0.moe
+            for s in (0, 1))
+    y = torch.randn(2, 20, cfg.d_model, generator=torch.Generator().manual_seed(2))
+    mask = torch.ones(2, 20, dtype=torch.bool)
+    own_a, own_b = a.route(y, mask), b.route(y, mask)
+    assert not torch.equal(own_a["experts"], own_b["experts"])
+    with smoke.ReplayedRouting(type(a), 1) as replay:
+        a.route(y, mask)
+        got = b.route(y, mask)
+    assert torch.equal(got["experts"], own_a["experts"])
+    assert torch.equal(got["gates"], own_b["probs"].gather(1, own_a["experts"]) / own_b["probs"].gather(1, own_a["experts"]).sum(-1, keepdim=True))
+    assert replay.flips == [int((own_a["experts"] != own_b["experts"]).sum())]
+    assert torch.equal(b.route(y, mask)["experts"], own_b["experts"])

@@ -1162,3 +1162,106 @@ def test_enumerate_estimator_over_sequences_on_card_matches_cpu(dev):
         assert kernels.LAUNCHES["edit_distance"] == (1 if d.type == "cuda" else 0)
     assert values[0].is_cuda
     torch.testing.assert_close(values[0].cpu(), values[1], rtol=1e-5, atol=0)
+
+
+def _spect_dir(root, n=9, F=6, V=12, seed=0):
+    from pydrobert_tpu_torch.utils.serial import save_tensor
+
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        T = int(rng.randint(5, 30))
+        save_tensor(torch.from_numpy(rng.randn(T, F).astype(np.float32)),
+                    os.path.join(root, "feat", f"u{i}.pt"))
+        save_tensor(torch.from_numpy(rng.randint(0, V, rng.randint(1, 5)).astype(np.int64)),
+                    os.path.join(root, "ref", f"u{i}.pt"))
+
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_loader_copies_pinned_batches_to_the_card(dev, tmp_path, prefetch):
+    """Two epochs of SpectDataLoader on the card (pinned host batches,
+    non_blocking copies, a worker thread with prefetch=2) equal the CPU
+    loader's batches, while the consumer's stream is kept busy, so a copy
+    still in flight would read a reused buffer."""
+    from pydrobert_tpu_torch.data import SpectDataLoader, SpectDataLoaderParams
+
+    _spect_dir(str(tmp_path))
+    p = SpectDataLoaderParams(batch_size=2, do_mvn=True)
+    busy = torch.randn(2048, 2048, device=dev)
+    for epoch in range(2):
+        cpu = list(SpectDataLoader(str(tmp_path), p, seed=3, init_epoch=epoch, device="cpu"))
+        card = []
+        for batch in SpectDataLoader(str(tmp_path), p, seed=3, init_epoch=epoch,
+                                     device=dev, prefetch=prefetch):
+            for _ in range(4):
+                busy = busy @ busy / 2048  # keep the stream behind the host
+            card.append(batch)
+        torch.cuda.synchronize()
+        assert len(card) == len(cpu)
+        for a, b in zip(card, cpu):
+            for x, y in zip(a, b):
+                assert x.device.type == "cuda" and torch.equal(x.cpu(), y)
+
+
+def test_moe_forward_on_card_matches_cpu(dev):
+    """A float32 MoE ConformerCTC (E=4, top-2, capacity 0.5 so choices
+    drop): the routing equal to the CPU's and the logits within 1e-4."""
+    cfg = pconf.ConformerConfig(
+        vocab_size=11, num_filts=10, d_model=32, num_layers=2, num_heads=2,
+        subsample_channels=4, conv_kernel=7, dtype=torch.float32, num_experts=4,
+        expert_top_k=2, expert_capacity_factor=0.5,
+    )
+    model = pconf.ConformerCTC(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = pconf.ConformerCTC(cfg, device=dev)
+    card.load_state_dict(model.state_dict())
+    feats = torch.randn(4, 40, 10, generator=torch.Generator().manual_seed(1))
+    lens = torch.tensor([40, 33, 21, 9])
+    y = torch.randn(2, 7, 32, generator=torch.Generator().manual_seed(2))
+    mask = torch.ones(2, 7, dtype=torch.bool)
+    with torch.no_grad():
+        exp, _, eaux = model(feats, lens, return_aux=True)
+        got, _, gaux = card(feats.to(dev), lens.to(dev), return_aux=True)
+        r_cpu = model.block_0.moe.route(y, mask)
+        r_card = card.block_0.moe.route(y.to(dev), mask.to(dev))
+    assert torch.equal(r_cpu["experts"], r_card["experts"].cpu())
+    assert torch.equal(r_cpu["keep"], r_card["keep"].cpu())
+    np.testing.assert_allclose(got.cpu().numpy(), exp.numpy(), atol=1e-4, rtol=0)
+    for a, b in zip(gaux, eaux):
+        np.testing.assert_allclose(float(a), float(b), rtol=1e-5)
+
+
+def test_remat_on_card_replays_the_generator(dev):
+    """remat=True against remat=False on the card from one CUDA generator
+    state, dropout 0.1: the loss equal and every gradient within 1e-5 of
+    its tensor's largest entry; without setting the generator back the
+    gradients move far more."""
+    def grads(remat, restore=True):
+        cfg = pconf.ConformerConfig(
+            vocab_size=11, num_filts=10, d_model=32, num_layers=2, num_heads=2,
+            subsample_channels=4, conv_kernel=7, dtype=torch.float32, dropout=0.1, remat=remat,
+        )
+        model = pconf.ConformerCTC(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        feats = torch.randn(3, 40, 10, generator=torch.Generator().manual_seed(1)).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        real = pconf._remat_block
+        if not restore:  # a plain checkpoint, which does not replay the generator
+            pconf._remat_block = lambda block, *a: torch.utils.checkpoint.checkpoint(
+                block, *a, use_reentrant=False)
+        try:
+            logits, _ = model(feats, torch.tensor([40, 30, 20], device=dev), False, gen)
+        finally:
+            pconf._remat_block = real
+        loss = logits.square().mean()
+        loss.backward()
+        return float(loss.detach()), {k: p.grad for k, p in model.named_parameters()}
+
+    l0, g0 = grads(False)
+    l1, g1 = grads(True)
+    l2, g2 = grads(True, restore=False)
+    assert l0 == l1 == l2
+
+    def worst(g):
+        return max(float((g[k] - g0[k]).abs().max() / g0[k].abs().max().clamp(min=1e-30))
+                   for k in g0)
+
+    assert worst(g1) <= 1e-5
+    assert worst(g2) > 1e-2
