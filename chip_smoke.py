@@ -189,7 +189,21 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    from one generator state, cuDNN deterministic: loss and gradients
    bit-equal (or within the card's own spread), and a planted remat that
    does not set the generator back fails the comparison; both steps' ms
-   and peak memory.
+   and peak memory;
+23. corpus preparation at phase 20's size and model, through the port's
+   commands: a seeded ``ali/`` of runs of 1-30 frames to ``(R, 3)`` refs
+   and back exactly; the refs through trn, ctm and TextGrids (10 ms) and
+   back, as the formats' arithmetic gives; MVN statistics on the card
+   within 1 float32 ulp of the CPU's; a subset chunked (ali policy, and a
+   fixed window) with 0 and 2 workers into the CPU's files; both
+   length-moment printers equal to the runs' moments; 4 tar shards whose
+   ``SpectTarDataSet`` batches equal the directory loader's bit for bit,
+   every batch read by the native reader; 2 training steps from them (one
+   ``spec_augment_apply`` launch each) and the loader's host share of an
+   epoch three ways; the model's logits aligned on the card equal to the
+   CPU's, collapsing to the refs, scored at 0.0 with one ``edit_distance``
+   launch a 32-utterance batch; big5 compiled to a state dict on the card
+   equal to the CPU's; each command's wall seconds.
 
 ``python3 chip_smoke.py --train-witness N`` runs phase 1, then trains
 phase 5's model N times from N seeds and reports the card-vs-CPU step
@@ -217,6 +231,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -3485,8 +3500,11 @@ def phase_recipe(pkg, kernels, cfg=RECIPE, dev="cuda"):
         ctl = training.TrainingStateController(tparams, hist, states)
         lp = data.SpectDataLoaderParams(batch_size=cfg["batch"], do_mvn=True)
 
+        reads = {}
+
         def epoch_run(epoch):
             loader = data.SpectDataLoader(root, lp, seed=7, init_epoch=epoch, device=dev)
+            reads["last"] = loader.reads  # batches read natively and item by item
             batches = iter(loader)
             losses, host_s = [], 0.0
             torch.cuda.synchronize()
@@ -3514,7 +3532,8 @@ def phase_recipe(pkg, kernels, cfg=RECIPE, dev="cuda"):
             save_ms.append((time.perf_counter() - t0) * 1e3)
             epochs.append({"losses": losses, "mean_loss": mean, "s": wall_s,
                            "steps_per_s": len(losses) / wall_s, "loader_host_s": host_s,
-                           "loader_host_share": host_s / wall_s})
+                           "loader_host_share": host_s / wall_s,
+                           "loader_reads": dict(reads["last"])})
         train_launches = dict(kernels.LAUNCHES)
         peak = peak_bytes(dev)
         steps = sum(len(e["losses"]) for e in epochs)
@@ -3916,12 +3935,446 @@ def phase_remat(pkg, kernels, conformer, cfg=REMAT, dev="cuda"):
     return {"spec_augment_apply": launches["spec_augment_apply"]}
 
 
+# ---------------------------------------------------------------------------
+# Corpus preparation: the commands a user runs to turn alignments,
+# transcripts and features into training data, the tar shards read through
+# the native reader, and alignment and scoring of a model's outputs.
+
+CORPUS = dict(RECIPE, run_max=30, shift_ms=10.0, shard=32, train_steps=2, subset=16,
+              fixed_lobe=50, ali_lobe=2, share_rounds=2, head_scale=32.0, arpa=BIG5)
+
+
+def corpus_alis(serial, root, V, run_max):
+    """A seeded ``ali/`` beside ``root/feat``: each utterance's frames in
+    runs of 1-``run_max`` frames, each run's label (of ``V``) unlike the one
+    before it, from ``RandomState(SEED + 60)``. Returns each utterance's
+    runs ``[(label, start, end), ...]``."""
+    rng = np.random.RandomState(SEED + 60)
+    runs = {}
+    for name in sorted(os.listdir(os.path.join(root, "feat"))):
+        T = serial.tensor_entry(os.path.join(root, "feat", name)).shape[0]
+        ali, rs, lab = [], [], -1
+        while len(ali) < T:
+            n = min(int(rng.randint(1, run_max + 1)), T - len(ali))
+            lab = (lab + 1 + int(rng.randint(V - 1))) % V if lab >= 0 else int(rng.randint(V))
+            rs.append((lab, len(ali), len(ali) + n))
+            ali += [lab] * n
+        serial.save_tensor(torch.tensor(ali, dtype=torch.int64),
+                           os.path.join(root, "ali", name))
+        runs[name] = rs
+    return runs
+
+
+def ctm_frames(s, e, shift):
+    """Frames ``(s, e)`` after a ctm round trip: written as ``str`` of the
+    seconds and the duration, read back and turned into frames by the
+    JAX package's rules (``transcript_to_token``). Seconds that land a hair
+    below a frame's start move it one frame earlier."""
+    st = s * shift / 1000
+    st2 = float(str(st))
+    en2 = st2 + float(str(e * shift / 1000 - st))
+    return ctm_tg_rule(st2, en2, shift)
+
+
+def tg_frames(s, e, shift, precision=3):
+    """Frames ``(s, e)`` after a TextGrid round trip: seconds written with
+    ``precision`` decimals, read back, and turned into frames."""
+    st = float(f"{s * shift / 1000:0.{precision}f}")
+    en = float(f"{e * shift / 1000:0.{precision}f}")
+    return ctm_tg_rule(st, en, shift)
+
+
+def ctm_tg_rule(st, en, shift):
+    if st == en:
+        a = b = (1000 * st) // shift
+    else:
+        a = (1000 * st) // shift
+        b = max((1000 * en + 0.5 * shift) // shift, a + 1)
+    return int(a), int(b)
+
+
+def same_tensor_dirs(load_tensor, a, b):
+    """The names under ``a`` and ``b`` (recursively), and every ``.pt``
+    file's tensor (dtype, shape, values), are equal; files with equal bytes
+    are not loaded."""
+    na, nb = sorted(os.listdir(a)), sorted(os.listdir(b))
+    if na != nb or not na:
+        return False
+    for name in na:
+        pa, pb = os.path.join(a, name), os.path.join(b, name)
+        if os.path.isdir(pa):
+            if not same_tensor_dirs(load_tensor, pa, pb):
+                return False
+        else:
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                if fa.read() == fb.read():
+                    continue
+            x, y = load_tensor(pa), load_tensor(pb)
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                return False
+    return True
+
+
+def ulps_apart(a, b):
+    """The largest distance in float32 units in the last place."""
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(a - b).max())
+
+
+def arpa_token2id(path):
+    """Ids for an ARPA file's unigrams: the regular tokens sorted, then
+    ``<s>``, so the commands' defaults make ``<s>`` the sos id."""
+    import gzip
+
+    opener = gzip.open if path.endswith(".gz") else open
+    toks, in_uni = [], False
+    with opener(path, "rt") as f:
+        for line in f:
+            line = line.strip()
+            if line == "\\1-grams:":
+                in_uni = True
+            elif in_uni and line.startswith("\\"):
+                break
+            elif in_uni and line:
+                toks.append(line.split()[1])
+    regular = sorted(t for t in toks if t != "<s>")
+    return {t: i for i, t in enumerate(regular + ["<s>"])}
+
+
+def phase_corpus(pkg, kernels, cfg=CORPUS, dev="cuda"):
+    """Corpus preparation through the port's commands, at the recipe's size
+    (128 utterances of 500-1,000 x 80 float32 frames, V=1024) and model
+    (d512/L8/H8 bf16 ConformerCTC): (a) a seeded ``ali/`` of runs of 1-30
+    frames beside the recipe's ``feat/``;
+    ``torch-ali-data-dir-to-torch-token-data-dir`` gives ``(R, 3)`` refs
+    equal to the runs and ``torch-token-data-dir-to-torch-ali-data-dir``
+    the ``ali/`` back exactly; (b) those refs through trn (tokens equal),
+    ctm and TextGrids at 10 ms (equal to what the formats' arithmetic
+    gives, ``ctm_frames``/``tg_frames``), with a 1,024-line token2id;
+    (c) ``torch-spect-data-dir-to-wds`` into 4 shards, whose
+    ``SpectTarDataSet`` batches through ``SpectDataLoader(batch_size=32)``
+    on the card equal the directory loader's bit for bit, every batch read
+    natively (the phase fails on a batch read item by item, or if the
+    native reader did not build); (d)
+    ``compute-mvn-stats-for-torch-feat-data-dir`` on the card within 1
+    float32 ulp of the CPU's; ``subset-torch-spect-data-dir`` (the first
+    16); ``chunk-torch-spect-data-dir`` (the ali policy, and a fixed
+    101-frame window) giving the same files on the card as on the CPU,
+    with 0 and 2 workers; both length-moment printers equal to the runs'
+    own moments; (e) 2 training steps from the tar loader (one
+    ``spec_augment_apply`` launch each); the loader's host share of an
+    epoch read three ways in turn (directory item by item, directory
+    native, tar native); the model's logits (head x32, as the serve
+    phase's) written as a logit dir, aligned by
+    ``torch-logit-data-dir-to-torch-ali-data-dir`` on the card equal to
+    the CPU's, every path collapsing to its reference; those alignments
+    turned into refs and scored against the references by
+    ``compute-torch-token-data-dir-error-rates`` (blank ignored): 0.0 on
+    the card and the CPU, one ``edit_distance`` launch a 32-utterance
+    batch; (f) ``arpa-lm-to-state-dict`` of big5 on the card equal to the
+    CPU's, array for array, and ``print-arpa-lm-state-dict-info`` equal.
+    Each command's wall seconds. Returns the launches."""
+    (ConformerConfig, ConformerCTC, adamw, make_train_step, img, data, command_line, serial,
+     native) = pkg
+    import glob
+    import pickle
+    import shutil
+    import tempfile
+
+    if not native.available():
+        raise AssertionError("the native reader did not build")
+    V, shift = cfg["model"]["vocab_size"], cfg["shift_ms"]
+    sh = f"{shift:g}"
+    work = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    secs, checks = {}, {}
+
+    def run(name, args, key=None):
+        fn = getattr(command_line, name.replace("-", "_"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            rc = fn([str(a) for a in args])
+        torch.cuda.synchronize()
+        secs[key or name] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"{name} {args} exited {rc}")
+
+    def w(*parts):
+        return os.path.join(work, *parts)
+
+    def check(name, ok):
+        checks[name] = bool(ok)
+        if not ok:
+            raise AssertionError(f"corpus: {name} failed ({checks})")
+
+    try:
+        root = w("data")
+        t0 = time.perf_counter()
+        frames, _ = recipe_data(serial.save_tensor, root, cfg)
+        shutil.rmtree(os.path.join(root, "ref"))
+        runs = corpus_alis(serial, root, V, cfg["run_max"])
+        write_s = time.perf_counter() - t0
+        names = sorted(runs)
+        refs = {n: torch.tensor(r, dtype=torch.int64) for n, r in runs.items()}
+
+        # (a) alignments and references
+        ref_dir, ali_dir = os.path.join(root, "ref"), os.path.join(root, "ali")
+        run("torch-ali-data-dir-to-torch-token-data-dir", [ali_dir, ref_dir])
+        check("ali_to_ref_equals_runs", all(
+            torch.equal(serial.load_tensor(os.path.join(ref_dir, n)), refs[n]) for n in names))
+        run("torch-token-data-dir-to-torch-ali-data-dir",
+            [ref_dir, w("ali_back"), "--feat-dir", os.path.join(root, "feat")])
+        check("ref_to_ali_round_trip", same_tensor_dirs(serial.load_tensor, ali_dir,
+                                                        w("ali_back")))
+
+        # (b) transcripts
+        t2i = w("token2id.txt")
+        with open(t2i, "w") as f:
+            f.writelines(f"w{i:04d} {i}\n" for i in range(V))
+        run("torch-token-data-dir-to-trn", [ref_dir, t2i, w("refs.trn"), "--swap"])
+        run("trn-to-torch-token-data-dir", [w("refs.trn"), t2i, w("trn_ref"),
+                                            "--skip-frame-times"])
+        check("trn_round_trip", all(torch.equal(
+            serial.load_tensor(w("trn_ref", n)), refs[n][:, 0]) for n in names))
+        moved = {"ctm": 0, "textgrid": 0}
+        run("torch-token-data-dir-to-ctm", [ref_dir, t2i, w("refs.ctm"), "--swap",
+                                            "--frame-shift-ms", sh])
+        run("ctm-to-torch-token-data-dir", [w("refs.ctm"), t2i, w("ctm_ref"),
+                                            "--frame-shift-ms", sh])
+        run("torch-token-data-dir-to-textgrids", [ref_dir, t2i, w("tg"), "--swap",
+                                                  "--feat-dir", os.path.join(root, "feat"),
+                                                  "--frame-shift-ms", sh])
+        run("textgrids-to-torch-token-data-dir", [w("tg"), t2i, w("tg_ref"),
+                                                  "--frame-shift-ms", sh])
+        for fmt, sub, rule in (("ctm", "ctm_ref", ctm_frames), ("textgrid", "tg_ref",
+                                                                    tg_frames)):
+            ok = True
+            for n in names:
+                exp = torch.tensor([(t, *rule(s, e, shift)) for t, s, e in runs[n]])
+                moved[fmt] += int((exp[:, 1:] != refs[n][:, 1:]).sum())
+                ok &= torch.equal(serial.load_tensor(w(sub, n)), exp)
+            check(f"{fmt}_round_trip", ok)
+
+        # (c) tar shards, read natively
+        run("torch-spect-data-dir-to-wds", [root, w("shards", "corpus.tar"), "--shard",
+                                            "--max-samples-per-shard", cfg["shard"]])
+        shards = sorted(glob.glob(w("shards", "corpus.tar.*")))
+        check("shards", len(shards) == -(-cfg["utts"] // cfg["shard"]))
+        lp = data.SpectDataLoaderParams(batch_size=cfg["batch"], do_mvn=True)
+
+        def loaders(seed, epoch=0):
+            tar = data.SpectDataLoader(data.SpectTarDataSet(shards, params=lp), lp, seed=seed,
+                                       init_epoch=epoch, device=dev)
+            return tar, data.SpectDataLoader(root, lp, seed=seed, init_epoch=epoch, device=dev)
+
+        tar_loader, dir_loader = loaders(7)
+        tb, db = list(tar_loader), list(dir_loader)
+        check("tar_batches_equal_directory", len(tb) == len(db) and all(
+            len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+            for a, b in zip(tb, db)))
+        n_batches = len(tb)
+        check("tar_read_natively", tar_loader.reads == {"native": n_batches, "per_item": 0})
+        check("directory_read_natively",
+              dir_loader.reads == {"native": n_batches, "per_item": 0})
+        del tb, db
+
+        # (d) MVN statistics, subset, chunks, length moments
+        feat_dir = os.path.join(root, "feat")
+        stats = {}
+        for side, where in (("card", dev), ("cpu", "cpu")):
+            run("compute-mvn-stats-for-torch-feat-data-dir",
+                [feat_dir, w(f"mvn_{side}.pkl"), "--device", where], f"mvn_{side}")
+            with open(w(f"mvn_{side}.pkl"), "rb") as f:
+                stats[side] = pickle.load(f)
+        mvn_ulps = max(ulps_apart(stats["card"][k], stats["cpu"][k]) for k in ("mean", "std"))
+        check("mvn_card_vs_cpu_within_1_ulp", mvn_ulps <= 1)
+        run("subset-torch-spect-data-dir", [root, w("sub"), "--first-n", cfg["subset"]])
+        check("subset_first_n", sorted(os.listdir(w("sub", "feat"))) == names[:cfg["subset"]])
+        chunks = {}
+        for policy, opts in (("ali", ["--policy", "ali", "--lobe-size", cfg["ali_lobe"]]),
+                             ("fixed", ["--policy", "fixed", "--lobe-size", cfg["fixed_lobe"]])):
+            for side, where, workers in (("cpu", "cpu", 0), ("card", dev, 0), ("card_w2", dev, 2)):
+                out = w(f"chunk_{policy}_{side}")
+                run("chunk-torch-spect-data-dir",
+                    [w("sub"), out, "--quiet", "--device", where, "--num-workers", workers]
+                    + opts, f"chunk_{policy}_{side}")
+                if side != "cpu":
+                    check(f"chunk_{policy}_{side}_equals_cpu", same_tensor_dirs(
+                        serial.load_tensor, w(f"chunk_{policy}_cpu"), out))
+            chunks[policy] = len(os.listdir(os.path.join(out, "feat")))
+        lens = [e - s for n in names for _, s, e in runs[n]]
+        c, s1, s2 = len(lens), sum(lens), sum(x * x for x in lens)
+        mean = s1 / c
+        expect_moments = f"{mean:0.03f} ({s2 / c - mean ** 2:0.03f})\n"
+        for name, sub in (("print-torch-ali-data-dir-length-moments", "ali"),
+                          ("print-torch-ref-data-dir-length-moments", "ref")):
+            run(name, [os.path.join(root, sub), w(f"moments_{sub}.txt")])
+            with open(w(f"moments_{sub}.txt")) as f:
+                check(f"{sub}_moments", f.read() == expect_moments)
+
+        # training from the tar shards
+        mcfg = ConformerConfig(**cfg["model"])
+        model = ConformerCTC(mcfg, device=dev, generator=torch.Generator().manual_seed(SEED + 3))
+        optim = adamw(model.parameters(), LR)
+        step = make_train_step(
+            model, optim, lambda g, f, l: img.spec_augment(g, f, lengths=l.float(), **cfg["sa"])
+        )
+        gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+
+        def train_on(batches):
+            losses = []
+            for feats, refs_b, feat_lens, ref_lens in batches:
+                losses.append(step(gen, feats, feat_lens, refs_b.clamp(min=0), ref_lens))
+            return [float(v) for v in losses]
+
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        tar_loader, _ = loaders(8)
+        it = iter(tar_loader)
+        losses = train_on(next(it) for _ in range(cfg["train_steps"]))
+        del it
+        check("tar_steps_finite", all(math.isfinite(v) for v in losses))
+        check("tar_steps_native", tar_loader.reads["per_item"] == 0)
+
+        def epoch(kind, ep):
+            tar, direct = loaders(9, ep)
+            loader = tar if kind == "tar_native" else direct
+            old = os.environ.get("PYDROBERT_TPU_NATIVE_IO")
+            if kind == "dir_per_item":
+                os.environ["PYDROBERT_TPU_NATIVE_IO"] = "0"
+            try:
+                batches, host_s, n = iter(loader), 0.0, 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                while True:
+                    h0 = time.perf_counter()
+                    batch = next(batches, None)
+                    host_s += time.perf_counter() - h0
+                    if batch is None:
+                        break
+                    train_on([batch])
+                    n += 1
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                if old is None:
+                    os.environ.pop("PYDROBERT_TPU_NATIVE_IO", None)
+                else:
+                    os.environ["PYDROBERT_TPU_NATIVE_IO"] = old
+            want = "per_item" if kind == "dir_per_item" else "native"
+            if loader.reads[want] != n:
+                raise AssertionError(f"corpus: the {kind} epoch read {loader.reads}")
+            return {"host_s": host_s, "s": wall, "host_share": host_s / wall, "steps": n}
+
+        share = {k: [] for k in ("dir_per_item", "dir_native", "tar_native")}
+        for r in range(cfg["share_rounds"]):
+            for kind in share:
+                share[kind].append(epoch(kind, r))
+        steps = cfg["train_steps"] + sum(e["steps"] for v in share.values() for e in v)
+
+        # (e) alignment of the model's logits, and scoring
+        with torch.no_grad():
+            model.ctc_head.weight.mul_(cfg["head_scale"])
+        logit_dir = w("logit")
+        os.makedirs(logit_dir)
+        eval_loader = data.SpectDataLoader(root, lp, shuffle=False, device=dev,
+                                           suppress_uttids=False)
+        model.eval()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for feats, _, feat_lens, _, utt_ids in eval_loader:
+                logits, out_lens = model(feats, feat_lens)
+                logits, out_lens = logits.float().cpu(), out_lens.cpu()
+                for n, utt in enumerate(utt_ids):
+                    serial.save_tensor(logits[n, : int(out_lens[n])],
+                                       os.path.join(logit_dir, utt + ".pt"))
+        logit_s = time.perf_counter() - t0
+        Vp1 = logits.shape[-1]
+        for side, where in (("card", dev), ("cpu", "cpu")):
+            run("torch-logit-data-dir-to-torch-ali-data-dir",
+                [logit_dir, ref_dir, w(f"aligned_{side}"), "--device", where],
+                f"align_{side}")
+        check("aligned_card_equals_cpu", same_tensor_dirs(serial.load_tensor, w("aligned_cpu"),
+                                                          w("aligned_card")))
+        check("aligned_paths_collapse_to_refs", all(torch.equal(
+            collapse(serial.load_tensor(w("aligned_card", n)), Vp1 - 1), refs[n][:, 0])
+            for n in names))
+        run("torch-ali-data-dir-to-torch-token-data-dir", [w("aligned_card"), w("hyp")],
+            "aligned_to_ref")
+        with open(w("ignore.txt"), "w") as f:
+            f.write(f"{Vp1 - 1}\n")
+        rates = {}
+        for side, where in (("card", dev), ("cpu", "cpu")):
+            before = kernels.LAUNCHES["edit_distance"]
+            run("compute-torch-token-data-dir-error-rates",
+                [ref_dir, w("hyp"), w(f"er_{side}.txt"), "--ignore", w("ignore.txt"),
+                 "--batch-size", cfg["score_batch"], "--quiet", "--device", where],
+                f"error_rates_{side}")
+            with open(w(f"er_{side}.txt")) as f:
+                rates[side] = (f.read(), kernels.LAUNCHES["edit_distance"] - before)
+        launches = dict(kernels.LAUNCHES)
+        # the CPU run takes the plain version, which counts no launch on a
+        # card (a CPU rehearsal counts the calls of both)
+        launches["edit_distance"] -= rates["cpu"][1]
+        check("error_rate_card_equals_cpu", rates["card"][0] == rates["cpu"][0])
+        check("error_rate_zero", float(rates["card"][0]) == 0.0)
+        check("spec_augment_launches", launches["spec_augment_apply"] == steps)
+        check("edit_distance_launches", launches["edit_distance"] == rates["card"][1]
+              == -(-cfg["utts"] // cfg["score_batch"]))
+
+        # (f) ARPA
+        arpa = cfg["arpa"]
+        if arpa.endswith(".gz"):
+            import gzip
+
+            with gzip.open(arpa, "rb") as fi, open(w("lm.arpa"), "wb") as fo:
+                shutil.copyfileobj(fi, fo)
+            arpa = w("lm.arpa")
+        with open(w("lm_token2id.txt"), "w") as f:
+            f.writelines(f"{t} {i}\n" for t, i in arpa_token2id(arpa).items())
+        arrays, infos = {}, {}
+        for side, where in (("card", dev), ("cpu", "cpu")):
+            run("arpa-lm-to-state-dict", [arpa, w("lm_token2id.txt"), w(f"lm_{side}.npz"),
+                                          "--device", where], f"arpa_{side}")
+            arrays[side] = dict(np.load(w(f"lm_{side}.npz")))
+            run("print-arpa-lm-state-dict-info", [w(f"lm_{side}.npz"), w(f"lm_{side}.txt")],
+                f"arpa_info_{side}")
+            with open(w(f"lm_{side}.txt")) as f:
+                infos[side] = f.read()
+        check("arpa_state_dict_card_equals_cpu", sorted(arrays["card"]) == sorted(arrays["cpu"])
+              and all(arrays["card"][k].dtype == arrays["cpu"][k].dtype
+                      and np.array_equal(arrays["card"][k], arrays["cpu"][k])
+                      for k in arrays["cpu"]))
+        check("arpa_info_card_equals_cpu", infos["card"] == infos["cpu"])
+
+        emit({
+            "phase": "corpus", "nvidia_smi": smi_line(),
+            "model": "ConformerCTC d512 L8 H8 V1024 bf16, dropout 0.1",
+            "utterances": cfg["utts"], "frames": frames, "write_s": write_s,
+            "ali_runs": sum(len(r) for r in runs.values()), "moved_boundaries": moved,
+            "mvn_card_vs_cpu_ulps": mvn_ulps, "chunks": chunks, "shards": len(shards),
+            "tar_batches": n_batches, "train_losses": losses,
+            "loader_host_share": share, "logit_write_s": logit_s,
+            "error_rate": float(rates["card"][0]), "arpa": cfg["arpa"],
+            "arpa_info": dict(line.split() for line in infos["card"].splitlines()),
+            "command_s": secs, "checks": checks,
+            "launches": {"spec_augment_apply": launches["spec_augment_apply"],
+                         "edit_distance": launches["edit_distance"]},
+        })
+        return {"spec_augment_apply": launches["spec_augment_apply"],
+                "edit_distance": launches["edit_distance"]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     try:
-        from pydrobert_tpu_torch import command_line, config, training
+        from pydrobert_tpu_torch import command_line, config, native, training
         from pydrobert_tpu_torch import data as tdata
         from pydrobert_tpu_torch.data import parse_arpa_lm
         from pydrobert_tpu_torch.models import conformer
@@ -4044,6 +4497,7 @@ def main(argv):
     )
     moe_launches = phase_moe(train_pkg, kernels)
     remat_launches = phase_remat(train_pkg, kernels, conformer)
+    corpus_launches = phase_corpus(train_pkg + (tdata, command_line, serial, native), kernels)
 
     csrc = "pydrobert_tpu_torch/csrc/"
     rows = []
@@ -4060,9 +4514,10 @@ def main(argv):
         "seq2seq train": mer_launches["edit_distance"],
         "reinforce": reinforce_launches["edit_distance"],
         "recipe": recipe_launches["edit_distance"],
+        "corpus": corpus_launches["edit_distance"],
     }
     sa_paths = {"train": train_launches, "recipe": recipe_launches, "moe": moe_launches,
-                "remat": remat_launches}
+                "remat": remat_launches, "corpus": corpus_launches}
     times["spec_augment_apply"]["launches_by_path"] = {
         k: v["spec_augment_apply"] for k, v in sa_paths.items()
     }
@@ -4072,11 +4527,13 @@ def main(argv):
          + skip_launches["decode_prologue"]),
         ("top_m", "prologue.cu", 1359, "beam serve, blankskip",
          beam_launches["top_m"] + skip_beam_launches["top_m"]),
-        ("spec_augment_apply", "spec_augment.cu", 180, "train, recipe, moe, remat",
+        ("spec_augment_apply", "spec_augment.cu", 180, "train, recipe, moe, remat, corpus",
          sum(v["spec_augment_apply"] for v in sa_paths.values())),
-        ("edit_distance", "edit_distance.cu", 49, "score, seq2seq train, reinforce, recipe",
+        ("edit_distance", "edit_distance.cu", 49,
+         "score, seq2seq train, reinforce, recipe, corpus",
          score_launches["edit_distance"] + mer_launches["edit_distance"]
-         + reinforce_launches["edit_distance"] + recipe_launches["edit_distance"]),
+         + reinforce_launches["edit_distance"] + recipe_launches["edit_distance"]
+         + corpus_launches["edit_distance"]),
         ("ctc_beam_search", "ctc_beam.cu", 649, "beam serve, blankskip",
          beam_launches["ctc_beam_search"] + skip_beam_launches["ctc_beam_search"]),
     ):

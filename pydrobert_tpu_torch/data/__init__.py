@@ -1,9 +1,9 @@
 """Host data path (counterpart of :mod:`pydrobert_tpu.data`): the on-disk
 SpectDataSet convention, epoch-deterministic (and process-sharded)
 samplers, bucket batching, padded-batch collation, loaders that hand
-batches to the card, ARPA parsing and the transcript/token conversions.
-The tar-backed dataset and the trn, ctm and TextGrid parsers are not
-ported yet."""
+batches to the card (each batch's files read in one threaded pass of the
+native reader), the tar-backed dataset, ARPA, trn, ctm and TextGrid
+parsing and the transcript/token conversions."""
 
 from .dataloaders import (
     AbstractEpochSampler,
@@ -26,6 +26,7 @@ from .datasets import (
     ContextWindowDataSet,
     LangDataSet,
     SpectDataSet,
+    SpectTarDataSet,
     extract_window,
     validate_spect_data_set,
 )
@@ -36,7 +37,18 @@ from .params import (
     params_from_dict,
     params_to_dict,
 )
-from .parsing import parse_arpa_lm, token_to_transcript, transcript_to_token
+from .parsing import (
+    parse_arpa_lm,
+    read_ctm,
+    read_textgrid,
+    read_trn,
+    read_trn_iter,
+    token_to_transcript,
+    transcript_to_token,
+    write_ctm,
+    write_textgrid,
+    write_trn,
+)
 
 __all__ = [
     "AbstractEpochSampler",
@@ -57,16 +69,24 @@ __all__ = [
     "SpectDataLoaderParams",
     "SpectDataParams",
     "SpectDataSet",
+    "SpectTarDataSet",
     "context_window_seq_to_batch",
     "extract_window",
     "lang_seq_to_batch",
     "params_from_dict",
     "params_to_dict",
     "parse_arpa_lm",
+    "read_ctm",
+    "read_textgrid",
+    "read_trn",
+    "read_trn_iter",
     "spect_seq_to_batch",
     "token_to_transcript",
     "transcript_to_token",
     "validate_spect_data_set",
+    "write_ctm",
+    "write_textgrid",
+    "write_trn",
 ]
 
 

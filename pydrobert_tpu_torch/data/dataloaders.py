@@ -8,7 +8,8 @@ strided shard ``[rank::world_size]``. Collation pads CPU tensors. A loader
 moves each batch to ``device`` (``cuda`` when None): on a card the batch is
 collated into pinned host memory and copied with ``non_blocking=True`` on
 the consumer's thread, so with ``prefetch > 0`` the host assembles the next
-batches on a worker thread while the card computes.
+batches on a worker thread while the card computes. Datasets with a
+``native_batch_fetch`` have each batch's files read in one threaded pass.
 """
 
 import abc
@@ -490,14 +491,20 @@ class _BaseDataLoader:
     """Iterates a batch sampler over a dataset, collating each batch and
     moving it to ``device``.
 
-    Single-process loading. On a card (``device`` is ``cuda``, the default)
-    the collate allocates the batch in pinned host memory and the consumer
-    copies it with ``non_blocking=True`` on its current stream. PyTorch's
-    caching host allocator records that copy on the pinned block, and does
-    not hand the block out again until the copy has completed, so a batch
-    may be dropped on the host as soon as it is copied. With ``prefetch >
-    0`` a worker thread reads and collates up to ``prefetch`` batches ahead;
-    the copies stay on the consumer's thread and stream, in order.
+    Single-process loading. A dataset with ``native_batch_fetch`` has each
+    batch's files read in one threaded pass of the native reader
+    (:mod:`pydrobert_tpu_torch.native`), into fresh buffers a batch; without
+    the reader, or for a subclass that overrides item access below the
+    class that provides the fetch, items are read one by one. ``reads``
+    counts the batches read each way. On a card (``device`` is ``cuda``, the
+    default) the collate copies the items into a batch in pinned host memory
+    and the consumer copies that with ``non_blocking=True`` on its current
+    stream. PyTorch's caching host allocator records that copy on the
+    pinned block, and does not hand the block out again until the copy has
+    completed, so a batch may be dropped on the host as soon as it is
+    copied. With ``prefetch > 0`` a worker thread reads and collates up to
+    ``prefetch`` batches ahead; the copies stay on the consumer's thread and
+    stream, in order.
     """
 
     def __init__(self, dataset, batch_sampler, collate_fn, device=None, prefetch=0):
@@ -507,6 +514,7 @@ class _BaseDataLoader:
         self.device = default_device(device)
         self.pin_memory = self.device.type == "cuda"
         self.prefetch = int(prefetch)
+        self.reads = {"native": 0, "per_item": 0}
 
     @property
     def epoch(self) -> int:
@@ -524,9 +532,44 @@ class _BaseDataLoader:
             for x in batch
         )
 
+    def _native_fetch(self):
+        """The dataset's ``native_batch_fetch``, unless a subclass overrode
+        item access below the class that provides the fetch (the fetch
+        would bypass the override): then ``None``, and items are read one
+        by one."""
+        fetch = getattr(self.dataset, "native_batch_fetch", None)
+        if fetch is None:
+            return None
+        cls = type(self.dataset)
+
+        def owner(name):
+            for c in cls.__mro__:
+                if name in c.__dict__:
+                    return c
+            return None
+
+        fetch_owner = owner("native_batch_fetch")
+        for name in ("__getitem__", "get_utterance_tuple"):
+            item_owner = owner(name)
+            if (
+                item_owner is not None
+                and fetch_owner is not None
+                and item_owner is not fetch_owner
+                and issubclass(item_owner, fetch_owner)
+            ):
+                return None
+        return fetch
+
     def _iter_host_batches(self):
+        fetch = self._native_fetch()
         for batch_idxs in self.batch_sampler:
-            yield self.collate_fn([self.dataset[i] for i in batch_idxs])
+            items = fetch(batch_idxs) if fetch is not None else None
+            if items is None:
+                items = [self.dataset[i] for i in batch_idxs]
+                self.reads["per_item"] += 1
+            else:
+                self.reads["native"] += 1
+            yield self.collate_fn(items)
 
     def __iter__(self):
         if self.prefetch <= 0:

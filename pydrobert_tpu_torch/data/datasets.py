@@ -1,31 +1,38 @@
 """On-disk SpectDataSet datasets (counterpart of
-:mod:`pydrobert_tpu.data.datasets`, except ``SpectTarDataSet``).
+:mod:`pydrobert_tpu.data.datasets`).
 
 The data-directory convention (``feat/``, ``ali/``, ``ref/`` of
 per-utterance ``.pt`` tensors) is the JAX package's, and a directory
-written by either package reads in the other. Datasets are plain sequence
-objects: ``len()``, integer indexing, ``utt_ids``, ``write_pdf`` and
-``write_hyp``, validation with optional fixing. Items are CPU tensors;
-the loaders move batches to the device. Mean-variance normalization and
-deltas go through :mod:`pydrobert_tpu_torch.ops.feats`.
+written by either package reads in the other; so are the tar shards of
+``torch-spect-data-dir-to-wds`` that :class:`SpectTarDataSet` reads.
+Datasets are plain sequence objects: ``len()``, integer indexing,
+``utt_ids``, ``write_pdf`` and ``write_hyp``, validation with optional
+fixing. Items are CPU tensors; the loaders move batches to the device.
+Mean-variance normalization and deltas go through
+:mod:`pydrobert_tpu_torch.ops.feats`. Each dataset's ``native_batch_fetch``
+reads a batch's files in one threaded pass of
+:func:`pydrobert_tpu_torch.native.read_batch`, giving what item-by-item
+reads give.
 """
 
 import os
 import warnings
-from typing import Optional, Set, Tuple, Union
+from itertools import islice
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import config
 from ..ops.feats import feat_deltas, mean_var_norm
-from ..utils.serial import load_tensor, save_tensor
+from ..utils.serial import TensorEntry, load_tensor, save_tensor, tensor_entry
 from .params import ContextWindowDataParams, LangDataParams, SpectDataParams
 
 __all__ = [
     "ContextWindowDataSet",
     "LangDataSet",
     "SpectDataSet",
+    "SpectTarDataSet",
     "extract_window",
     "validate_spect_data_set",
 ]
@@ -63,6 +70,54 @@ def _postprocess_ref(
             sym[0, 0] = tok
         ref = torch.cat([sym, ref] if first else [ref, sym], 0)
     return ref
+
+
+_ENTRY_CACHE: Dict[str, Tuple[Tuple[int, int], Optional[TensorEntry]]] = {}
+# about 200 B an entry; past the cap the oldest tenth is dropped (indexing
+# a file again is one header parse)
+_ENTRY_CACHE_MAX = int(os.environ.get("PYDROBERT_TPU_ENTRY_CACHE_MAX", "250000"))
+
+
+def _empty_like_entry(entry: TensorEntry) -> torch.Tensor:
+    return torch.from_numpy(np.empty(entry.shape, entry.dtype))
+
+
+def _native_load_many(paths: Sequence[str]) -> Optional[List[torch.Tensor]]:
+    """Load many ``.pt`` files with the native threaded reader.
+
+    Returns ``None`` when the reader is unavailable (callers then read
+    item by item). A file whose payload is not one contiguous byte range
+    (legacy format, strided tensors, ...) is read with :func:`load_tensor`
+    inside the same batch. Every file gets a fresh buffer, so a batch never
+    reuses memory that an earlier batch's copy may still read. Payload
+    indexes are cached by (path, mtime, size).
+    """
+    from .. import native
+
+    if not native.available():
+        return None
+    out: List[Optional[torch.Tensor]] = [None] * len(paths)
+    tasks = []
+    for i, pth in enumerate(paths):
+        st = os.stat(pth)
+        sig = (st.st_mtime_ns, st.st_size)
+        cached = _ENTRY_CACHE.get(pth)
+        if cached is None or cached[0] != sig:
+            cached = (sig, tensor_entry(pth))
+            if len(_ENTRY_CACHE) >= _ENTRY_CACHE_MAX:
+                drop = max(1, _ENTRY_CACHE_MAX // 10)
+                for k in list(islice(iter(_ENTRY_CACHE), drop)):
+                    del _ENTRY_CACHE[k]
+            _ENTRY_CACHE[pth] = cached
+        entry = cached[1]
+        if entry is None:
+            out[i] = load_tensor(pth)
+        else:
+            out[i] = _empty_like_entry(entry)
+            tasks.append((pth, entry.payload_offset, out[i]))
+    if tasks:
+        native.read_batch(tasks)
+    return out  # type: ignore[return-value]
 
 
 def _write_hyp(hyp, pth: str, sos: Optional[int], eos: Optional[int]) -> None:
@@ -126,6 +181,24 @@ class LangDataSet:
             self.params.eos,
         )
         return ref if self.suppress_uttids else (ref, utt_id)
+
+    def native_batch_fetch(self, idxs: Sequence[int]):
+        """:meth:`get_utterance_tuple` of each index, read in one pass of
+        the native reader; ``None`` when it is unavailable."""
+        paths = [
+            os.path.join(self.data_dir, self.file_prefix + self.utt_ids[i] + self.file_suffix)
+            for i in idxs
+        ]
+        arrs = _native_load_many(paths)
+        if arrs is None:
+            return None
+        refs = [
+            _postprocess_ref(a, self.tokens_only, self.params.sos, self.params.eos)
+            for a in arrs
+        ]
+        if self.suppress_uttids:
+            return refs
+        return [(r, self.utt_ids[i]) for r, i in zip(refs, idxs)]
 
     def find_utt_ids(self, subset_ids: Set[str] = frozenset()) -> Set[str]:
         """All utterance ids in the data dir (optionally intersected)."""
@@ -301,6 +374,43 @@ class SpectDataSet(_FeatTransformMixin):
         else:
             out = (feat, ali, ref)
         return out if self.suppress_uttids else out + (utt_id,)
+
+    def native_batch_fetch(self, idxs: Sequence[int]):
+        """:meth:`get_utterance_tuple` of each index: the batch's feats (and
+        alis, refs) read in one pass of the native reader, then each
+        utterance's MVN, deltas and sos/eos as item by item. ``None`` when
+        the reader is unavailable."""
+        names = [self.file_prefix + self.utt_ids[i] + self.file_suffix for i in idxs]
+        n_utt = len(names)
+        subdirs = [self.feat_subdir]
+        if self.has_ali:
+            subdirs.append(self.ali_subdir)
+        if self.has_ref:
+            subdirs.append(self.ref_subdir)
+        arrs = _native_load_many(
+            [os.path.join(self.data_dir, d, n) for d in subdirs for n in names]
+        )
+        if arrs is None:
+            return None
+        feats = [self._transform(f) for f in arrs[:n_utt]]
+        pos = n_utt
+        alis: List[Optional[torch.Tensor]] = [None] * n_utt
+        if self.has_ali:
+            alis = arrs[pos : pos + n_utt]
+            pos += n_utt
+        refs: List[Optional[torch.Tensor]] = [None] * n_utt
+        if self.has_ref:
+            refs = [
+                _postprocess_ref(a, self.tokens_only, self.sos, self.eos)
+                for a in arrs[pos : pos + n_utt]
+            ]
+        out = []
+        for j, i in enumerate(idxs):
+            item = (feats[j], refs[j]) if self.suppress_alis else (feats[j], alis[j], refs[j])
+            if not self.suppress_uttids:
+                item = item + (self.utt_ids[i],)
+            out.append(item)
+        return out
 
     def write_pdf(
         self, utt: Union[str, int], pdf, pdfs_dir: Optional[str] = None
@@ -620,4 +730,234 @@ class ContextWindowDataSet(SpectDataSet):
 
     def get_utterance_tuple(self, idx: int) -> Tuple:
         return self._windowed(super().get_utterance_tuple(idx))
+
+    def native_batch_fetch(self, idxs: Sequence[int]):
+        """Windows of each index from the base class's native batch read;
+        ``None`` when the reader is unavailable."""
+        base = SpectDataSet.native_batch_fetch(self, idxs)
+        if base is None:
+            return None
+        return [self._windowed(item) for item in base]
+
+
+def _load_tensor_member(tf_handle, member) -> torch.Tensor:
+    """Load a ``.pt`` tensor from a tar member."""
+    import io
+
+    data = tf_handle.extractfile(member).read()
+    return torch.load(io.BytesIO(data), map_location="cpu", weights_only=True)
+
+
+class SpectTarDataSet(_FeatTransformMixin):
+    """WebDataset-style tar-backed :class:`SpectDataSet` reader.
+
+    Reads archives written by ``torch-spect-data-dir-to-wds`` (members
+    ``<utt>.feat.pth`` plus optional ``.ali.pth`` and ``.ref.pth``), this
+    package's or the JAX package's. `tar_paths` may be one path, a list of
+    shard paths, or a glob pattern; shards are indexed once up front and
+    members are then read on demand. Indexing, ``len()``, ``utt_ids`` and
+    the `params`-driven MVN, delta and sos/eos handling match
+    :class:`SpectDataSet`, so the samplers and loaders take it unchanged.
+    Iterating yields utterances in archive order (one sequential pass per
+    shard, which also serves compressed shards). :meth:`native_batch_fetch`
+    reads payloads straight out of uncompressed shards with the native
+    reader; a compressed shard's members are read one by one.
+    """
+
+    _KINDS = ("feat", "ali", "ref")
+
+    def __init__(
+        self,
+        tar_paths: Union[str, Sequence[str]],
+        params: Optional[SpectDataParams] = None,
+        feat_mean=None,
+        feat_std=None,
+        suppress_alis: bool = True,
+        suppress_uttids: bool = True,
+        tokens_only: bool = True,
+        subset_ids: Optional[Set[str]] = None,
+    ):
+        import glob as _glob
+        import tarfile
+
+        if isinstance(tar_paths, str):
+            if any(c in tar_paths for c in "*?["):
+                tar_paths = sorted(_glob.glob(tar_paths))
+            else:
+                tar_paths = [tar_paths]
+        else:
+            tar_paths = list(tar_paths)
+        if not tar_paths:
+            raise ValueError("no tar shards matched tar_paths")
+        self.tar_paths = tuple(tar_paths)
+        self.params = SpectDataParams() if params is None else params
+        self.suppress_alis = suppress_alis
+        self.suppress_uttids = suppress_uttids
+        self.tokens_only = tokens_only
+        self.sos, self.eos = self.params.sos, self.params.eos
+        self._tars = [tarfile.open(p, "r:*") for p in tar_paths]
+        self._index: Dict[str, Dict[str, Tuple[int, Any]]] = {}
+        self._native_entries: Dict[Tuple[int, str], Optional[Tuple[int, TensorEntry]]] = {}
+        self._native_tar_ok: Dict[int, bool] = {}
+        order = []
+        for si, tf_handle in enumerate(self._tars):
+            for member in tf_handle.getmembers():
+                parsed = self._parse_name(member.name)
+                if parsed is None:
+                    continue
+                utt_id, kind = parsed
+                entry = self._index.setdefault(utt_id, {})
+                if kind == "feat" and "feat" not in entry:
+                    order.append(utt_id)
+                # the first occurrence wins (re-sharded archives can repeat
+                # members), for random access and streaming alike
+                entry.setdefault(kind, (si, member))
+        if subset_ids is None:
+            subset_ids = set(self.params.subset_ids)
+        keep = [u for u in order if "feat" in self._index[u]]
+        if subset_ids:
+            keep = [u for u in keep if u in subset_ids]
+        self._archive_order = tuple(keep)
+        self.utt_ids = tuple(sorted(keep))
+        self.has_ali = all("ali" in self._index[u] for u in keep) and bool(keep)
+        self.has_ref = all("ref" in self._index[u] for u in keep) and bool(keep)
+        self._init_transforms(feat_mean, feat_std)
+
+    @classmethod
+    def _parse_name(cls, name: str) -> Optional[Tuple[str, str]]:
+        if not name.endswith(".pth"):
+            return None
+        utt_id, dot, kind = name[: -len(".pth")].rpartition(".")
+        if not dot or kind not in cls._KINDS:
+            return None
+        return utt_id, kind
+
+    def __len__(self) -> int:
+        return len(self.utt_ids)
+
+    def _kinds(self) -> Tuple[str, ...]:
+        return ("feat",) + (("ali",) if self.has_ali else ()) + (("ref",) if self.has_ref else ())
+
+    def _assemble(self, utt_id: str, got: Dict[str, torch.Tensor]) -> Tuple:
+        feat = self._transform(got["feat"])
+        ali = got.get("ali")
+        ref = got.get("ref")
+        if ref is not None:
+            ref = _postprocess_ref(ref, self.tokens_only, self.sos, self.eos)
+        out = (feat, ref) if self.suppress_alis else (feat, ali, ref)
+        return out if self.suppress_uttids else out + (utt_id,)
+
+    def get_utterance_tuple(self, idx: int) -> Tuple:
+        utt_id = self.utt_ids[idx]
+        entry = self._index[utt_id]
+        got = {}
+        for kind in self._kinds():
+            si, member = entry[kind]
+            got[kind] = _load_tensor_member(self._tars[si], member)
+        return self._assemble(utt_id, got)
+
+    def __getitem__(self, idx: int):
+        return self.get_utterance_tuple(idx)
+
+    def _native_tar_entry(self, si: int, member) -> Optional[Tuple[int, TensorEntry]]:
+        """The absolute payload byte range of a member's tensor within tar
+        `si` (``(offset, TensorEntry)``), or ``None`` when the shard is
+        compressed or the member is not one contiguous range."""
+        key = (si, member.name)
+        if key in self._native_entries:
+            return self._native_entries[key]
+        out = None
+        ok = self._native_tar_ok.get(si)
+        if ok is None:
+            # member.offset_data is a file offset only in an uncompressed
+            # tar: the raw bytes there must start the member's zip
+            try:
+                with open(self.tar_paths[si], "rb") as raw:
+                    raw.seek(member.offset_data)
+                    ok = raw.read(4) == b"PK\x03\x04"
+            except OSError:
+                ok = False
+            self._native_tar_ok[si] = ok
+        if ok:
+            f = self._tars[si].extractfile(member)
+            if f is not None:
+                e = tensor_entry(f)
+                if e is not None:
+                    out = (member.offset_data + e.payload_offset, e)
+        self._native_entries[key] = out
+        return out
+
+    def native_batch_fetch(self, idxs: Sequence[int]):
+        """:meth:`get_utterance_tuple` of each index, with the payloads read
+        straight out of uncompressed shards in one pass of the native
+        reader; members of compressed shards, or that are not one byte
+        range, are read one by one. ``None`` when the reader is
+        unavailable."""
+        from .. import native
+
+        if not native.available():
+            return None
+        tasks, per_utt = [], []
+        for i in idxs:
+            utt_id = self.utt_ids[i]
+            entry = self._index[utt_id]
+            got: Dict[str, torch.Tensor] = {}
+            for kind in self._kinds():
+                si, member = entry[kind]
+                ne = self._native_tar_entry(si, member)
+                if ne is None:
+                    got[kind] = _load_tensor_member(self._tars[si], member)
+                else:
+                    off, e = ne
+                    got[kind] = _empty_like_entry(e)
+                    tasks.append((self.tar_paths[si], off, got[kind]))
+            per_utt.append((utt_id, got))
+        if tasks:
+            native.read_batch(tasks)
+        return [self._assemble(u, g) for u, g in per_utt]
+
+    def _fill_missing_from_index(self, utt_id: str, got):
+        """Read through the index any member the streamed shard lacked (an
+        utterance's kinds can be split across shards)."""
+        entry = self._index[utt_id]
+        for kind in self._kinds()[1:]:
+            if kind not in got and kind in entry:
+                si, member = entry[kind]
+                got[kind] = _load_tensor_member(self._tars[si], member)
+        return got
+
+    def __iter__(self):
+        """Stream utterances in archive order (sequential tar reads).
+
+        Each utterance is yielded once (the first shard holding it wins, as
+        in the index); members missing from that shard are read through
+        the index.
+        """
+        import tarfile
+
+        wanted = set(self._archive_order)
+        for path in self.tar_paths:
+            pending_id = None
+            got: Dict[str, torch.Tensor] = {}
+            with tarfile.open(path, "r:*") as tf_handle:
+                for member in tf_handle:
+                    parsed = self._parse_name(member.name)
+                    if parsed is None or parsed[0] not in wanted:
+                        continue
+                    utt_id, kind = parsed
+                    if pending_id is not None and utt_id != pending_id:
+                        wanted.discard(pending_id)
+                        yield self._assemble(
+                            pending_id, self._fill_missing_from_index(pending_id, got)
+                        )
+                        got = {}
+                    pending_id = utt_id
+                    got[kind] = _load_tensor_member(tf_handle, member)
+            if pending_id is not None:
+                wanted.discard(pending_id)
+                yield self._assemble(pending_id, self._fill_missing_from_index(pending_id, got))
+
+    def close(self) -> None:
+        for tf_handle in self._tars:
+            tf_handle.close()
 

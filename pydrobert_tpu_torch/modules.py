@@ -345,23 +345,38 @@ class MeanVarianceNormalization:
         )
 
     def accumulate(self, x) -> None:
-        """Accumulate sufficient statistics from a (batch of) feature(s)."""
-        x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        """Accumulate sufficient statistics from a (batch of) feature(s).
+
+        The sums are float64. A tensor on a device is summed there, and
+        the sums stay on that device until :func:`store`; anything else is
+        summed in numpy on the host. One normalizer takes its inputs from
+        one device."""
+        on_device = isinstance(x, torch.Tensor) and x.device.type != "cpu"
+        if on_device:
+            x = x.detach()
+        else:
+            x = x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
         dim = self.dim + x.ndim if self.dim < 0 else self.dim
         axes = tuple(i for i in range(x.ndim) if i != dim)
         count = int(np.prod([x.shape[i] for i in axes])) if axes else 1
+        if on_device:
+            s = x.sum(axes, dtype=torch.float64) if axes else x.double()
+            ss = (x.double() ** 2).sum(axes) if axes else x.double() ** 2
+        else:
+            s = x.sum(axes, dtype=np.float64)
+            ss = (x.astype(np.float64) ** 2).sum(axes)
         if self.count is None:
-            self.count = 0
-            self.sum = np.zeros(x.shape[dim], np.float64)
-            self.sumsq = np.zeros(x.shape[dim], np.float64)
+            self.count, self.sum, self.sumsq = 0, 0, 0
         self.count += count
-        self.sum = self.sum + x.sum(axes, dtype=np.float64)
-        self.sumsq = self.sumsq + (x.astype(np.float64) ** 2).sum(axes)
+        self.sum = self.sum + s
+        self.sumsq = self.sumsq + ss
 
     def store(self, delete_stats: bool = True) -> None:
         """Convert accumulated statistics into `mean` and `std` buffers."""
         if not self.count:
             raise RuntimeError("no statistics accumulated")
+        if isinstance(self.sum, torch.Tensor):
+            self.sum, self.sumsq = self.sum.cpu().numpy(), self.sumsq.cpu().numpy()
         mean = self.sum / self.count
         var = self.sumsq / self.count - mean**2
         self.mean = mean.astype(np.float32)

@@ -532,6 +532,7 @@ def test_recipe_phase_rehearsal(smoke, rehearse_train):
     assert launches == {"spec_augment_apply": 6, "edit_distance": 6}
     line = rehearse_train.lines[-1]
     assert line["phase"] == "recipe" and line["resume_bit_equal"]
+    assert all(e["loader_reads"] == {"native": 2, "per_item": 0} for e in line["epochs"])
     assert line["epochs"][1]["mean_loss"] < line["epochs"][0]["mean_loss"]
     assert set(line["scores"]) == {"trained", "noisy"}
     assert all(s["equals_cpu"] for s in line["scores"].values())
@@ -607,3 +608,84 @@ def test_replayed_routing_replays_the_first_forward(smoke):
     assert torch.equal(got["gates"], own_b["probs"].gather(1, own_a["experts"]) / own_b["probs"].gather(1, own_a["experts"]).sum(-1, keepdim=True))
     assert replay.flips == [int((own_a["experts"] != own_b["experts"]).sum())]
     assert torch.equal(b.route(y, mask)["experts"], own_b["experts"])
+
+
+SMALL_ARPA = """\
+\\data\\
+ngram 1=5
+ngram 2=3
+
+\\1-grams:
+-0.8 <s> -0.3
+-0.9 </s>
+-0.5 a -0.2
+-0.6 b -0.25
+-1.1 c
+
+\\2-grams:
+-0.4 <s> a
+-0.3 a b
+-0.7 b </s>
+
+\\end\\
+"""
+
+
+def _corpus_pkg():
+    from pydrobert_tpu_torch import command_line, data, native
+    from pydrobert_tpu_torch.utils import serial
+
+    return _train_pkg() + (data, command_line, serial, native)
+
+
+@pytest.fixture
+def small_corpus(smoke, tmp_path):
+    arpa = tmp_path / "small.arpa"
+    arpa.write_text(SMALL_ARPA)
+    return dict(SMALL_RECIPE, run_max=30, shift_ms=10.0, shard=2, train_steps=2, subset=4,
+                fixed_lobe=5, ali_lobe=1, share_rounds=1, head_scale=32.0, arpa=str(arpa))
+
+
+def test_corpus_phase_rehearsal(smoke, rehearse_train, small_corpus):
+    """The corpus phase with a 2-layer model and 8 utterances on the CPU:
+    every check passes; 2 tar steps and 3 epochs of 2 steps launch
+    SpecAugment 8 times, and the scoring 3 edit-distance batches."""
+    launches = smoke.phase_corpus(_corpus_pkg(), rehearse_train, small_corpus, dev="cpu")
+    assert launches == {"spec_augment_apply": 8, "edit_distance": 3}
+    line = rehearse_train.lines[-1]
+    assert line["phase"] == "corpus" and all(line["checks"].values())
+    assert line["shards"] == 4 and line["tar_batches"] == 2 and line["error_rate"] == 0.0
+    assert set(line["loader_host_share"]) == {"dir_per_item", "dir_native", "tar_native"}
+    assert line["arpa_info"]["max_ngram"] == "2"
+    assert {"mvn_card", "chunk_ali_card_w2", "align_card", "arpa_card"} <= set(line["command_s"])
+
+
+def test_corpus_phase_fails_a_per_item_fallback(smoke, rehearse_train, small_corpus,
+                                                monkeypatch):
+    """A tar dataset whose native fetch falls back to item-by-item reads
+    gives the same batches, and the phase fails on them."""
+    from pydrobert_tpu_torch import data
+
+    monkeypatch.setattr(data.SpectTarDataSet, "native_batch_fetch", lambda self, idxs: None)
+    with pytest.raises(AssertionError, match="tar_read_natively"):
+        smoke.phase_corpus(_corpus_pkg(), rehearse_train, small_corpus, dev="cpu")
+
+
+def test_corpus_phase_fails_without_the_native_reader(smoke, rehearse_train, small_corpus,
+                                                      monkeypatch):
+    from pydrobert_tpu_torch import native
+
+    monkeypatch.setattr(native, "available", lambda: False)
+    with pytest.raises(AssertionError, match="native reader did not build"):
+        smoke.phase_corpus(_corpus_pkg(), rehearse_train, small_corpus, dev="cpu")
+
+
+def test_format_round_trip_rules(smoke):
+    """ctm and TextGrid seconds move a start frame only where its seconds
+    value lands below the frame: 201 frames at 10 ms is 2.01 s, and
+    1000 * 2.01 // 10 is 200."""
+    mod = smoke
+    assert mod.ctm_frames(3, 10, 10.0) == (3, 10)
+    assert mod.tg_frames(3, 10, 10.0) == (3, 10)
+    assert mod.ctm_frames(201, 205, 10.0) == (200, 205)
+    assert mod.tg_frames(201, 205, 10.0) == (200, 205)

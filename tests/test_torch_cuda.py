@@ -1202,6 +1202,52 @@ def test_loader_copies_pinned_batches_to_the_card(dev, tmp_path, prefetch):
                 assert x.device.type == "cuda" and torch.equal(x.cpu(), y)
 
 
+@pytest.mark.parametrize("source", ["dir", "tar"])
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_native_loader_batches_on_card_equal_per_item_reads(dev, tmp_path, monkeypatch,
+                                                            source, prefetch):
+    """The native reader builds on the card's machine, and two epochs of
+    natively read batches (a directory, and the tar shards of
+    torch-spect-data-dir-to-wds) copied to the card, with the consumer's
+    stream kept busy, equal the card loader's item-by-item batches bit for
+    bit, every batch read the way it should be."""
+    from pydrobert_tpu_torch import command_line, native
+    from pydrobert_tpu_torch.data import (
+        SpectDataLoader, SpectDataLoaderParams, SpectTarDataSet,
+    )
+
+    assert native.available(), "the native reader did not build"
+    root = str(tmp_path / "data")
+    _spect_dir(root)
+    p = SpectDataLoaderParams(batch_size=2, do_mvn=True)
+    if source == "tar":
+        tar = str(tmp_path / "shards.tar")
+        assert command_line.torch_spect_data_dir_to_wds(
+            [root, tar, "--shard", "--max-samples-per-shard", "3"]) == 0
+
+    def epochs(use_native):
+        monkeypatch.setenv("PYDROBERT_TPU_NATIVE_IO", "1" if use_native else "0")
+        busy = torch.randn(2048, 2048, device=dev)
+        out = []
+        for epoch in range(2):
+            data = SpectTarDataSet(tar + ".*", params=p) if source == "tar" else root
+            loader = SpectDataLoader(data, p, seed=3, init_epoch=epoch, device=dev,
+                                     prefetch=prefetch)
+            for batch in loader:
+                for _ in range(4):
+                    busy = busy @ busy / 2048  # keep the stream behind the host
+                out.append(batch)
+            assert loader.reads["native" if use_native else "per_item"] == len(loader)
+        torch.cuda.synchronize()
+        return out
+
+    nat, per_item = epochs(True), epochs(False)
+    assert len(nat) == len(per_item)
+    for a, b in zip(nat, per_item):
+        for x, y in zip(a, b):
+            assert x.device.type == "cuda" and torch.equal(x, y)
+
+
 def test_moe_forward_on_card_matches_cpu(dev):
     """A float32 MoE ConformerCTC (E=4, top-2, capacity 0.5 so choices
     drop): the routing equal to the CPU's and the logits within 1e-4."""

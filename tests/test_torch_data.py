@@ -425,3 +425,100 @@ def test_transcript_token_conversions_equal_jax():
         np.testing.assert_array_equal(got.numpy(), jp.transcript_to_token(tr, **kw))
         i2t = {v: k for k, v in t2i.items()}
         assert pp.token_to_transcript(got, i2t, 10.0) == jp.token_to_transcript(got.numpy(), i2t, 10.0)
+
+
+def _tar_items_equal(a, b):
+    """Items of two tar or directory datasets: tensors (or numpy arrays)
+    equal bit for bit, ids equal."""
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if x is None or isinstance(x, str):
+            assert x == y
+        else:
+            x, y = _np(x), _np(y)
+            assert x.dtype == y.dtype and x.shape == y.shape
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_spect_tar_data_set_reads_both_packages_tars(populate_data_dir, tmp_path, writer):
+    """Either package's torch-spect-data-dir-to-wds tar (whole and sharded,
+    by a glob) reads in both packages' SpectTarDataSet as the directory:
+    random access, iteration, and the native fetch, bit for bit."""
+    from pydrobert_tpu import command_line as jcl
+    from pydrobert_tpu_torch import command_line as pcl
+
+    root, _, _, _, utt_ids = populate_data_dir(num_utts=7)
+    cmd = (jcl if writer == "jax" else pcl).torch_spect_data_dir_to_wds
+    tar = str(tmp_path / "out.tar")
+    assert not cmd([root, tar])
+    assert not cmd([root, tar, "--shard", "--max-samples-per-shard", "3"])
+    kw = dict(suppress_alis=False, suppress_uttids=False, tokens_only=False)
+    disk = pdata.SpectDataSet(root, **kw)
+    for path in (tar, tar + ".*"):
+        pt, jt = pdata.SpectTarDataSet(path, **kw), jdata.SpectTarDataSet(path, **kw)
+        assert pt.utt_ids == jt.utt_ids == disk.utt_ids and pt.has_ali and pt.has_ref
+        fetched = pt.native_batch_fetch(range(len(pt)))
+        assert any(v is not None for v in pt._native_entries.values())
+        for i in range(len(disk)):
+            for got in (pt[i], fetched[i]):
+                _tar_items_equal(got, disk[i])
+                _tar_items_equal(got, jt[i])
+        streamed = list(pt)
+        assert sorted(t[-1] for t in streamed) == sorted(utt_ids)
+        for item in streamed:
+            _tar_items_equal(item, disk[disk.utt_ids.index(item[-1])])
+        pt.close()
+        jt.close()
+
+
+def test_spect_tar_data_set_params_and_loader_equal_directory(populate_data_dir, tmp_path):
+    """sos/eos, MVN and subsets as the directory dataset and the JAX tar
+    dataset (MVN within FTOL of JAX); the tar dataset's loader batches,
+    read natively, equal the directory loader's bit for bit."""
+    from pydrobert_tpu_torch import command_line as pcl
+
+    root, _, _, _, utt_ids = populate_data_dir(num_utts=9)
+    tar = str(tmp_path / "p.tar")
+    assert not pcl.torch_spect_data_dir_to_wds([root, tar])
+    for params in (dict(sos=1, eos=2), dict(do_mvn=True)):
+        disk = pdata.SpectDataSet(root, params=pdata.SpectDataParams(**params))
+        tds = pdata.SpectTarDataSet(tar, params=pdata.SpectDataParams(**params))
+        jtds = jdata.SpectTarDataSet(tar, params=jdata.SpectDataParams(**params))
+        for i in range(len(disk)):
+            _tar_items_equal(tds[i], disk[i])
+            _assert_items_equal(tds[i], jtds[i], FTOL if params.get("do_mvn") else 0.0)
+    sub = pdata.SpectTarDataSet(tar, subset_ids={utt_ids[0], utt_ids[3]})
+    assert sub.utt_ids == (utt_ids[0], utt_ids[3])
+    lp = pdata.SpectDataLoaderParams(batch_size=4, do_mvn=True)
+    tar_loader = pdata.SpectDataLoader(pdata.SpectTarDataSet(tar, params=lp), lp, seed=3,
+                                       device="cpu")
+    dir_loader = pdata.SpectDataLoader(root, lp, seed=3, device="cpu")
+    tb, db = list(tar_loader), list(dir_loader)
+    assert len(tb) == len(db) == 3
+    assert tar_loader.reads == {"native": 3, "per_item": 0}
+    for a, b in zip(tb, db):
+        _tar_items_equal(a, b)
+
+
+def test_spect_tar_data_set_compressed_reads_member_by_member(populate_data_dir, tmp_path):
+    """A gzip shard has no raw byte ranges: the native fetch reads its
+    members one by one, equal to random access and to the JAX reader."""
+    import gzip
+    import shutil
+
+    from pydrobert_tpu_torch import command_line as pcl
+
+    root, *_ = populate_data_dir(num_utts=4)
+    tar, gz = str(tmp_path / "out.tar"), str(tmp_path / "out.tar.gz")
+    assert not pcl.torch_spect_data_dir_to_wds([root, tar])
+    with open(tar, "rb") as f_in, gzip.open(gz, "wb") as f_out:
+        shutil.copyfileobj(f_in, f_out)
+    tds = pdata.SpectTarDataSet(gz, suppress_alis=False)
+    jtds = jdata.SpectTarDataSet(gz, suppress_alis=False)
+    fetched = tds.native_batch_fetch(range(len(tds)))
+    assert tds._native_entries and all(v is None for v in tds._native_entries.values())
+    for j in range(len(tds)):
+        _tar_items_equal(fetched[j], tds[j])
+        _tar_items_equal(fetched[j], jtds[j])
+    tds.close()

@@ -16,6 +16,8 @@ MODULES = [
     "data.dataloaders",
     "data.datasets",
     "data.params",
+    "data.parsing",
+    "data.textgrid",
     "datamodule",
     "distributions",
     "estimators",
@@ -25,6 +27,7 @@ MODULES = [
     "models.seq2seq",
     "models.transducer",
     "modules",
+    "native",
     "ops.attn",
     "ops.combinatorics",
     "ops.decoding",
@@ -42,40 +45,9 @@ MODULES = [
     "utils.serial",
 ]
 
-# names still to port (ROADMAP.md queue A), by module: A7b (the tar
-# dataset, the other CLI commands, the trn/ctm/TextGrid parsers) and A8
-# (the pipeline and sharding helpers of the models)
+# names still to port (ROADMAP.md queue A): A8's pipeline and sharding
+# helpers of the models
 QUEUED = {
-    "command_line": {
-        "arpa_lm_to_state_dict",
-        "chunk_torch_spect_data_dir",
-        "compute_mvn_stats_for_torch_feat_data_dir",
-        "ctm_to_torch_token_data_dir",
-        "print_arpa_lm_state_dict_info",
-        "print_torch_ali_data_dir_length_moments",
-        "print_torch_ref_data_dir_length_moments",
-        "subset_torch_spect_data_dir",
-        "textgrids_to_torch_token_data_dir",
-        "torch_ali_data_dir_to_torch_token_data_dir",
-        "torch_logit_data_dir_to_torch_ali_data_dir",
-        "torch_spect_data_dir_to_wds",
-        "torch_token_data_dir_to_ctm",
-        "torch_token_data_dir_to_textgrids",
-        "torch_token_data_dir_to_torch_ali_data_dir",
-        "torch_token_data_dir_to_trn",
-        "trn_to_torch_token_data_dir",
-    },
-    "data": {
-        "SpectTarDataSet",
-        "read_ctm",
-        "read_textgrid",
-        "read_trn",
-        "read_trn_iter",
-        "write_ctm",
-        "write_textgrid",
-        "write_trn",
-    },
-    "data.datasets": {"SpectTarDataSet"},
     "models.conformer": {
         "conformer_partition_rules",
         "make_pipeline_train_step",
