@@ -203,7 +203,36 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    epoch three ways; the model's logits aligned on the card equal to the
    CPU's, collapsing to the refs, scored at 0.0 with one ``edit_distance``
    launch a 32-utterance batch; big5 compiled to a state dict on the card
-   equal to the CPU's; each command's wall seconds.
+   equal to the CPU's; each command's wall seconds;
+24. serving artifacts (``export.py``): the serve cell's model exported with
+   ``torch.export`` at spec (32, 2000) as a greedy head and as width-16
+   heads on the scan and on the beam route, each with the default
+   arguments (the kernels' registered operators recorded: the prologue's
+   on the scan route, ``top_m``'s and ``ctc_beam_search``'s on the beam
+   route), and the transducer cell's greedy and width-4 beam heads at
+   (32, 500); all five served in turn by one fresh process that imports
+   no model code (``ARTIFACT_SERVER``): three requests and a padded call
+   (B=20, T=1500 for CTC), every output bit-equal to the live head on the
+   card, ``decode_prologue`` launched once a request there on the scan
+   route, ``top_m`` and ``ctc_beam_search`` once each on the beam route;
+   export seconds, graph nodes, bytes, load, first-call and request ms
+   beside the live request's;
+25. ``parallel/`` on a one-rank group (NCCL with gloo for the CPU side):
+   ``shard_params`` with ``conformer_partition_rules`` on ``make_mesh(1)``
+   (the forward from the gathered shards bit-equal), the pipelined forward
+   and SGD step at pp=1, m=4 held to the plain ones by the training
+   check's criterion (float32 copy, 2 layers, a float64 CPU witness), a
+   sharded (data-parallel) export bit-equal to the live greedy head, and
+   the model and AdamW state (0.8 GB) through an asynchronous sharded save
+   overlapping a step, restored bit for bit; the multi-rank forms run
+   under gloo on the CPU (``tests/test_torch_parallel.py``);
+26. profiling (``utils/profiling.py``, ``utils/hlostats.py``):
+   ``profile_program`` of a served request (its median beside CUDA
+   events, ``measure_sync_overhead``) and the launches of a marked trip of
+   its scan decode, held within 1 launch of what a frame adds between two
+   short decodes; ``compiled_stats`` of the transducer greedy decode, its
+   marked trips' launches a frame within 1 of ``rnnt_greedy``'s traced
+   count; the decode prologue's wrapper beside its registered operator.
 
 ``python3 chip_smoke.py --train-witness N`` runs phase 1, then trains
 phase 5's model N times from N seeds and reports the card-vs-CPU step
@@ -246,8 +275,23 @@ REPS = 7
 INNER = 20  # calls queued between one pair of events
 
 
+PHASE_ENDS = []  # (phase, perf_counter) at each phase line
+
+
 def emit(obj):
+    if isinstance(obj, dict) and "phase" in obj:
+        PHASE_ENDS.append((obj["phase"], time.perf_counter()))
     print(json.dumps(obj), flush=True)
+
+
+def phase_seconds(start):
+    """Seconds from each phase line to the next (from ``start`` for the
+    first), summed by phase name."""
+    out, last = {}, start
+    for name, t in PHASE_ENDS:
+        out[name] = out.get(name, 0.0) + (t - last)
+        last = t
+    return out
 
 
 def smi_line():
@@ -281,13 +325,25 @@ def device_events(prof):
     """The kernels of a torch.profiler trace, summed by name: events with
     device time that are not user annotations (such as the optimizer's
     ``Optimizer.step#AdamW.step`` range, which spans kernels already
-    counted)."""
+    counted). Each has ``key`` (the name), ``count`` and
+    ``self_device_time_total`` (us), as ``key_averages()`` gives them; they
+    are read from the trace's raw events, since building ``key_averages()``
+    parses every host event too (tens of seconds for a decode of 100k
+    launches)."""
+    from types import SimpleNamespace
+
     from torch.autograd import DeviceType
 
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        rec = sums.setdefault(e.name(), [0, 0.0])
+        rec[0] += 1
+        rec[1] += e.duration_ns() / 1e3
     return [
-        a for a in prof.key_averages()
-        if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0
-        and not getattr(a, "is_user_annotation", False)
+        SimpleNamespace(key=name, count=n, self_device_time_total=us)
+        for name, (n, us) in sums.items() if us > 0
     ]
 
 
@@ -2372,6 +2428,7 @@ def phase_rnnt_greedy(pkg):
                                                    "kernel_launches", "top_kernels")},
         "launches_per_frame": profiled["kernel_launches"] / frames,
     })
+    return profiled["kernel_launches"] / frames
 
 
 def phase_rnnt_beam(pkg, LookupLanguageModel):
@@ -4369,6 +4426,669 @@ def phase_corpus(pkg, kernels, cfg=CORPUS, dev="cuda"):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Serving artifacts, the parallel package and the profiling utilities
+# ---------------------------------------------------------------------------
+
+ARTIFACT = dict(
+    model=dict(vocab_size=1024, num_filts=80, d_model=512, num_layers=8, num_heads=8),
+    head_scale=32.0, spec=(N_BATCH, T_RAW), width=WIDTH, requests=N_REQUESTS,
+    pad_call=(20, 1500), rnnt=None, rnnt_spec=(RNNT_B, RNNT_T), rnnt_requests=RNNT_REQUESTS,
+    reps=3, heads=("ctc_greedy", "ctc_w16_scan", "ctc_w16_beam", "rnnt_greedy", "rnnt_beam"),
+)
+
+# The artifacts served in one fresh process that imports torch, the
+# kernels' module and the loader, and no model code: ``python -c
+# ARTIFACT_SERVER JOBS DEVICE REPS``, JOBS a JSON list of ``[name, ART_DIR,
+# IN, OUT]``. IN holds the requests (the last one a padded call); OUT gets
+# the outputs, the launches of the requests, the load, first-call and
+# request times, and the modules of model code the process had imported.
+# The card is initialised first and timed on its own.
+ARTIFACT_SERVER = r"""
+import json, statistics, sys, time
+import torch
+import pydrobert_tpu_torch.ops.kernels as kernels
+from pydrobert_tpu_torch.export import ServingArtifact
+
+jobs, dev, reps = json.loads(sys.argv[1]), sys.argv[2], int(sys.argv[3])
+cuda = dev == "cuda"
+sync = torch.cuda.synchronize if cuda else (lambda: None)
+t0 = time.perf_counter()
+torch.zeros((1,), device=dev).add_(1)
+sync()
+init_ms = (time.perf_counter() - t0) * 1e3
+for name, path, src, dst in jobs:
+    requests = [(f.to(dev), l.to(dev)) for f, l in torch.load(src)]
+    t0 = time.perf_counter()
+    art = ServingArtifact.load(path, device=dev)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    art(*requests[0])
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    kernels.reset_launches()
+    outs = [tuple(y.cpu() for y in art(f, l)) for f, l in requests[:-1]]
+    sync()
+    launches = dict(kernels.LAUNCHES)
+    outs.append(tuple(y.cpu() for y in art(*requests[-1])))
+    times = []
+    for _ in range(reps):
+        if cuda:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            art(*requests[0])
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            art(*requests[0])
+            times.append((time.perf_counter() - t0) * 1e3)
+    del art
+    model_code = sorted(
+        m for m in sys.modules
+        if m.startswith(("pydrobert_tpu_torch.models", "pydrobert_tpu_torch.lm"))
+        or m in ("pydrobert_tpu_torch.ops.decoding", "pydrobert_tpu_torch.ops.transducer",
+                 "pydrobert_tpu_torch.serving", "jax", "pydrobert_tpu")
+    )
+    torch.save({"outs": outs, "launches": launches, "init_ms": init_ms, "load_ms": load_ms,
+                "first_call_ms": first_ms, "request_ms": statistics.median(times),
+                "request_runs_ms": times, "model_code": model_code}, dst)
+"""
+
+
+def artifact_stats(art, path, count_body_kernels):
+    """Nodes of the exported program (its graph and its loop bodies), the
+    kernels' operator nodes in it, and the artifact's bytes on disk."""
+    bodies = count_body_kernels(art._programs[0])
+    return {
+        "graph_nodes": sum(sum(b["ops"].values()) for b in bodies.values()),
+        "loop_body_nodes": {k: sum(b["ops"].values()) for k, b in bodies.items() if k != "main"},
+        "kernel_ops": {
+            op.split("::")[1]: n for b in bodies.values() for op, n in b["ops"].items()
+            if op.startswith("pydrobert_tpu_torch::")
+        },
+        "bytes": sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)),
+    }
+
+
+def serve_artifacts(jobs, work, dev, reps):
+    """``ARTIFACT_SERVER`` in one fresh process for the ``(name, path,
+    requests)`` of ``jobs``, in turn; their records by name, and the
+    process's wall seconds."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    spec = []
+    for name, path, requests in jobs:
+        src, dst = os.path.join(work, f"{name}_in.pt"), os.path.join(work, f"{name}_out.pt")
+        torch.save([(f.cpu(), l.cpu()) for f, l in requests], src)
+        spec.append([name, path, src, dst])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", ARTIFACT_SERVER, json.dumps(spec), dev, str(reps)],
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        err = proc.communicate(timeout=900)[1]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the artifact server failed:\n{err[-4000:]}")
+    recs = {}
+    for name, _, _, dst in spec:
+        recs[name] = torch.load(dst)
+        if recs[name]["model_code"]:
+            raise AssertionError(
+                f"the artifact server imported model code: {recs[name]['model_code']}"
+            )
+    return recs, wall_s
+
+
+def same_outputs(got, exp):
+    """Every output bit-equal (shapes, dtypes and values)."""
+    return len(got) == len(exp) and all(
+        a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+        for a, b in zip(got, exp)
+    )
+
+
+def padded_live(head, call, spec):
+    """The live head on ``call`` zero-padded to ``spec`` (batch and time),
+    its outputs sliced back to the call's rows: what an artifact that pads
+    and slices must give."""
+    f, l = call
+    N, T = spec
+    pf = f.new_zeros((N, T) + tuple(f.shape[2:]))
+    pf[: f.shape[0], : f.shape[1]] = f
+    pl = l.new_zeros((N,))
+    pl[: l.shape[0]] = l
+    return tuple(y[: f.shape[0]] for y in head(pf, pl))
+
+
+def served_check(name, rec, live, expect):
+    """The server's outputs bit-equal to ``live`` (the requests', then the
+    padded call's), and its launches of the requests equal to ``expect``."""
+    bad = [i for i, (g, e) in enumerate(zip(rec["outs"], live)) if not same_outputs(g, e)]
+    if bad or len(rec["outs"]) != len(live):
+        raise AssertionError(f"artifact {name}: calls {bad} differ from the live head")
+    for kernel, n in expect.items():
+        if rec["launches"][kernel] != n:
+            raise AssertionError(
+                f"artifact {name}: {kernel} launched {rec['launches'][kernel]} times, "
+                f"expected {n}"
+            )
+
+
+def phase_artifact(pkg, kernels, cfg=ARTIFACT, dev="cuda"):
+    """Serving artifacts of the serve cell's ConformerCTC (d512/L8/H8/V1024,
+    bf16, head x32) at spec (32, 2000): greedy, width 16 on the scan route
+    and width 16 on the beam route (``USE_BEAM_KERNEL="1"``), each exported
+    with the default arguments (the kernels' operators recorded); then the
+    transducer cell's greedy (2 symbols a frame) and width-4 beam (4 rounds)
+    heads at (32, 500). Each is exported (seconds, graph nodes, the
+    kernels' operator nodes, bytes) and served by ``ARTIFACT_SERVER``, one
+    fresh process that loads and serves the five in turn: three requests
+    and a B=20, T=1500 call padded to the spec and sliced back, every
+    output bit-equal to the live head on the card (the padded call's to the
+    live head on the same zero-padded batch, sliced to its 20 rows), the
+    kernels' launches counted there (one ``decode_prologue`` a request on
+    the scan route, one ``top_m`` and one ``ctc_beam_search`` on the beam
+    route); load, first-call and request times beside the live
+    request's."""
+    import shutil
+    import tempfile
+
+    config, export, ConformerConfig, ConformerCTC, rnnt, count_body_kernels = pkg
+    on_card = dev == "cuda"
+    mcfg = ConformerConfig(**cfg["model"])
+    model = ConformerCTC(mcfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.ctc_head.weight.mul_(cfg["head_scale"])
+    N, T = cfg["spec"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    requests = [
+        (torch.randn((N, T, mcfg.num_filts), generator=gen, device=dev),
+         torch.randint(T // 2, T + 1, (N,), generator=gen, device=dev).to(torch.int32))
+        for _ in range(cfg["requests"])
+    ]
+    pn, pt = cfg["pad_call"]
+    calls = requests + [(requests[0][0][:pn, :pt].contiguous(), requests[0][1][:pn].clamp(max=pt))]
+    work = tempfile.mkdtemp(prefix="pdt_artifacts_")
+    heads, out = {}, {}
+    try:
+        for name, width, route in (
+            ("ctc_greedy", None, "auto"),
+            ("ctc_w16_scan", cfg["width"], "auto"),
+            ("ctc_w16_beam", cfg["width"], "1"),
+        ):
+            if name not in cfg["heads"]:
+                continue
+            saved = config.USE_BEAM_KERNEL
+            config.USE_BEAM_KERNEL = route
+            try:
+                path = os.path.join(work, name)
+                t0 = time.perf_counter()
+                art = export.export_ctc_recognizer(path, model, specs=[cfg["spec"]], width=width)
+                export_s = time.perf_counter() - t0
+                recognize = export.ctc_recognizer(model, width)
+                live = [recognize(f, l) for f, l in requests]
+                live.append(padded_live(recognize, calls[-1], cfg["spec"]))
+                live_ms = cuda_ms(lambda: recognize(*requests[0]), reps=cfg["reps"], inner=1)
+            finally:
+                config.USE_BEAM_KERNEL = saved
+            stats = artifact_stats(art, path, count_body_kernels)
+            heads[name] = (path, live, live_ms, export_s, stats)
+            del art
+        ConformerConfigR, TransducerConfig, ConformerTransducer = rnnt[:3]
+        rcfg = cfg["rnnt"] or rnnt_cfg(rnnt, dropout=0.0)
+        rmodel = rnnt_model(rnnt, rcfg, dev, decisive=True)
+        rn, rt = cfg["rnnt_spec"]
+        rgen = torch.Generator(device=dev).manual_seed(SEED + 20)
+        rreq = [
+            (torch.randn((rn, rt, rcfg.encoder.num_filts), generator=rgen, device=dev),
+             torch.full((rn,), rt, dtype=torch.int32, device=dev))
+            for _ in range(cfg["rnnt_requests"])
+        ]
+        rcalls = rreq + [(rreq[0][0][: rn // 2 + 1, : rt * 3 // 4].contiguous(),
+                          torch.full((rn // 2 + 1,), rt * 3 // 4, dtype=torch.int32, device=dev))]
+        for name, mode, args in (
+            ("rnnt_greedy", "greedy", dict(max_symbols_per_frame=RNNT_GREEDY_E)),
+            ("rnnt_beam", "beam", dict(width=RNNT_W, max_symbols_per_frame=RNNT_BEAM_E)),
+        ):
+            if name not in cfg["heads"]:
+                continue
+            path = os.path.join(work, name)
+            t0 = time.perf_counter()
+            art = export.export_transducer_recognizer(
+                path, rmodel, specs=[cfg["rnnt_spec"]], mode=mode, **args
+            )
+            export_s = time.perf_counter() - t0
+            if mode == "greedy":
+                head = lambda f, l: rmodel.greedy(f, l, RNNT_GREEDY_E)  # noqa: E731
+            else:
+                head = lambda f, l: rmodel.beam(f, l, RNNT_W, RNNT_BEAM_E)  # noqa: E731
+            live = [head(f, l) for f, l in rreq]
+            live.append(padded_live(head, rcalls[-1], cfg["rnnt_spec"]))
+            live_ms = cuda_ms(lambda: head(*rreq[0]), reps=cfg["reps"], inner=1)
+            stats = artifact_stats(art, path, count_body_kernels)
+            heads[name] = (path, live, live_ms, export_s, stats)
+            del art
+        expect = {
+            "ctc_greedy": {}, "rnnt_greedy": {}, "rnnt_beam": {},
+            "ctc_w16_scan": {"decode_prologue": cfg["requests"]} if on_card else {},
+            "ctc_w16_beam": (
+                {"top_m": cfg["requests"], "ctc_beam_search": cfg["requests"]} if on_card else {}
+            ),
+        }
+        # the operators each program records, wherever it is served
+        recorded = {
+            "ctc_greedy": {}, "rnnt_greedy": {}, "rnnt_beam": {},
+            "ctc_w16_scan": {"decode_prologue": 1},
+            "ctc_w16_beam": {"top_m": 1, "ctc_beam_search": 1},
+        }
+        for name, h in heads.items():
+            if h[4]["kernel_ops"] != recorded[name]:
+                raise AssertionError(
+                    f"artifact {name} records the operators {h[4]['kernel_ops']}, "
+                    f"expected {recorded[name]}"
+                )
+        launches = {"decode_prologue": 0, "top_m": 0, "ctc_beam_search": 0}
+        recs, servers_s = serve_artifacts(
+            [(name, h[0], calls if name.startswith("ctc") else rcalls)
+             for name, h in heads.items()],
+            work, dev, cfg["reps"],
+        )
+        for name, (path, live, live_ms, export_s, stats) in heads.items():
+            rec = recs[name]
+            served_check(name, rec, live, expect[name])
+            for k in launches:
+                launches[k] += rec["launches"].get(k, 0)
+            out[name] = {
+                "export_s": export_s, **stats, "load_ms": rec["load_ms"],
+                "first_call_ms": rec["first_call_ms"],
+                "request_ms": rec["request_ms"], "live_request_ms": live_ms,
+                "launches": {k: v for k, v in rec["launches"].items() if v},
+                "bit_equal_calls": len(live),
+            }
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({
+        "phase": "artifact", "nvidia_smi": smi_line(),
+        "ctc_model": "ConformerCTC d512 L8 H8 V1024 bf16, head x32, seeded",
+        "rnnt_model": "ConformerTransducer d256 L4 H4 V1024 bf16 encoder, decisive joint",
+        "ctc_spec": list(cfg["spec"]), "rnnt_spec": list(cfg["rnnt_spec"]),
+        "padded_call": list(cfg["pad_call"]), "requests": cfg["requests"],
+        "server": {"artifacts": len(out), "wall_s": servers_s,
+                   "card_init_ms": next(iter(recs.values()))["init_ms"] if recs else None,
+                   "load": "one fresh process, the artifacts loaded and served in turn"},
+        "heads": out,
+    })
+    return launches
+
+
+PARALLEL = dict(
+    model=dict(vocab_size=1024, num_filts=80, d_model=512, num_layers=8, num_heads=8),
+    step_layers=2, step_batch=(8, 400, 40), microbatches=4, export_spec=(8, 400), lr=1e-2,
+)
+
+
+def _init_group(dev):
+    """A one-rank process group (NCCL with a gloo side for the CPU on the
+    card, gloo on the CPU), unless one is open; whether this made it."""
+    import socket
+
+    dist = torch.distributed
+    if dist.is_initialized():
+        return False
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(
+        "cpu:gloo,cuda:nccl" if dev == "cuda" else "gloo",
+        init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+    )
+    return True
+
+
+def _grads(named):
+    return {k: v.grad.detach().cpu() for k, v in named.items()}
+
+
+def phase_parallel(pkg, cfg=PARALLEL, dev="cuda"):
+    """The parallel package on a one-rank group (the multi-rank forms run
+    under gloo on the CPU against the JAX package: tests/test_torch_parallel.py,
+    world sizes 2 and 4). The serve cell's model placed by ``shard_params``
+    with ``conformer_partition_rules`` on ``make_mesh(1)``: its forward
+    from the gathered shards bit-equal to the plain forward. A float32,
+    2-layer, dropout-0 copy: the pipelined forward (pp=1, m=4) and one
+    pipelined SGD step against the plain step, each card gradient held to a
+    float64 CPU witness by the training check's criterion (C5: max(2.5e-3,
+    2.5 x the CPU's, 1.2 x the card's spread, cuDNN off)). A sharded greedy
+    export (data-parallel, the parameters replicated) bit-equal to the live
+    greedy head, which the artifact phase holds the unsharded artifact to. The model and AdamW state (params,
+    gradients, both moments) saved with ``save_sharded(async_save=True)``,
+    one training step taken while it writes, waited for and restored bit
+    for bit; a synchronous save's time beside it."""
+    import shutil
+    import tempfile
+
+    ConformerConfig, ConformerCTC, conformer, make_train_step, export, parallel = pkg
+    made = _init_group(dev)
+    try:
+        mesh = parallel.make_mesh(1)
+        mcfg = ConformerConfig(**cfg["model"])
+        model = ConformerCTC(mcfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+        sd = model.state_dict()
+        sp = parallel.shard_params(sd, mesh, conformer.conformer_partition_rules)
+        full = parallel.gather_params(sp)
+        B, T, U = cfg["step_batch"]
+        g = torch.Generator().manual_seed(SEED + 40)
+        feats = torch.randn((B, T, mcfg.num_filts), generator=g)
+        lens = torch.randint(T // 2, T + 1, (B,), generator=g)
+        refs = torch.randint(0, mcfg.vocab_size, (B, U), generator=g)
+        ref_lens = torch.randint(U // 2, U + 1, (B,), generator=g)
+        with torch.no_grad():
+            plain = model(feats.to(dev), lens.to(dev))
+            sharded = torch.func.functional_call(model, full, (feats.to(dev), lens.to(dev)))
+        if not all(torch.equal(a, b) for a, b in zip(plain, sharded)):
+            raise AssertionError("parallel: the forward from gathered shards differs")
+        n_sharded = sum(
+            any(type(p).__name__ == "Shard" for p in v.placements) for v in sp.values()
+        )
+
+        # pp=1 pipeline against the plain forward and step, float32
+        scfg = dataclasses.replace(mcfg, num_layers=cfg["step_layers"], dropout=0.0,
+                                   dtype=torch.float32)
+        blocks = tuple(f"block_{i}." for i in range(scfg.num_layers))
+        keep = ("subsample.",) + blocks + ("ctc_head.",)
+        ssd = {k: v.detach().cpu() for k, v in sd.items() if k.startswith(keep)}
+        pmesh = parallel.make_pipeline_mesh(1)
+        m = cfg["microbatches"]
+
+        def plain_step(device, dtype, cudnn=True):
+            net = ConformerCTC(dataclasses.replace(scfg, dtype=dtype), device=device).to(dtype)
+            net.ctc_head.dtype = dtype
+            net.load_state_dict(ssd)
+            opt = torch.optim.SGD(net.parameters(), lr=cfg["lr"])
+            with torch.backends.cudnn.flags(enabled=cudnn):
+                loss = make_train_step(net, opt)(None, feats.to(device, dtype), lens.to(device),
+                                                 refs.to(device), ref_lens.to(device))
+            return net, float(loss), _grads(dict(net.named_parameters()))
+
+        _, loss_card, g_card = plain_step(dev, torch.float32)
+        _, _, g_spread = plain_step(dev, torch.float32, cudnn=False)
+        _, loss_cpu, g_cpu = plain_step("cpu", torch.float32)
+        with float64_casts():
+            _, _, witness = plain_step("cpu", torch.float64)
+        ref_net = ConformerCTC(scfg, device=dev)
+        ref_net.load_state_dict(ssd)
+        pparams = conformer.stack_block_params(
+            {k: v.detach().clone().to(dev).requires_grad_() for k, v in ssd.items()}, 1
+        )
+        with torch.no_grad():
+            lg_plain, ol_plain = ref_net(feats.to(dev), lens.to(dev))
+            lg_pipe, ol_pipe = conformer.make_pipelined_forward(ref_net, pmesh, m)(
+                pparams, feats.to(dev), lens.to(dev)
+            )
+            with torch.backends.cudnn.flags(enabled=False):
+                lg_off, _ = ref_net(feats.to(dev), lens.to(dev))
+        scale = float(lg_plain.abs().max())
+        fwd_err = float((lg_pipe - lg_plain).abs().max()) / scale
+        fwd_spread = float((lg_off - lg_plain).abs().max()) / scale
+        fwd_limit = max(GRAD_FLOOR, GRAD_S * fwd_spread)
+        opt = torch.optim.SGD(list(pparams.values()), lr=cfg["lr"])
+        loss_pipe = float(conformer.make_pipeline_train_step(ref_net, opt, pmesh, m)(
+            pparams, None, feats.to(dev), lens.to(dev), refs.to(dev), ref_lens.to(dev)
+        ))
+        g_pipe = {}
+        for k, v in pparams.items():
+            gk = v.grad.detach().cpu()
+            if k.startswith("blocks."):
+                gk = gk.reshape((-1,) + gk.shape[2:])
+                for i in range(gk.shape[0]):
+                    g_pipe[f"block_{i}.{k[7:]}"] = gk[i]
+            else:
+                g_pipe[k] = gk
+        card_d = grad_distances(g_pipe, witness)
+        ok, worst = grad_criterion(
+            card_d, grad_distances(g_cpu, witness), spread=grad_distances(g_spread, g_card)
+        )
+        failed = []
+        if not (torch.equal(ol_pipe, ol_plain) and fwd_err <= fwd_limit):
+            failed.append(f"pipelined forward: {fwd_err} > {fwd_limit}")
+        if not ok:
+            failed.append(f"pipelined step gradients: {worst}")
+        if not math.isclose(loss_pipe, loss_card, rel_tol=1e-4):
+            failed.append(f"pipelined loss {loss_pipe} vs plain {loss_card}")
+        if failed:
+            raise AssertionError(f"parallel: {failed}")
+
+        # a sharded export against the live greedy head (which the artifact
+        # phase holds the unsharded artifact to, bit for bit)
+        work = tempfile.mkdtemp(prefix="pdt_parallel_")
+        try:
+            spec = cfg["export_spec"]
+            export.export_ctc_recognizer(
+                os.path.join(work, "sharded"), model, specs=[spec], mesh=mesh,
+                partition_rules=conformer.conformer_partition_rules,
+            )
+            art = export.ServingArtifact.load(os.path.join(work, "sharded"), device=dev)
+            f_e = feats[: spec[0], : spec[1]].to(dev)
+            l_e = lens[: spec[0]].clamp(max=spec[1]).to(dev, torch.int32)
+            got, exp = art(f_e, l_e), export.ctc_recognizer(model)(f_e, l_e)
+            if not same_outputs(got, exp):
+                raise AssertionError("parallel: the sharded artifact differs from the live head")
+            mesh_meta = art.meta["mesh"]
+            del art
+
+            # the train cell's state through an asynchronous sharded save
+            opt = torch.optim.AdamW(model.parameters(), lr=LR)
+            step = make_train_step(model, opt)
+            batch = [a.to(dev) for a in (feats, lens, refs, ref_lens)]
+            step(None, *batch)
+            state = {
+                "params": {k: v.detach() for k, v in model.named_parameters()},
+                "grads": {k: v.grad.detach() for k, v in model.named_parameters()},
+                "exp_avg": {k: opt.state[v]["exp_avg"] for k, v in model.named_parameters()},
+                "exp_avg_sq": {k: opt.state[v]["exp_avg_sq"] for k, v in model.named_parameters()},
+            }
+            state = {g: parallel.shard_params(t, mesh, conformer.conformer_partition_rules)
+                     for g, t in state.items()}
+            snapshot = {
+                g: {k: v.to_local().clone() for k, v in t.items()} for g, t in state.items()
+            }
+            n_bytes = sum(
+                v.numel() * v.element_size() for t in snapshot.values() for v in t.values()
+            )
+            path = os.path.join(work, "ckpt")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parallel.save_sharded(path + "_sync", state)
+            torch.cuda.synchronize()
+            sync_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            parallel.save_sharded(path, state, async_save=True)
+            call_ms = (time.perf_counter() - t0) * 1e3
+            t1 = time.perf_counter()
+            step(None, *batch)  # the next step, while the files are written
+            torch.cuda.synchronize()
+            overlap_step_ms = (time.perf_counter() - t1) * 1e3
+            t2 = time.perf_counter()
+            parallel.wait_for_saves()
+            wait_ms = (time.perf_counter() - t2) * 1e3
+            back = parallel.restore_sharded(path, state)
+            exact = all(
+                torch.equal(back[g][k].to_local(), snapshot[g][k]) for g in snapshot
+                for k in snapshot[g]
+            )
+            placed = all(back[g][k].placements == state[g][k].placements
+                         for g in state for k in state[g])
+            if not (exact and placed):
+                raise AssertionError("parallel: the restored checkpoint differs from the save")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    finally:
+        if made:
+            torch.distributed.destroy_process_group()
+    emit({
+        "phase": "parallel", "nvidia_smi": smi_line(),
+        "group": "one rank, " + ("NCCL with gloo for the CPU" if dev == "cuda" else "gloo"),
+        "multi_rank": "pp=2/tp=1, pp=2/tp=2, pp=4, m=4 and 8, shard_params, async checkpoint "
+                      "and a (2, 2) mesh artifact: gloo at world sizes 2 and 4 on the CPU "
+                      "against the JAX package (tests/test_torch_parallel.py)",
+        "mesh": list(mesh.mesh.shape), "sharded_params": n_sharded,
+        "sharded_forward_bit_equal": True,
+        "pipeline": {"pp": 1, "microbatches": m, "layers": scfg.num_layers,
+                     "batch": [B, T, U], "fwd_rel_err": fwd_err, "fwd_spread": fwd_spread,
+                     "loss_plain": loss_card, "loss_pipe": loss_pipe, "loss_cpu": loss_cpu,
+                     "grad_worst": worst},
+        "sharded_export": {"spec": list(cfg["export_spec"]), "mesh": mesh_meta,
+                           "bit_equal_to": "the live greedy head"},
+        "checkpoint": {"bytes": n_bytes, "sync_save_ms": sync_ms, "async_call_ms": call_ms,
+                       "overlap_step_ms": overlap_step_ms, "async_wait_ms": wait_ms,
+                       "restore_bit_exact": exact},
+    })
+
+
+PROFILE_SLACK = 1.0  # launches a frame between a marked trip and a count
+PROFILE_FRAMES = 16  # frames between the two short decodes that count a frame
+
+
+def phase_profiling(pkg, kernels, rnnt_per_frame, cfg=ARTIFACT, dev="cuda"):
+    """``profile_program`` on a served request (the serve cell, width 16):
+    its median beside a CUDA-event time and ``measure_sync_overhead``, and
+    from its ``compiled_stats`` the launches a trip of the scan decode's
+    marked loop; ``compiled_stats`` of the transducer greedy decode (the
+    transducer cell, 2 symbols a frame, ``rnnt_greedy``'s first request);
+    and the decode prologue's wrapper, which launches directly, beside its
+    registered operator, which exported programs call.
+    It fails when a decode's loop is not marked on every trip (a scan decode
+    advances every frame but the first; a greedy decode takes at least a
+    trip a frame), or when the launches a frame that the marked trips give
+    differ by more than ``PROFILE_SLACK`` from a count that does not read
+    the marks: for the scan decode, the launches of a decode of the served
+    logits' first ``2 * PROFILE_FRAMES`` frames less those of its first
+    ``PROFILE_FRAMES``, over ``PROFILE_FRAMES``; for the greedy decode, the
+    launches a frame that ``rnnt_greedy`` traced of the same decode
+    (``rnnt_per_frame``; None skips it), where the slack covers the
+    launches before and after the loop, spread over the frames, and the
+    trips that launch more or less than the median one."""
+    ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch, rnnt, profiling, hlostats = pkg
+    mcfg = ConformerConfig(**cfg["model"])
+    model = ConformerCTC(mcfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.ctc_head.weight.mul_(cfg["head_scale"])
+    N, T = cfg["spec"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    feats = torch.randn((N, T, mcfg.num_filts), generator=gen, device=dev)
+    lens = torch.randint(T // 2, T + 1, (N,), generator=gen, device=dev)
+    recognize = ctc_recognizer(model, cfg["width"])
+    encode = torch.no_grad()(model)
+    logits, out_lens = encode(feats, lens)
+    x = logits.transpose(0, 1).contiguous()
+    frames = x.shape[0]
+    # one profile of a served request: its stats, and the scan decode's
+    # loop inside it
+    sync_s = profiling.measure_sync_overhead()
+    ctc = profiling.profile_program(recognize, feats, lens, calls=2, reps=2)
+    events_ms = cuda_ms(lambda: recognize(feats, lens), reps=cfg["reps"], inner=1)
+    F = min(PROFILE_FRAMES, frames // 2)
+    search = CTCPrefixSearch(cfg["width"])
+    with torch.no_grad():
+        short = [
+            hlostats.compiled_stats(
+                search, x[:n].contiguous(), out_lens.clamp(max=n)
+            )["kernel_launches"]
+            for n in (F, 2 * F)
+        ]
+    decode_per_frame = (short[1] - short[0]) / F
+    out = {"ctc_scan_decode": {
+        "frames": frames, "loop_kernels": ctc["loop_kernels"],
+        "loop_trip_count": ctc["loop_trip_count"], "loop_op_histogram": ctc["loop_op_histogram"],
+        "request_flops": ctc["flops"], "request_bytes_accessed": ctc["bytes_accessed"],
+        "request_transcendentals": ctc["transcendentals"],
+        "request_launches": ctc["kernel_launches"],
+        "short_decode_launches": {str(F): short[0], str(2 * F): short[1]},
+        "decode_launches_per_frame": decode_per_frame,
+        "outside_loop": ctc["kernel_launches"] - ctc["loop_kernels"] * ctc["loop_trip_count"],
+    }, "served_request": {
+        "sync_overhead_ms": sync_s * 1e3, "profile_program_ms": ctc["seconds_per_call"] * 1e3,
+        "cuda_events_ms": events_ms, "us_per_kernel": ctc.get("us_per_kernel"),
+    }}
+    greedy = rnnt[4]
+    rcfg = cfg["rnnt"] or rnnt_cfg(rnnt, dropout=0.0)
+    rmodel = rnnt_model(rnnt, rcfg, dev, decisive=True)
+    rn, rt = cfg["rnnt_spec"]
+    rgen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    rf = torch.randn((rn, rt, rcfg.encoder.num_filts), generator=rgen, device=dev)
+    rl = torch.full((rn,), rt, device=dev)
+    with torch.no_grad():
+        enc, enc_lens = rmodel.encode(rf, rl)
+    step, joint, init = rnnt_decoders(rmodel)
+    decode = lambda: greedy(enc, enc_lens, step, joint, init(rn), rcfg.vocab_size,  # noqa: E731
+                            RNNT_GREEDY_E)
+    with torch.no_grad():
+        rs = hlostats.compiled_stats(decode)
+    rframes = enc.shape[1]
+    loop_per_frame = rs["loop_kernels"] * rs["loop_trip_count"] / rframes
+    out["rnnt_greedy_decode"] = {
+        "frames": rframes, "loop_kernels": rs["loop_kernels"],
+        "loop_trip_count": rs["loop_trip_count"], "loop_op_histogram": rs["loop_op_histogram"],
+        "trips_per_frame": rs["loop_trip_count"] / rframes,
+        "loop_launches_per_frame": loop_per_frame,
+        "trace_launches": rs["kernel_launches"],
+        "trace_launches_per_frame": rs["kernel_launches"] / rframes,
+        "rnnt_greedy_launches_per_frame": rnnt_per_frame,
+    }
+    out["slack_launches_per_frame"] = PROFILE_SLACK
+    failed = []
+    if not (ctc["loop_trip_count"] == frames - 1 and ctc["loop_kernels"] > 0):
+        failed.append(f"scan decode: {ctc['loop_trip_count']} marked trips of "
+                      f"{ctc['loop_kernels']} launches, {frames - 1} frames to advance")
+    if abs(ctc["loop_kernels"] - decode_per_frame) > PROFILE_SLACK:
+        failed.append(f"scan decode: {ctc['loop_kernels']} launches a marked trip, "
+                      f"{decode_per_frame} a frame between two short decodes")
+    if not (rs["loop_trip_count"] >= rframes and rs["loop_kernels"] > 0):
+        failed.append(f"greedy decode: {rs['loop_trip_count']} marked trips, {rframes} frames")
+    if rnnt_per_frame is not None and abs(loop_per_frame - rnnt_per_frame) > PROFILE_SLACK:
+        failed.append(f"greedy decode: its marked trips give {loop_per_frame} launches a "
+                      f"frame, rnnt_greedy traced {rnnt_per_frame}")
+    if failed:
+        raise AssertionError(f"profiling: {failed}")
+    # the decode prologue's wrapper (its checks, then the launch) beside
+    # its registered operator, at the headline shape
+    if dev == "cuda":
+        op = torch.ops.pydrobert_tpu_torch.decode_prologue
+        m = M_HEADLINE
+        out["prologue_dispatch"] = {
+            "wrapper_ms": cuda_ms(lambda: kernels.decode_prologue(x, m)),
+            "operator_ms": cuda_ms(lambda: op(x, m, None)),
+            "wrapper_host_us": host_us(lambda: kernels.decode_prologue(x, m)),
+            "operator_host_us": host_us(lambda: op(x, m, None)),
+        }
+    emit({"phase": "profiling", "nvidia_smi": smi_line(), **out})
+    return out
+
+
+def host_us(fn, calls=200):
+    """Host microseconds a call of ``fn`` takes to queue its work: the
+    median of 5 runs of ``calls`` calls, without a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4402,6 +5122,8 @@ def main(argv):
         from pydrobert_tpu_torch.serving import (
             StreamingCTCRecognizer, StreamingTransducerRecognizer,
         )
+        from pydrobert_tpu_torch import export, parallel
+        from pydrobert_tpu_torch.utils import hlostats, profiling
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
@@ -4411,7 +5133,7 @@ def main(argv):
     train_pkg = (ConformerConfig, ConformerCTC, adamw, make_train_step, img)
 
     smi = smi_line()
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.load_library()
     build_s = time.perf_counter() - t0
     log = _build.build_log()
@@ -4475,7 +5197,7 @@ def main(argv):
     )
     rnnt = (ConformerConfig, TransducerConfig, ConformerTransducer, make_transducer_train_step,
             transducer_greedy_search, transducer_beam_search, lookup_lm_fusion)
-    phase_rnnt_greedy(rnnt)
+    rnnt_per_frame = phase_rnnt_greedy(rnnt)
     phase_rnnt_beam(rnnt, LookupLanguageModel)
     phase_rnnt_stream(rnnt, StreamingTransducerRecognizer)
     phase_rnnt_train(rnnt, adamw)
@@ -4498,16 +5220,29 @@ def main(argv):
     moe_launches = phase_moe(train_pkg, kernels)
     remat_launches = phase_remat(train_pkg, kernels, conformer)
     corpus_launches = phase_corpus(train_pkg + (tdata, command_line, serial, native), kernels)
+    kernels.reset_launches()
+    artifact_launches = phase_artifact(
+        (config, export, ConformerConfig, ConformerCTC, rnnt, hlostats.count_body_kernels),
+        kernels,
+    )
+    phase_parallel((ConformerConfig, ConformerCTC, conformer, make_train_step, export, parallel))
+    phase_profiling(
+        (ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch, rnnt, profiling,
+         hlostats),
+        kernels, rnnt_per_frame,
+    )
 
     csrc = "pydrobert_tpu_torch/csrc/"
     rows = []
     times["decode_prologue"]["launches_by_path"] = {
         "serve": launches["decode_prologue"], "lm serve": lm_launches["decode_prologue"],
         "blankskip": skip_launches["decode_prologue"],
+        "artifact": artifact_launches["decode_prologue"],
     }
     for name in ("top_m", "ctc_beam_search"):
         times[name]["launches_by_path"] = {
             "beam serve": beam_launches[name], "blankskip": skip_beam_launches[name],
+            "artifact": artifact_launches[name],
         }
     times["edit_distance"]["launches_by_path"] = {
         "score": score_launches["edit_distance"],
@@ -4522,11 +5257,11 @@ def main(argv):
         k: v["spec_augment_apply"] for k, v in sa_paths.items()
     }
     for name, src, replaces, path, n in (
-        ("decode_prologue", "prologue.cu", 1664, "serve, lm serve, blankskip",
+        ("decode_prologue", "prologue.cu", 1664, "serve, lm serve, blankskip, artifact",
          launches["decode_prologue"] + lm_launches["decode_prologue"]
-         + skip_launches["decode_prologue"]),
-        ("top_m", "prologue.cu", 1359, "beam serve, blankskip",
-         beam_launches["top_m"] + skip_beam_launches["top_m"]),
+         + skip_launches["decode_prologue"] + artifact_launches["decode_prologue"]),
+        ("top_m", "prologue.cu", 1359, "beam serve, blankskip, artifact",
+         beam_launches["top_m"] + skip_beam_launches["top_m"] + artifact_launches["top_m"]),
         ("spec_augment_apply", "spec_augment.cu", 180, "train, recipe, moe, remat, corpus",
          sum(v["spec_augment_apply"] for v in sa_paths.values())),
         ("edit_distance", "edit_distance.cu", 49,
@@ -4534,14 +5269,17 @@ def main(argv):
          score_launches["edit_distance"] + mer_launches["edit_distance"]
          + reinforce_launches["edit_distance"] + recipe_launches["edit_distance"]
          + corpus_launches["edit_distance"]),
-        ("ctc_beam_search", "ctc_beam.cu", 649, "beam serve, blankskip",
-         beam_launches["ctc_beam_search"] + skip_beam_launches["ctc_beam_search"]),
+        ("ctc_beam_search", "ctc_beam.cu", 649, "beam serve, blankskip, artifact",
+         beam_launches["ctc_beam_search"] + skip_beam_launches["ctc_beam_search"]
+         + artifact_launches["ctc_beam_search"]),
     ):
         rows.append({
             "name": name, "route": "cuda", "source": csrc + src,
             "replaces": f"pydrobert_tpu/ops/pallas.py:{replaces}", "path": path,
             "launches": n, "max_abs_err": errs[name], **times[name],
         })
+    emit({"phase_seconds": phase_seconds(t_start),
+          "total_s": time.perf_counter() - t_start})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit(ok_line())

@@ -31,9 +31,15 @@ and :func:`make_train_step` adds ``moe_aux_weight`` times their sum
 (:func:`moe_aux_loss`). With ``remat=True`` each block recomputes its
 activations in the backward pass (:func:`_remat_block`), replaying the
 step generator's dropout bits. Sequence sharding is not ported.
+
+:func:`conformer_partition_rules` gives the tensor-parallel layout of the
+state dict for :func:`pydrobert_tpu_torch.parallel.shard_params`;
+:func:`stack_block_params`, :func:`make_pipelined_forward` and
+:func:`make_pipeline_train_step` run the block stack as GPipe stages.
 """
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -49,11 +55,18 @@ __all__ = [
     "ConformerCTC",
     "ConformerConfig",
     "adamw",
+    "conformer_partition_rules",
     "ctc_loss",
+    "make_pipeline_train_step",
+    "make_pipelined_forward",
     "make_train_step",
     "moe_aux_loss",
+    "pipeline_partition_rules",
+    "pipelined_encoder_forward",
+    "stack_block_params",
     "state_dict_from_jax",
     "streaming_logits",
+    "unstack_block_params",
 ]
 
 
@@ -297,10 +310,13 @@ class _Attention(nn.Module):
         def heads(x):  # (N, T, d) -> (N, H, T, hd)
             return x.view(N, T, H, hd).transpose(1, 2)
 
-        # flax divides the query by sqrt(depth) cast to the compute dtype
-        q = heads(self.query(y)) / torch.tensor(
-            math.sqrt(hd), dtype=torch.float32
-        ).to(self.dtype)
+        # flax divides the query by sqrt(depth) cast to the compute dtype; a
+        # Python float, so an exported program holds no host tensor that a
+        # move to another device would change (a card divides by a host
+        # scalar as a product with its reciprocal)
+        q = heads(self.query(y)) / _in_dtype(
+            _in_dtype(math.sqrt(hd), torch.float32), self.dtype
+        )
         k, v = heads(self.key(y)), heads(self.value(y))
         scores = torch.matmul(q, k.transpose(-1, -2))  # (N, H, T, T)
         scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
@@ -837,6 +853,230 @@ def make_train_step(
         loss = ctc_loss(logits, out_lens, refs, ref_lens, blank_id)
         if cfg.num_experts > 1:
             loss = loss + cfg.moe_aux_weight * moe_aux_loss(aux)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Tensor and pipeline parallelism: partition rules over the port's state
+# dict names, and the block stack as GPipe stages
+# (pydrobert_tpu_torch.parallel.pipeline) with the subsampler and the CTC
+# head outside the pipeline.
+# ---------------------------------------------------------------------------
+
+
+def _names(path) -> Tuple[str, ...]:
+    return tuple(path.split(".")) if isinstance(path, str) else tuple(str(p) for p in path)
+
+
+def conformer_partition_rules(path, leaf: torch.Tensor):
+    """Tensor-parallel :class:`~pydrobert_tpu_torch.parallel.PartitionSpec`
+    of a :class:`ConformerCTC` parameter, by its state dict name (a dotted
+    string or its parts): the JAX package's Megatron layout in PyTorch's
+    ``(out, in)`` weight layout. Expand projections (feed-forward ``wi``,
+    attention query/key/value, the CTC head) split their output features
+    over ``model``, contract projections (feed-forward ``wo``, attention
+    ``out``) their input features; mixture-of-experts weights split their
+    expert axis; everything else (norms, biases, convolutions) is
+    replicated."""
+    from ..parallel.mesh import MODEL_AXIS, PartitionSpec
+
+    names = _names(path)
+    joined = ".".join(names)
+    last = names[-1] if names else ""
+    if ".moe." in f".{joined}.":
+        if last in ("wi", "wo") and leaf.dim() == 3:
+            return PartitionSpec(MODEL_AXIS, None, None)
+        if last in ("bi", "bo") and leaf.dim() == 2:
+            return PartitionSpec(MODEL_AXIS, None)
+    if leaf.dim() == 2 and last == "weight":
+        if len(names) >= 2 and names[-2] == "wi":
+            return PartitionSpec(MODEL_AXIS, None)
+        if len(names) >= 2 and names[-2] == "wo":
+            return PartitionSpec(None, MODEL_AXIS)
+        if any(f"attn.{w}." in joined for w in ("query", "key", "value")):
+            return PartitionSpec(MODEL_AXIS, None)  # heads are output rows
+        if "attn.out." in joined:
+            return PartitionSpec(None, MODEL_AXIS)
+        if names[0] == "ctc_head":
+            return PartitionSpec(MODEL_AXIS, None)
+    return PartitionSpec()
+
+
+def _stack(params: Dict[str, torch.Tensor], pp: int, prefix: str) -> Dict[str, torch.Tensor]:
+    blocks: Dict[str, Dict[int, torch.Tensor]] = {}
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in params.items():
+        if k.startswith(prefix + "block_"):
+            i, rest = k[len(prefix) + 6 :].split(".", 1)
+            blocks.setdefault(rest, {})[int(i)] = v
+        else:
+            out[k] = v
+    L = len(next(iter(blocks.values()))) if blocks else 0
+    if not L or L % pp:
+        raise ValueError(f"num_layers {L} not divisible by pipeline {pp}")
+    for rest, layers in blocks.items():
+        x = torch.stack([layers[i].detach() for i in range(L)])
+        out[f"{prefix}blocks.{rest}"] = x.reshape((pp, L // pp) + x.shape[1:]).requires_grad_(
+            layers[0].requires_grad
+        )
+    return out
+
+
+def _unstack(pparams: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in pparams.items():
+        if not k.startswith(prefix + "blocks."):
+            out[k] = v
+            continue
+        rest = k[len(prefix) + 7 :]
+        flat = v.detach().reshape((v.shape[0] * v.shape[1],) + v.shape[2:])
+        for i in range(flat.shape[0]):
+            out[f"{prefix}block_{i}.{rest}"] = flat[i]
+    return out
+
+
+def stack_block_params(params: Dict[str, torch.Tensor], pipeline_parallelism: int):
+    """A :class:`ConformerCTC` state dict in pipeline form: the ``block_i.*``
+    tensors become ``blocks.*`` tensors with leading axes ``(pp,
+    layers_per_stage)``, stage-major (new leaf tensors, requiring grad as
+    the blocks' did); every other entry is the same tensor object.
+    ``num_layers`` must divide by ``pipeline_parallelism``."""
+    return _stack(params, pipeline_parallelism, "")
+
+
+def unstack_block_params(pparams: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`stack_block_params` (views of the stacked
+    tensors, detached)."""
+    return _unstack(pparams, "")
+
+
+def pipeline_partition_rules(path, leaf: torch.Tensor):
+    """Partition rules of pipeline-form parameters: the block stacks split
+    their stage axis over ``pipe``; everything outside the pipeline keeps
+    :func:`conformer_partition_rules`' layout."""
+    from ..parallel.mesh import PartitionSpec
+    from ..parallel.pipeline import PIPE_AXIS
+
+    names = _names(path)
+    if names and names[0] == "blocks":
+        return PartitionSpec(PIPE_AXIS)
+    return conformer_partition_rules(path, leaf)
+
+
+@functools.lru_cache(maxsize=None)
+def _template(cls, cfg: ConformerConfig) -> nn.Module:
+    """A parameterless ``cls(cfg)`` (on the meta device) to run with given
+    parameters through :func:`torch.func.functional_call`."""
+    with torch.device("meta"):
+        return cls(cfg)
+
+
+def _prefixed(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+def _warn_pipeline_dropout(cfg: ConformerConfig) -> None:
+    import warnings
+
+    if cfg.dropout:
+        warnings.warn(
+            "the pipelined forward is deterministic: cfg.dropout="
+            f"{cfg.dropout} will NOT be applied (regularize via the augment "
+            "hook, or set dropout=0.0 to silence this)",
+            stacklevel=3,
+        )
+    if cfg.num_experts > 1:
+        warnings.warn(
+            "the pipelined forward routes MoE experts but DROPS the router "
+            "load-balance aux loss (it does not cross the pipeline's "
+            "stages); train MoE configs with the non-pipelined step or "
+            "accept unbalanced routing",
+            stacklevel=3,
+        )
+
+
+def pipelined_encoder_forward(cfg: ConformerConfig, enc_pparams, feats, lens, mesh, n_microbatches):
+    """The pipeline-form conformer encoder: the front (mask, subsampler,
+    positions) outside the pipeline, the block stack as GPipe stages over
+    ``mesh``'s ``pipe`` axis (:func:`~pydrobert_tpu_torch.parallel.
+    pipeline_apply`). ``enc_pparams`` holds ``subsample.*`` and ``blocks.*``
+    (:func:`stack_block_params`). Returns ``(x, pad_mask, out_lens)`` as
+    :func:`_encoder_body` does, deterministic (no dropout)."""
+    from ..parallel.pipeline import pipeline_apply
+
+    dev = enc_pparams["subsample.proj.weight"].device
+    feats = feats.to(dev)
+    lens = lens.to(dev, torch.long)
+    in_mask = torch.arange(feats.shape[1], device=dev)[None] < lens[:, None]
+    feats = feats * in_mask[..., None].to(feats.dtype)
+    x = torch.func.functional_call(
+        _template(_ConvSubsample, cfg), _prefixed(enc_pparams, "subsample."),
+        (feats.to(cfg.dtype),),
+    )
+    out_lens = (((lens + 1) // 2) + 1) // 2
+    T4 = x.shape[1]
+    pad_mask = torch.arange(T4, device=dev)[None] < out_lens[:, None]
+    x = x + _sinusoidal_pos_emb(T4, cfg.d_model, cfg.dtype, dev)[None]
+    block = _template(_ConformerBlock, cfg)
+
+    def stage_fn(params, h, pm):
+        for j in range(next(iter(params.values())).shape[0]):
+            h, _ = torch.func.functional_call(
+                block, {k: v[j] for k, v in params.items()}, (h, pm)
+            )
+        return h
+
+    x = pipeline_apply(
+        stage_fn, _prefixed(enc_pparams, "blocks."), x, extras=pad_mask,
+        mesh=mesh, n_microbatches=n_microbatches,
+    )
+    return x, pad_mask, out_lens
+
+
+def make_pipelined_forward(model: ConformerCTC, mesh, n_microbatches: int) -> Callable:
+    """``fwd(pparams, feats, lens) -> (logits, out_lens)`` with the block
+    stack as a GPipe pipeline over ``mesh``'s ``pipe`` axis; ``pparams`` is
+    pipeline-form (:func:`stack_block_params`). Deterministic (no dropout;
+    it warns when the config has some). The same operators as ``model``'s
+    deterministic forward."""
+    cfg = model.cfg
+    _warn_pipeline_dropout(cfg)
+
+    def fwd(pparams, feats, lens):
+        x, _, out_lens = pipelined_encoder_forward(cfg, pparams, feats, lens, mesh, n_microbatches)
+        logits = F.linear(x.float(), pparams["ctc_head.weight"], pparams["ctc_head.bias"])
+        return logits, out_lens
+
+    return fwd
+
+
+def make_pipeline_train_step(
+    model: ConformerCTC,
+    optimizer: torch.optim.Optimizer,
+    mesh,
+    n_microbatches: int,
+    augment: Optional[Callable] = None,
+) -> Callable:
+    """The pipeline-parallel :func:`make_train_step`: ``step(pparams,
+    generator, feats, feat_lens, refs, ref_lens) -> loss``, ``pparams`` the
+    pipeline-form tensors (:func:`stack_block_params`) that ``optimizer``
+    updates. ``augment`` maps ``(generator, feats, lens) -> feats``; the
+    forward is deterministic. Every rank calls it with the same batch; the
+    backward runs the pipeline's reverse schedule, so every rank's
+    ``pparams`` take the same update."""
+    blank_id = model.cfg.vocab_size
+    fwd = make_pipelined_forward(model, mesh, n_microbatches)
+
+    def step(pparams, generator, feats, feat_lens, refs, ref_lens):
+        if augment is not None:
+            feats = augment(generator, feats, feat_lens)
+        logits, out_lens = fwd(pparams, feats, feat_lens)
+        loss = ctc_loss(logits, out_lens, refs, ref_lens, blank_id)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()

@@ -62,10 +62,15 @@ __all__ = [
     "ConformerTransducer",
     "TransducerConfig",
     "lookup_lm_fusion",
+    "make_transducer_pipeline_train_step",
     "make_transducer_train_step",
     "state_dict_from_jax",
     "streaming_transducer_beam",
     "streaming_transducer_greedy",
+    "transducer_partition_rules",
+    "transducer_pipeline_partition_rules",
+    "transducer_stack_block_params",
+    "transducer_unstack_block_params",
 ]
 
 # the most joint entries one slab of the streamed training joint may hold
@@ -166,7 +171,12 @@ class _LSTM(nn.Module):
         """The cell on one input ``x (N, d_in)`` with :meth:`weights`:
         ``(h, (c, h))``."""
         c, h = carry
-        h, c = torch.lstm_cell(x, (h, c), weights[0], weights[1], None, weights[2])
+        b_ih = None
+        if torch.compiler.is_exporting():
+            # the traced fused cell's shape function reads the input bias's
+            # device (PyTorch 2.11): trace a zero one (a + 0.0 in the gates)
+            b_ih = torch.zeros_like(weights[2])
+        h, c = torch.lstm_cell(x, (h, c), weights[0], weights[1], b_ih, weights[2])
         return h, (c, h)
 
 
@@ -495,6 +505,118 @@ def make_transducer_train_step(
         )
         if enc.num_experts > 1:
             loss = loss + enc.moe_aux_weight * moe_aux_loss(aux)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Tensor and pipeline parallelism (the JAX package's transducer helpers)
+# ---------------------------------------------------------------------------
+
+
+def transducer_partition_rules(path, leaf: torch.Tensor):
+    """Tensor-parallel partition spec of a :class:`ConformerTransducer`
+    parameter by its state dict name: the encoder's entries take
+    :func:`~pydrobert_tpu_torch.models.conformer_partition_rules`; the
+    joint's ``enc_proj`` and ``pred_proj`` split their output features and
+    ``out`` its input features over ``model``; the embedding and the LSTM
+    are replicated (its recurrence is serial)."""
+    from ..parallel.mesh import MODEL_AXIS, PartitionSpec
+    from .conformer import _names, conformer_partition_rules
+
+    names = _names(path)
+    if names and names[0] == "encoder":
+        return conformer_partition_rules(names[1:], leaf)
+    if leaf.dim() == 2 and names[-1] == "weight" and names[0] == "joint":
+        if names[1] in ("enc_proj", "pred_proj"):
+            return PartitionSpec(MODEL_AXIS, None)
+        if names[1] == "out":
+            return PartitionSpec(None, MODEL_AXIS)
+    return PartitionSpec()
+
+
+def transducer_stack_block_params(params: Dict[str, torch.Tensor], pipeline_parallelism: int):
+    """A :class:`ConformerTransducer` state dict in pipeline form: the
+    encoder's ``block_i`` entries stacked stage-major into
+    ``encoder.blocks.*`` (:func:`~pydrobert_tpu_torch.models.
+    stack_block_params`); the predictor and joint entries unchanged."""
+    from .conformer import _stack
+
+    return _stack(params, pipeline_parallelism, "encoder.")
+
+
+def transducer_unstack_block_params(pparams: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`transducer_stack_block_params`."""
+    from .conformer import _unstack
+
+    return _unstack(pparams, "encoder.")
+
+
+def transducer_pipeline_partition_rules(path, leaf: torch.Tensor):
+    """Partition rules of pipeline-form transducer parameters: the encoder's
+    block stacks split their stage axis over ``pipe``; everything else
+    keeps :func:`transducer_partition_rules`' layout."""
+    from ..parallel.mesh import PartitionSpec
+    from ..parallel.pipeline import PIPE_AXIS
+    from .conformer import _names
+
+    names = _names(path)
+    if len(names) >= 2 and names[0] == "encoder" and names[1] == "blocks":
+        return PartitionSpec(PIPE_AXIS)
+    return transducer_partition_rules(path, leaf)
+
+
+class _Decoder(nn.Module):
+    """The predictor and the joint's node log-probabilities over the whole
+    utterance in one slab, for :func:`torch.func.functional_call`."""
+
+    def __init__(self, model: ConformerTransducer):
+        super().__init__()
+        self.predictor = model.predictor
+        self.joint = model.joint
+
+    def forward(self, enc, refs):
+        refs = refs.to(enc.device).long()
+        pred = self.predictor(refs)
+        return _slab(self.joint, enc, pred, refs[:, None, :, None])
+
+
+def make_transducer_pipeline_train_step(
+    model: ConformerTransducer,
+    optimizer: torch.optim.Optimizer,
+    mesh,
+    n_microbatches: int,
+    augment: Optional[Callable] = None,
+) -> Callable:
+    """The pipeline-parallel :func:`make_transducer_train_step`:
+    ``step(pparams, generator, feats, feat_lens, refs, ref_lens) -> loss``,
+    ``pparams`` the pipeline-form tensors
+    (:func:`transducer_stack_block_params`) that ``optimizer`` updates. The
+    encoder's block stack runs as GPipe stages over ``mesh``'s ``pipe``
+    axis (:func:`~pydrobert_tpu_torch.models.pipelined_encoder_forward`);
+    the predictor, the joint and the transducer loss run after it on every
+    rank, the joint in one slab (the streamed joint's recomputation would
+    read the model's own parameters). Deterministic: dropout is not applied
+    (regularize via ``augment``)."""
+    from .conformer import _prefixed, _warn_pipeline_dropout, pipelined_encoder_forward
+
+    cfg = model.cfg
+    _warn_pipeline_dropout(cfg.encoder)
+    dec = _Decoder(model)
+
+    def step(pparams, generator, feats, feat_lens, refs, ref_lens):
+        if augment is not None:
+            feats = augment(generator, feats, feat_lens)
+        x, _, out_lens = pipelined_encoder_forward(
+            cfg.encoder, _prefixed(pparams, "encoder."), feats, feat_lens, mesh, n_microbatches
+        )
+        dec_params = {k: v for k, v in pparams.items() if not k.startswith("encoder.")}
+        blank_lp, emit_lp = torch.func.functional_call(dec, dec_params, (x.float(), refs))
+        loss = transducer_loss(blank_lp, emit_lp, out_lens, ref_lens.to(x.device))
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()

@@ -12,7 +12,10 @@ non-extension; the sparse advance, which adds each beam's stored n-gram
 corrections; or the dense advance over every extension. All three end in
 one shared bookkeeping tail. Every candidate selection is an exact top-k
 in the IEEE total order with ties lowest index first, so hypotheses,
-lengths and beam order match the JAX search exactly.
+lengths and beam order match the JAX search exactly. While
+:func:`torch.export.export` traces a search, its frame loop is one
+``scan`` over the same body (:func:`~pydrobert_tpu_torch.ops._loops.
+frame_loop`), as the JAX package's is a ``lax.scan``.
 
 The JAX package's TPU layout devices (the rank-compaction top-K, one-hot
 contractions and where-reduces in place of gathers, the float16 path
@@ -46,6 +49,7 @@ from ..lm import (
     SequentialLanguageModel,
 )
 from ..utils import pytree as _pytree
+from ._loops import frame_loop
 from ._softmax import log_softmax
 from .kernels import ctc_beam_search, ctc_beam_search_fits, decode_prologue
 from .topk import exact_top_k, hoisted_top_k
@@ -715,25 +719,32 @@ class CTCPrefixSearch(torch.nn.Module):
                 logZ1 = float(np.log(lm._sum_u)) if lm._sum_u > 0 else 0.0
                 top_vals = top_vals * float(np.exp(-beta * logZ1))
 
-        def am_at(t, toks):
-            """Acoustic probabilities of tokens ``(N, Q)`` at frame t."""
+        # the per-frame slices each advance reads, frame-major
+        if route == "dense":
+            frames = (nonext_probs, blank_probs)
+        else:
+            frames = (top_vals, top_inds, logits, sm_max, sm_den, blank_probs)
+
+        def am_at(fr, toks):
+            """Acoustic probabilities of tokens ``(N, Q)`` at frame ``fr``."""
+            _, _, lg_t, mx_t, den_t, _ = fr
             tok = toks.clamp(0, V - 1)
-            raw = torch.gather(logits[t], 1, tok).float().clamp_min(-1e30)
-            return torch.exp(raw - sm_max[t][:, None]) / sm_den[t][:, None]
+            raw = torch.gather(lg_t, 1, tok).float().clamp_min(-1e30)
+            return torch.exp(raw - mx_t[:, None]) / den_t[:, None]
 
         def uni_at(toks):
             return uni_cl[toks.clamp(0, V - 1)]
 
-        def lm_ext_probs(y_buf, y_lens_flat, state, t, Kp):
+        def lm_ext_probs(fr, y_buf, y_lens_flat, state, Kp):
             """Dense route: fused extension probabilities ``(N, Kp, V)``."""
+            nonext_t, blank_t = fr
             hist = y_buf.permute(2, 0, 1).reshape(T, N * Kp)
             lm_lp, in_next = lm.calc_idx_log_probs(hist, state, y_lens_flat)
-            nonext_t = nonext_probs[t]
             if self.valid_mixture:
                 lm_probs = (
                     beta
                     * torch.softmax(lm_lp, -1).reshape(N, Kp, V)
-                    * (1 - blank_probs[t].reshape(N, 1, 1))
+                    * (1 - blank_t.reshape(N, 1, 1))
                 )
                 ext = (1.0 - beta) * nonext_t[:, None] + lm_probs
             else:
@@ -741,28 +752,29 @@ class CTCPrefixSearch(torch.nn.Module):
                 ext = lm_probs * nonext_t[:, None]
             return ext, in_next
 
-        def advance(t, nb, b, y_buf, y_last, y_lens, is_prefix, state, ctx, valid):
+        def advance(fr, nb, b, y_buf, y_last, y_lens, is_prefix, state, ctx, valid):
             """One frame on this search's route; returns the tail's outputs
             and the LM's next-state candidate."""
             Kp = nb.shape[1]
-            if route == "sparse":
-                return _ctc_prefix_search_advance_sparse(
-                    (top_vals[t], top_inds[t]), partial(am_at, t), uni_at,
-                    blank_probs[t], beta, lm.sparse_corrections_ext(ctx), W,
-                    (nb, b), y_buf, y_last, y_lens, is_prefix, V, valid,
-                ), state
             if route == "dense":
-                ext, in_next = lm_ext_probs(y_buf, y_lens.reshape(-1), state, t, Kp)
+                ext, in_next = lm_ext_probs(fr, y_buf, y_lens.reshape(-1), state, Kp)
                 return ctc_prefix_search_advance(
-                    (ext, nonext_probs[t], blank_probs[t]), W, (nb, b),
+                    (ext, fr[0], fr[1]), W, (nb, b),
                     y_buf, y_last, y_lens, is_prefix, valid,
                 ), in_next
-            p_last = am_at(t, y_last)
+            top_vals_t, top_inds_t, blank_t = fr[0], fr[1], fr[5]
+            if route == "sparse":
+                return _ctc_prefix_search_advance_sparse(
+                    (top_vals_t, top_inds_t), partial(am_at, fr), uni_at,
+                    blank_t, beta, lm.sparse_corrections_ext(ctx), W,
+                    (nb, b), y_buf, y_last, y_lens, is_prefix, V, valid,
+                ), state
+            p_last = am_at(fr, y_last)
             p_last_ext = None
             if route == "uni":
                 p_last_ext = p_last * torch.exp(beta * (uni_at(y_last) - logZ1))
             return ctc_prefix_search_advance_factored(
-                (top_vals[t], top_inds[t]), blank_probs[t], p_last, W,
+                (top_vals_t, top_inds_t), blank_t, p_last, W,
                 (nb, b), y_buf, y_last, y_lens, is_prefix, V, valid, p_last_ext,
             ), state
 
@@ -792,7 +804,10 @@ class CTCPrefixSearch(torch.nn.Module):
         (
             (y_buf, y_last, y_lens, (nb, b), is_prefix, next_src, next_ext, next_is_nonext),
             in_next,
-        ) = advance(0, nb0, b0, buf0, zeros_i, zeros_i, is_prefix0, prev, ctx, None)
+        ) = advance(
+            tuple(f[0] for f in frames), nb0, b0, buf0, zeros_i, zeros_i, is_prefix0,
+            prev, ctx, None,
+        )
         state = fuse_state(prev, in_next, next_src, next_is_nonext, 1)
         # rows with lens == 0 keep the empty prefix
         valid0 = (lens > 0)[:, None]
@@ -805,15 +820,16 @@ class CTCPrefixSearch(torch.nn.Module):
                 valid0[None], next_ctx(ctx, next_src, next_ext, next_is_nonext), lm.sos
             )
 
-        # int32 accumulator of the power-of-two rescales (config.DECODE_RENORM)
-        ls = torch.zeros((N,), dtype=torch.int32, device=dev)
-        for t in range(1, T):
+        def frame(carry, fr, t):
+            """Frames 1 .. T - 1: the search's loop body (``t`` an int, or
+            a 0-d tensor inside the exported scan)."""
+            y_buf, y_last, y_lens, nb, b, is_prefix, ls, state, ctx = carry
             valid = (t < lens)[:, None]
             (
                 (y_buf, y_next_last, y_next_lens, (nb_next, b_next), next_is_prefix,
                  next_src, next_ext, next_is_nonext),
                 in_next,
-            ) = advance(t, nb, b, y_buf, y_last, y_lens, is_prefix, state, ctx, valid)
+            ) = advance(fr, nb, b, y_buf, y_last, y_lens, is_prefix, state, ctx, valid)
             state_next = fuse_state(state, in_next, next_src, next_is_nonext, W)
             y_lens = torch.where(valid, y_next_lens, y_lens)
             nb = torch.where(valid, nb_next, nb)
@@ -846,9 +862,15 @@ class CTCPrefixSearch(torch.nn.Module):
                 state = _pytree.tree_map(keep, state_next, state)
             else:
                 state = state_next
-            # frozen rows carry junk here; they are never advanced again
-            y_last = y_next_last
-            is_prefix = next_is_prefix
+            # frozen rows carry junk in y_last and is_prefix; they are never
+            # advanced again
+            return y_buf, y_next_last, y_lens, nb, b, next_is_prefix, ls, state, ctx
+
+        # int32 accumulator of the power-of-two rescales (config.DECODE_RENORM)
+        ls = torch.zeros((N,), dtype=torch.int32, device=dev)
+        carry = (y_buf, y_last, y_lens, nb, b, is_prefix, ls, state, ctx)
+        carry = frame_loop(frame, carry, frames, 1, T, "ctc_prefix_search")
+        y_buf, _, y_lens, nb, b, _, ls, _, _ = carry
 
         y = y_buf.permute(2, 0, 1)  # (T, N, W)
         y_probs = nb + b

@@ -12,6 +12,19 @@ A wrapper given a CPU tensor runs the plain version. Given a CUDA tensor it
 checks dtype, shape and contiguity, launches the kernel on the current
 stream and adds one to its entry of :data:`LAUNCHES`, or raises: it never
 falls back to the plain version.
+
+Each kernel is also a :mod:`torch.library` operator in the
+``pydrobert_tpu_torch`` namespace (``torch.ops.pydrobert_tpu_torch.
+decode_prologue``, ``top_m``, ``spec_augment_apply``, ``edit_distance``,
+``ctc_beam_search``): its CUDA implementation is the launch above, its CPU
+implementation the plain version, and a fake implementation gives the
+output shapes. Importing this module registers the operators. An eager
+wrapper calls the launch or the plain version directly, without the
+dispatcher; a wrapper traced by :func:`torch.export.export` (or
+:func:`torch.compile`) records its operator whatever the device, so an
+exported program runs the plain versions on the CPU and launches the
+kernels on the card. A wrapper refuses a
+:class:`~torch.distributed.tensor.DTensor`: the kernels take local tensors.
 """
 
 import ctypes
@@ -55,6 +68,28 @@ _MAX_WORDS = {}  # device index -> shared words one warp can take
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+_NS = "pydrobert_tpu_torch"
+
+
+def _traced() -> bool:
+    """Whether a wrapper runs under :func:`torch.export.export` or
+    :func:`torch.compile`: it then records its operator, on any device."""
+    return torch.compiler.is_compiling()
+
+
+def _check_local(name: str, *xs) -> None:
+    for x in xs:
+        if x is None or type(x) in (torch.Tensor, torch.nn.Parameter):
+            continue
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, DTensor):
+            raise TypeError(
+                f"{name} takes local tensors, got a DTensor: gather it (or "
+                "take its local shard) before the kernel"
+            )
 
 
 def _check_m(m: int, V: int) -> int:
@@ -135,19 +170,31 @@ def decode_prologue(
     m = _check_m(m, V)
     if g_bias is not None and g_bias.shape != (V,):
         raise ValueError(f"g_bias must have shape ({V},), got {g_bias.shape}")
-    if not logits.is_cuda:
+    _check_local("decode_prologue", logits, g_bias)
+    if _traced():
+        vals, idx, stats = torch.ops.pydrobert_tpu_torch.decode_prologue(logits, m, g_bias)
+    elif not logits.is_cuda:
         return decode_prologue_reference(logits, m, g_bias)
+    else:
+        vals, idx, stats = _decode_prologue_launch(logits, m, g_bias)
+    return vals, idx, stats[0], stats[1], stats[2]
+
+
+def _decode_prologue_launch(
+    logits: torch.Tensor, m: int, g_bias: Optional[torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel: ``(top values, top indices, stats (3, T, N))``, the three
+    stats rows one buffer (an operator's outputs may not alias each
+    other; the wrapper splits it)."""
+    T, N, Vp1 = logits.shape
+    V = Vp1 - 1
+    if g_bias is not None and (
+        g_bias.dtype != torch.float32
+        or g_bias.device != logits.device
+        or not g_bias.is_contiguous()
+    ):
+        raise ValueError("g_bias must be a contiguous float32 tensor on the logits' device")
     lib = _prologue_args(logits, Vp1, m, "decode_prologue")
-    if g_bias is not None:
-        if (
-            g_bias.dtype != torch.float32
-            or g_bias.device != logits.device
-            or not g_bias.is_contiguous()
-        ):
-            raise ValueError(
-                "g_bias must be a contiguous float32 tensor on the logits' "
-                "device"
-            )
     dev = logits.device
     vals = torch.empty((T, N, m), dtype=torch.float32, device=dev)
     idx = torch.empty((T, N, m), dtype=torch.int32, device=dev)
@@ -169,7 +216,28 @@ def decode_prologue(
         )
     _raise_on(err, "decode_prologue")
     LAUNCHES["decode_prologue"] += 1
-    return vals, idx, stats[0], stats[1], stats[2]
+    return vals, idx, stats
+
+
+_decode_prologue_op = torch.library.custom_op(
+    f"{_NS}::decode_prologue", _decode_prologue_launch, mutates_args=(), device_types="cuda"
+)
+
+
+@_decode_prologue_op.register_kernel("cpu")
+def _(logits, m, g_bias):
+    vals, idx, sm_max, sm_den, blank = decode_prologue_reference(logits, m, g_bias)
+    return vals, idx, torch.stack([sm_max, sm_den, blank])
+
+
+@_decode_prologue_op.register_fake
+def _(logits, m, g_bias):
+    T, N, _ = logits.shape
+    return (
+        logits.new_empty((T, N, m), dtype=torch.float32),
+        logits.new_empty((T, N, m), dtype=torch.int32),
+        logits.new_empty((3, T, N), dtype=torch.float32),
+    )
 
 
 def top_m_reference(x: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -188,8 +256,16 @@ def top_m(x: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError("top_m needs at least one axis")
     V = x.shape[-1]
     m = _check_m(m, V)
+    _check_local("top_m", x)
+    if _traced():
+        return torch.ops.pydrobert_tpu_torch.top_m(x, m)
     if not x.is_cuda:
         return top_m_reference(x, m)
+    return _top_m_launch(x, m)
+
+
+def _top_m_launch(x: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    V = x.shape[-1]
     lib = _prologue_args(x, V, m, "top_m")
     lead = x.shape[:-1]
     dev = x.device
@@ -209,6 +285,22 @@ def top_m(x: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     _raise_on(err, "top_m")
     LAUNCHES["top_m"] += 1
     return vals, idx
+
+
+_top_m_op = torch.library.custom_op(
+    f"{_NS}::top_m", _top_m_launch, mutates_args=(), device_types="cuda"
+)
+
+
+@_top_m_op.register_kernel("cpu")
+def _(x, m):
+    return top_m_reference(x, m)
+
+
+@_top_m_op.register_fake
+def _(x, m):
+    shape = x.shape[:-1] + (m,)
+    return x.new_empty(shape, dtype=torch.float32), x.new_empty(shape, dtype=torch.int32)
 
 
 def _sa_io_dtype(feats: torch.Tensor) -> torch.dtype:
@@ -296,8 +388,24 @@ def spec_augment_apply(
     is a warp, as the JAX package's XLA route returns.
     """
     _check_sa_args(feats, t0, t1, w0, w1, tmask, fmask)
+    _check_local("spec_augment_apply", feats, t0, t1, w0, w1, tmask, fmask)
+    args = (feats, t0, t1, w0, w1, tmask, fmask)
+    if _traced():
+        return torch.ops.pydrobert_tpu_torch.spec_augment_apply(*args)
     if not feats.is_cuda:
-        return spec_augment_apply_reference(feats, t0, t1, w0, w1, tmask, fmask)
+        return spec_augment_apply_reference(*args)
+    return _spec_augment_apply_launch(*args)
+
+
+def _spec_augment_apply_launch(
+    feats: torch.Tensor,
+    t0: Optional[torch.Tensor],
+    t1: Optional[torch.Tensor],
+    w0: Optional[torch.Tensor],
+    w1: Optional[torch.Tensor],
+    tmask: Optional[torch.Tensor],
+    fmask: Optional[torch.Tensor],
+) -> torch.Tensor:
     N, T, F = feats.shape
     io = _sa_io_dtype(feats)
     x = feats.to(io).contiguous()
@@ -335,6 +443,25 @@ def spec_augment_apply(
     _raise_on(err, "spec_augment_apply")
     LAUNCHES["spec_augment_apply"] += 1
     return out.to(_sa_out_dtype(feats, t0 is not None))
+
+
+_spec_augment_apply_op = torch.library.custom_op(
+    f"{_NS}::spec_augment_apply", _spec_augment_apply_launch, mutates_args=(),
+    device_types="cuda",
+)
+
+
+@_spec_augment_apply_op.register_kernel("cpu")
+def _(feats, t0, t1, w0, w1, tmask, fmask):
+    out = spec_augment_apply_reference(feats, t0, t1, w0, w1, tmask, fmask)
+    # no warp and no mask hands back feats itself; an operator's output may
+    # not alias its input
+    return out.clone() if out is feats else out
+
+
+@_spec_augment_apply_op.register_fake
+def _(feats, t0, t1, w0, w1, tmask, fmask):
+    return feats.new_empty(feats.shape, dtype=_sa_out_dtype(feats, t0 is not None))
 
 
 def _check_ed_args(ref, hyp, ref_lens, hyp_lens):
@@ -407,10 +534,28 @@ def edit_distance(
     token of each sequence. A ``ref_lens`` entry above ``R`` reads row
     ``R``."""
     _check_ed_args(ref, hyp, ref_lens, hyp_lens)
+    _check_local("edit_distance", ref, hyp, ref_lens, hyp_lens)
+    args = (
+        ref, hyp, ref_lens, hyp_lens, float(ins_cost), float(del_cost), float(sub_cost),
+        bool(exclude_last),
+    )
+    if _traced():
+        return torch.ops.pydrobert_tpu_torch.edit_distance(*args)
     if not ref.is_cuda:
-        return edit_distance_reference(
-            ref, hyp, ref_lens, hyp_lens, ins_cost, del_cost, sub_cost, exclude_last
-        )
+        return edit_distance_reference(*args)
+    return _edit_distance_launch(*args)
+
+
+def _edit_distance_launch(
+    ref: torch.Tensor,
+    hyp: torch.Tensor,
+    ref_lens: torch.Tensor,
+    hyp_lens: torch.Tensor,
+    ins_cost: float,
+    del_cost: float,
+    sub_cost: float,
+    exclude_last: bool,
+) -> torch.Tensor:
     R, N = ref.shape
     H = hyp.shape[0]
     args = [
@@ -439,6 +584,23 @@ def edit_distance(
     _raise_on(err, "edit_distance")
     LAUNCHES["edit_distance"] += 1
     return out
+
+
+_edit_distance_op = torch.library.custom_op(
+    f"{_NS}::edit_distance", _edit_distance_launch, mutates_args=(), device_types="cuda"
+)
+
+
+@_edit_distance_op.register_kernel("cpu")
+def _(ref, hyp, ref_lens, hyp_lens, ins_cost, del_cost, sub_cost, exclude_last):
+    return edit_distance_reference(
+        ref, hyp, ref_lens, hyp_lens, ins_cost, del_cost, sub_cost, exclude_last
+    )
+
+
+@_edit_distance_op.register_fake
+def _(ref, hyp, ref_lens, hyp_lens, ins_cost, del_cost, sub_cost, exclude_last):
+    return ref.new_empty((ref.shape[1],), dtype=torch.float32)
 
 
 # whole-loop CTC prefix beam search
@@ -619,17 +781,35 @@ def ctc_beam_search(
     length are unspecified.
     """
     T, N, V, W, M = _check_beam_args(nonext_probs, blank_probs, lens, width, top)
+    _check_local("ctc_beam_search", nonext_probs, blank_probs, lens, *(top or ()))
     if top is None:
         top = top_m(nonext_probs, M)
+    if _traced():
+        return torch.ops.pydrobert_tpu_torch.ctc_beam_search(
+            nonext_probs, blank_probs, lens, W, top[0], top[1]
+        )
     if not nonext_probs.is_cuda:
         return ctc_beam_search_reference(nonext_probs, blank_probs, lens, W, top)
+    return _ctc_beam_search_launch(nonext_probs, blank_probs, lens, W, top[0], top[1])
+
+
+def _ctc_beam_search_launch(
+    nonext_probs: torch.Tensor,
+    blank_probs: torch.Tensor,
+    lens: torch.Tensor,
+    width: int,
+    top_vals: torch.Tensor,
+    top_inds: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    T, N, V = nonext_probs.shape
+    W, M = width, top_vals.shape[-1]
     if not ctc_beam_search_fits(T, N, V, W):
         raise ValueError(
             f"ctc_beam_search: T={T}, width={W} needs "
             f"{_beam_smem_bytes(T, W, M)} bytes of shared memory, more than "
             f"{_BEAM_SMEM_LIMIT}"
         )
-    args = [nonext_probs, blank_probs, top[0], top[1]]
+    args = [nonext_probs, blank_probs, top_vals, top_inds]
     if not all(a.is_contiguous() for a in args):
         raise ValueError("ctc_beam_search: the inputs must be contiguous")
     dev = nonext_probs.device
@@ -640,7 +820,7 @@ def ctc_beam_search(
     lib = load_library()
     with torch.cuda.device(dev):
         err = lib.pydt_ctc_beam_search(
-            *(ctypes.c_void_p(a.data_ptr()) for a in (top[0], top[1], nonext_probs)),
+            *(ctypes.c_void_p(a.data_ptr()) for a in (top_vals, top_inds, nonext_probs)),
             ctypes.c_void_p(blank_probs.data_ptr()),
             ctypes.c_void_p(lens32.data_ptr()),
             T,
@@ -656,3 +836,27 @@ def ctc_beam_search(
     _raise_on(err, "ctc_beam_search")
     LAUNCHES["ctc_beam_search"] += 1
     return y, y_lens, y_probs
+
+
+_ctc_beam_search_op = torch.library.custom_op(
+    f"{_NS}::ctc_beam_search", _ctc_beam_search_launch, mutates_args=(), device_types="cuda"
+)
+
+
+@_ctc_beam_search_op.register_kernel("cpu")
+def _(nonext_probs, blank_probs, lens, width, top_vals, top_inds):
+    y, y_lens, y_probs = ctc_beam_search_reference(
+        nonext_probs, blank_probs, lens, width, (top_vals, top_inds)
+    )
+    return y.contiguous(), y_lens, y_probs  # the kernel's layout
+
+
+@_ctc_beam_search_op.register_fake
+def _(nonext_probs, blank_probs, lens, width, top_vals, top_inds):
+    # the outputs' shapes depend on T, N and the width only
+    T, N, _ = nonext_probs.shape
+    return (
+        nonext_probs.new_empty((T, N, width), dtype=torch.long),
+        nonext_probs.new_empty((N, width), dtype=torch.long),
+        nonext_probs.new_empty((N, width), dtype=torch.float32),
+    )

@@ -32,7 +32,12 @@ this one reads, at each check, how many frames the slowest row still has,
 and runs that many iterations before it checks again. Each iteration
 advances a row by at most one frame, so the loop never runs past the
 JAX loop's last iteration, and iterations where a row is done leave it
-unchanged: the hypotheses are the same.
+unchanged: the hypotheses are the same. While :func:`torch.export.export`
+traces them, the loops read nothing on the host: the greedy search runs
+the JAX loop's static bound of ``T * max_symbols_per_frame + T`` trips
+and the beam search every frame, each as one ``scan``
+(:func:`~pydrobert_tpu_torch.ops._loops.frame_loop`), with the finished
+rows and padded frames masked.
 
 Predictor state is a pytree of tensors (dicts, lists, tuples) whose leaves
 have the batch (times the beam) first.
@@ -43,6 +48,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from ..utils.pytree import tree_map
+from ._loops import frame_loop
 from ._softmax import log_softmax
 from .topk import exact_top_k
 
@@ -248,26 +254,38 @@ def transducer_greedy_advance(
     cols = torch.arange(U_max, device=dev)
     E = int(max_symbols_per_frame)
     t = torch.zeros((N,), dtype=torch.long, device=dev)
+
+    def trip(carry, fr, i):
+        t, k, u, hyps, pred_out, state = carry
+        enc_t = enc[rows, t.clamp(0, T - 1)]
+        tok = joint_fn(enc_t, pred_out).argmax(1)
+        active = t < enc_lens
+        emit = active & (tok != blank_idx) & (k < E)
+        hyps = torch.where(emit[:, None] & (cols[None] == u[:, None]), tok[:, None], hyps)
+        u = u + emit.long()
+        new_pred, new_state = pred_step(tok, state)
+        pred_out = _select(emit, new_pred, pred_out)
+        state = _select(emit, new_state, state)
+        adv = active & ~emit
+        t = t + adv.long()
+        k = torch.where(adv, 0, k + emit.long())
+        return t, k, u, hyps, pred_out, state
+
+    carry = (t, k, u, hyps, pred_out, state)
+    if torch.compiler.is_exporting():
+        # no host reads in a traced program: run the JAX loop's static
+        # bound, T * E + T trips; trips after a row is done leave it as it
+        # was, so the hypotheses are the eager loop's
+        carry = frame_loop(trip, carry, (), 0, T * (E + 1), "transducer_greedy", dev)
+        return carry[1:]
     while True:
         # every iteration moves a row at most one frame: the slowest row
         # needs at least this many more (one host sync a check)
-        todo = int((enc_lens - t).clamp_min(0).max()) if N else 0
+        todo = int((enc_lens - carry[0]).clamp_min(0).max()) if N else 0
         if todo == 0:
             break
-        for _ in range(todo):
-            enc_t = enc[rows, t.clamp(0, T - 1)]
-            tok = joint_fn(enc_t, pred_out).argmax(1)
-            active = t < enc_lens
-            emit = active & (tok != blank_idx) & (k < E)
-            hyps = torch.where(emit[:, None] & (cols[None] == u[:, None]), tok[:, None], hyps)
-            u = u + emit.long()
-            new_pred, new_state = pred_step(tok, state)
-            pred_out = _select(emit, new_pred, pred_out)
-            state = _select(emit, new_state, state)
-            adv = active & ~emit
-            t = t + adv.long()
-            k = torch.where(adv, 0, k + emit.long())
-    return k, u, hyps, pred_out, state
+        carry = frame_loop(trip, carry, (), 0, todo, "transducer_greedy")
+    return carry[1:]
 
 
 def transducer_beam_search(
@@ -390,10 +408,9 @@ def transducer_beam_advance(
     def log_probs(enc_t, pred_out):
         return log_softmax(joint_fn(enc_t[:, None], pred_out.reshape(N, W, -1)), -1)
 
-    # frames past every row's length change nothing (one host sync)
-    T_run = min(T, int(enc_lens.max())) if N else 0
-    for t in range(T_run):
-        enc_t = enc[:, t]
+    def frame(carry, fr, t):
+        scores, hyps, lens, pred_out, state, lm_lp, lm_state = carry
+        (enc_t,) = fr
         active = t < enc_lens  # (N,)
         amw = active.repeat_interleave(W)
         open_ = torch.ones((N, W), dtype=torch.bool, device=dev)
@@ -446,4 +463,17 @@ def transducer_beam_advance(
         # open survivors close with their blank log-probability
         blank_lp = log_probs(enc_t, pred_out)[..., blank_idx]
         scores = torch.where(active[:, None] & open_, scores + blank_lp, scores)
-    return scores, hyps, lens, pred_out, state, lm_lp, lm_state
+        return scores, hyps, lens, pred_out, state, lm_lp, lm_state
+
+    if torch.compiler.is_exporting():
+        # no host reads in a traced program: every frame, the ones past a
+        # row's length masked (the JAX package's lax.scan)
+        T_run = T
+    else:
+        # frames past every row's length change nothing (one host sync)
+        T_run = min(T, int(enc_lens.max())) if N else 0
+    carry = (scores, hyps, lens, pred_out, state, lm_lp, lm_state)
+    # frame-major and contiguous, as the exported scan slices its frames: a
+    # product over a strided frame may sum in another order
+    frames = (enc.transpose(0, 1).contiguous(),)
+    return frame_loop(frame, carry, frames, 0, T_run, "transducer_beam")

@@ -1,28 +1,45 @@
-"""Multi-process helpers (counterpart of :mod:`pydrobert_tpu.parallel`;
-only :func:`all_reduce_metrics` so far)."""
+"""Meshes, sharding, pipeline parallelism and sharded checkpoints over
+:mod:`torch.distributed` (counterpart of :mod:`pydrobert_tpu.parallel`):
+:mod:`~pydrobert_tpu_torch.parallel.mesh` (device meshes, partition specs
+as DTensor placements, :func:`shard_params`, :func:`all_reduce_metrics`),
+:mod:`~pydrobert_tpu_torch.parallel.pipeline` (GPipe with a hand-scheduled
+backward pass) and :mod:`~pydrobert_tpu_torch.parallel.checkpoint`
+(``torch.distributed.checkpoint``, synchronous or asynchronous)."""
 
-from typing import Dict
+from .checkpoint import restore_sharded, save_sharded, wait_for_saves
+from .mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    PartitionSpec,
+    all_reduce_metrics,
+    batch_sharding,
+    gather_params,
+    host_shard_info,
+    make_mesh,
+    param_partition_specs,
+    replicated_sharding,
+    sequence_sharding,
+    shard_params,
+)
+from .pipeline import PIPE_AXIS, make_pipeline_mesh, pipeline_apply
 
-import torch
-
-__all__ = ["all_reduce_metrics"]
-
-
-def all_reduce_metrics(metrics: Dict[str, float], op: str = "mean") -> Dict[str, float]:
-    """Reduce scalar metrics across the processes of the initialized
-    :mod:`torch.distributed` group: ``"mean"`` (the default) or ``"sum"``.
-    Without a group of more than one process this is the identity. The
-    values travel as one float64 tensor, on the card under NCCL and on the
-    CPU otherwise."""
-    if op not in ("mean", "sum"):
-        raise ValueError(f"unknown op {op!r}")
-    dist = torch.distributed
-    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
-        return dict(metrics)
-    keys = sorted(metrics)
-    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    t = torch.tensor([float(metrics[k]) for k in keys], dtype=torch.float64, device=dev)
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
-    if op == "mean":
-        t = t / dist.get_world_size()
-    return {k: float(v) for k, v in zip(keys, t.tolist())}
+__all__ = [
+    "DATA_AXIS",
+    "MODEL_AXIS",
+    "PIPE_AXIS",
+    "PartitionSpec",
+    "all_reduce_metrics",
+    "batch_sharding",
+    "gather_params",
+    "host_shard_info",
+    "make_mesh",
+    "make_pipeline_mesh",
+    "param_partition_specs",
+    "pipeline_apply",
+    "replicated_sharding",
+    "restore_sharded",
+    "save_sharded",
+    "sequence_sharding",
+    "shard_params",
+    "wait_for_saves",
+]

@@ -689,3 +689,182 @@ def test_format_round_trip_rules(smoke):
     assert mod.tg_frames(3, 10, 10.0) == (3, 10)
     assert mod.ctm_frames(201, 205, 10.0) == (200, 205)
     assert mod.tg_frames(201, 205, 10.0) == (200, 205)
+
+
+# the artifact, parallel and profiling phases at a CPU size
+_TINY = dict(vocab_size=16, num_filts=8, d_model=16, num_layers=2, num_heads=2,
+             subsample_channels=4, conv_kernel=5)
+
+
+def _rnnt_pkg():
+    from pydrobert_tpu_torch.models import ConformerConfig
+    from pydrobert_tpu_torch.models.transducer import (
+        ConformerTransducer, TransducerConfig, lookup_lm_fusion, make_transducer_train_step,
+    )
+    from pydrobert_tpu_torch.ops.transducer import (
+        transducer_beam_search, transducer_greedy_search,
+    )
+
+    return (ConformerConfig, TransducerConfig, ConformerTransducer, make_transducer_train_step,
+            transducer_greedy_search, transducer_beam_search, lookup_lm_fusion)
+
+
+def _small_artifact(smoke, heads):
+    from pydrobert_tpu_torch.models import ConformerConfig
+    from pydrobert_tpu_torch.models.transducer import TransducerConfig
+
+    rnnt = TransducerConfig(
+        encoder=ConformerConfig(**dict(_TINY, num_layers=1), dropout=0.0),
+        pred_dim=12, joint_dim=12,
+    )
+    return dict(smoke.ARTIFACT, model=_TINY, spec=(4, 64), width=4, requests=2,
+                pad_call=(3, 48), rnnt=rnnt, rnnt_spec=(4, 32), rnnt_requests=2, reps=1,
+                heads=heads)
+
+
+def _artifact_pkg():
+    from pydrobert_tpu_torch import config, export
+    from pydrobert_tpu_torch.models import ConformerConfig, ConformerCTC
+    from pydrobert_tpu_torch.utils.hlostats import count_body_kernels
+
+    return config, export, ConformerConfig, ConformerCTC, _rnnt_pkg(), count_body_kernels
+
+
+def test_artifact_phase_rehearsal(smoke, rehearse):
+    """Exported heads served from a fresh process without model code, bit
+    for bit equal to the live heads, the padded call too; the width-4
+    programs record the kernels' operators, which run their plain versions
+    on the CPU (so nothing launches)."""
+    cfg = _small_artifact(smoke, ("ctc_greedy", "ctc_w16_scan", "ctc_w16_beam", "rnnt_greedy",
+                                  "rnnt_beam"))
+    launches = smoke.phase_artifact(_artifact_pkg(), rehearse, cfg, dev="cpu")
+    assert launches == {"decode_prologue": 0, "top_m": 0, "ctc_beam_search": 0}
+    (line,) = [ln for ln in rehearse.lines if ln.get("phase") == "artifact"]
+    assert set(line["heads"]) == set(cfg["heads"])
+    for head in line["heads"].values():
+        assert head["bit_equal_calls"] == 3 and head["bytes"] > 0
+    assert line["heads"]["ctc_w16_scan"]["loop_body_nodes"]
+    assert line["heads"]["ctc_w16_scan"]["kernel_ops"] == {"decode_prologue": 1}
+    assert line["heads"]["ctc_w16_beam"]["kernel_ops"] == {"top_m": 1, "ctc_beam_search": 1}
+    assert line["server"]["artifacts"] == 5
+
+
+def test_artifact_phase_fails_an_artifact_with_other_weights(smoke, rehearse, monkeypatch):
+    """An artifact whose saved weights differ from the live model's (its
+    CTC head's bias for token 0 raised) fails the bit-for-bit comparison."""
+    from pydrobert_tpu_torch import export
+
+    real = export.export_ctc_recognizer
+
+    def moved(path, model, params=None, **kw):
+        params = dict(model.state_dict())
+        params["ctc_head.bias"] = params["ctc_head.bias"].clone()
+        params["ctc_head.bias"][0] += 1e4
+        return real(path, model, params, **kw)
+
+    monkeypatch.setattr(export, "export_ctc_recognizer", moved)
+    with pytest.raises(AssertionError, match="differ from the live head"):
+        smoke.phase_artifact(_artifact_pkg(), rehearse, _small_artifact(smoke, ("ctc_greedy",)),
+                             dev="cpu")
+
+
+def _parallel_pkg():
+    from pydrobert_tpu_torch import export, parallel
+    from pydrobert_tpu_torch.models import ConformerConfig, ConformerCTC, conformer, make_train_step
+
+    return ConformerConfig, ConformerCTC, conformer, make_train_step, export, parallel
+
+
+def _small_parallel(smoke):
+    return dict(smoke.PARALLEL, model=_TINY, step_layers=2, step_batch=(4, 64, 5),
+                export_spec=(4, 64))
+
+
+def test_parallel_phase_rehearsal(smoke, rehearse):
+    smoke.phase_parallel(_parallel_pkg(), _small_parallel(smoke), dev="cpu")
+    (line,) = [ln for ln in rehearse.lines if ln.get("phase") == "parallel"]
+    assert line["sharded_forward_bit_equal"] and line["sharded_export"]["bit_equal_to"]
+    assert line["checkpoint"]["restore_bit_exact"] and line["mesh"] == [1, 1]
+    assert not torch.distributed.is_initialized()
+
+
+def test_parallel_phase_fails_stages_in_the_wrong_order(smoke, rehearse, monkeypatch):
+    """Pipeline-form parameters with the layers reversed: the pipelined
+    forward parts from the plain one."""
+    from pydrobert_tpu_torch.models import conformer
+
+    real = conformer.stack_block_params
+
+    def reversed_layers(params, pp):
+        out = real(params, pp)
+        return {
+            k: (v.detach().flip(1).requires_grad_(v.requires_grad) if k.startswith("blocks.")
+                else v)
+            for k, v in out.items()
+        }
+
+    monkeypatch.setattr(conformer, "stack_block_params", reversed_layers)
+    with pytest.raises(AssertionError, match="pipelined forward"):
+        smoke.phase_parallel(_parallel_pkg(), _small_parallel(smoke), dev="cpu")
+    assert not torch.distributed.is_initialized()
+
+
+def _profiling_pkg():
+    from pydrobert_tpu_torch.export import ctc_recognizer
+    from pydrobert_tpu_torch.models import ConformerConfig, ConformerCTC
+    from pydrobert_tpu_torch.ops.decoding import CTCPrefixSearch
+    from pydrobert_tpu_torch.utils import hlostats, profiling
+
+    return (ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch, _rnnt_pkg(),
+            profiling, hlostats)
+
+
+def test_profiling_phase_rehearsal(smoke, rehearse, monkeypatch):
+    """The marked trips of the scan decode launch what a frame adds between
+    two short decodes (on the CPU: the operators a trip calls)."""
+    monkeypatch.setattr(smoke, "trace", lambda fn, warmup=True: _stub_trace(fn))
+    out = smoke.phase_profiling(_profiling_pkg(), rehearse, None, _small_artifact(smoke, ()),
+                                dev="cpu")
+    scan = out["ctc_scan_decode"]
+    assert scan["loop_trip_count"] == scan["frames"] - 1
+    assert scan["loop_kernels"] > 0
+    assert abs(scan["loop_kernels"] - scan["decode_launches_per_frame"]) <= smoke.PROFILE_SLACK
+    assert out["rnnt_greedy_decode"]["trips_per_frame"] >= 1
+
+
+def test_profiling_phase_fails_unmarked_loops(smoke, rehearse, monkeypatch):
+    """Decode loops whose trips are not marked for the profiler leave
+    ``compiled_stats`` nothing to count: the phase fails."""
+    import contextlib
+
+    from pydrobert_tpu_torch.ops import _loops
+
+    monkeypatch.setattr(smoke, "trace", lambda fn, warmup=True: _stub_trace(fn))
+    monkeypatch.setattr(_loops, "loop_trip", lambda name: contextlib.nullcontext())
+    with pytest.raises(AssertionError, match="marked trips"):
+        smoke.phase_profiling(_profiling_pkg(), rehearse, None, _small_artifact(smoke, ()),
+                              dev="cpu")
+
+
+def test_profiling_phase_fails_a_mark_around_part_of_a_trip(smoke, rehearse, monkeypatch):
+    """Each trip marked, but part of its work (four operators) runs after
+    its mark closes: the launches a marked trip part from those a frame
+    adds, and the phase fails."""
+    import contextlib
+
+    from pydrobert_tpu_torch.ops import _loops
+
+    real = _loops.loop_trip
+
+    @contextlib.contextmanager
+    def short_mark(name):
+        with real(name):
+            yield
+        torch.zeros(4).add_(1.0)
+        torch.zeros(4).add_(1.0)
+
+    monkeypatch.setattr(smoke, "trace", lambda fn, warmup=True: _stub_trace(fn))
+    monkeypatch.setattr(_loops, "loop_trip", short_mark)
+    with pytest.raises(AssertionError, match="a frame between two short decodes"):
+        smoke.phase_profiling(_profiling_pkg(), rehearse, None, _small_artifact(smoke, ()),
+                              dev="cpu")

@@ -7,6 +7,7 @@ PyTorch is installed; there, skip the repository's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import copy
 import importlib.util
 import os
 
@@ -1311,3 +1312,79 @@ def test_remat_on_card_replays_the_generator(dev):
 
     assert worst(g1) <= 1e-5
     assert worst(g2) > 1e-2
+
+
+def test_wrappers_launch_through_registered_operators(dev):
+    """Each eager wrapper on a CUDA tensor launches its kernel once, without
+    the dispatcher; its ``torch.ops.pydrobert_tpu_torch`` operator, which an
+    exported program calls, launches the same kernel (one more launch) and
+    gives the same bits."""
+    ops = torch.ops.pydrobert_tpu_torch
+    x = _logits((6, 4, 129), 5, dev)
+    f = torch.randn(2, 16, 8, device=dev)
+    ref = torch.randint(0, 5, (7, 3), device=dev, dtype=torch.int32)
+    hyp = torch.randint(0, 5, (6, 3), device=dev, dtype=torch.int32)
+    rl = torch.tensor([7, 3, 0], device=dev, dtype=torch.int32)
+    hl = torch.tensor([6, 2, 1], device=dev, dtype=torch.int32)
+    p = torch.softmax(_logits((6, 2, 9), 6, dev), -1)
+    nonext, blank = p[..., :8].contiguous(), p[..., 8].contiguous()
+    lens = torch.tensor([6, 3], device=dev)
+    cases = [
+        ("decode_prologue", lambda: kernels.decode_prologue(x, 8)[:2],
+         lambda: ops.decode_prologue(x, 8, None)[:2]),
+        ("top_m", lambda: kernels.top_m(x, 8), lambda: ops.top_m(x, 8)),
+        ("spec_augment_apply",
+         lambda: (kernels.spec_augment_apply(f, None, None, None, None, None, None),),
+         lambda: (ops.spec_augment_apply(f, None, None, None, None, None, None),)),
+        ("edit_distance", lambda: (kernels.edit_distance(ref, hyp, rl, hl, 1.0, 1.0, 1.0),),
+         lambda: (ops.edit_distance(ref, hyp, rl, hl, 1.0, 1.0, 1.0, False),)),
+        ("ctc_beam_search",
+         lambda: kernels.ctc_beam_search(nonext, blank, lens, 4, kernels.top_m(nonext, 8)),
+         lambda: ops.ctc_beam_search(nonext, blank, lens, 4, *kernels.top_m(nonext, 8))),
+    ]
+    for name, wrapper, op in cases:
+        kernels.reset_launches()
+        got = wrapper()
+        assert kernels.LAUNCHES[name] == 1, (name, kernels.LAUNCHES)
+        direct = op()
+        assert kernels.LAUNCHES[name] == 2, name
+        for a, c in zip(got, direct):
+            assert torch.equal(a, c), name
+
+
+@pytest.mark.parametrize("export_on", ["cpu", "cuda"])
+def test_kernel_artifact_launches_the_operators(dev, tmp_path, export_on):
+    """A width-4 CTC artifact, exported with the default arguments on the
+    CPU or on the card, records the decode prologue's operator; loaded on
+    the card, it launches the kernel once a call and equals the live
+    recognizer on the card bit for bit. The beam route's artifact launches
+    ``top_m`` and ``ctc_beam_search``."""
+    from pydrobert_tpu_torch import export as pexport
+
+    cfg = pconf.ConformerConfig(
+        vocab_size=16, num_filts=8, d_model=16, num_layers=2, num_heads=2,
+        subsample_channels=4, conv_kernel=5, dropout=0.0, dtype=torch.float32,
+    )
+    model = pconf.ConformerCTC(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.ctc_head.weight.mul_(8.0)
+    traced = copy.deepcopy(model).to(export_on)
+    g = torch.Generator().manual_seed(1)
+    feats = torch.randn(3, 33, 8, generator=g).to(dev)
+    lens = torch.tensor([33, 24, 16], dtype=torch.int32, device=dev)
+    for route, launched in (("auto", ("decode_prologue",)), ("1", ("top_m", "ctc_beam_search"))):
+        saved = pconfig.USE_BEAM_KERNEL
+        pconfig.USE_BEAM_KERNEL = route
+        try:
+            path = str(tmp_path / f"art{route}")
+            pexport.export_ctc_recognizer(path, traced, specs=[(3, 33)], width=4)
+            live = pexport.ctc_recognizer(model, 4)(feats, lens)
+        finally:
+            pconfig.USE_BEAM_KERNEL = saved
+        art = pexport.ServingArtifact.load(path)
+        kernels.reset_launches()
+        got = art(feats, lens)
+        for name in launched:
+            assert kernels.LAUNCHES[name] == 1, (route, kernels.LAUNCHES)
+        for a, b in zip(got, live):
+            assert torch.equal(a, b), route

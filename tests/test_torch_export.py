@@ -149,6 +149,8 @@ def test_port_import_leaves_jax_unloaded():
     code = (
         "import pydrobert_tpu_torch.export, pydrobert_tpu_torch.models, sys\n"
         "import pydrobert_tpu_torch.serving, pydrobert_tpu_torch.ops.transducer\n"
+        "import pydrobert_tpu_torch.parallel, pydrobert_tpu_torch.utils.cache\n"
+        "import pydrobert_tpu_torch.utils.hlostats, pydrobert_tpu_torch.utils.profiling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert 'jax' not in sys.modules and 'pydrobert_tpu' not in sys.modules, bad\n"

@@ -21,6 +21,7 @@ MODULES = [
     "datamodule",
     "distributions",
     "estimators",
+    "export",
     "functional",
     "lm",
     "models.conformer",
@@ -39,32 +40,21 @@ MODULES = [
     "ops.straight_through",
     "ops.string",
     "ops.transducer",
+    "parallel",
+    "parallel.checkpoint",
+    "parallel.mesh",
+    "parallel.pipeline",
     "serving",
     "training",
+    "utils.cache",
+    "utils.hlostats",
+    "utils.profiling",
     "utils.pytree",
     "utils.serial",
 ]
 
-# names still to port (ROADMAP.md queue A): A8's pipeline and sharding
-# helpers of the models
-QUEUED = {
-    "models.conformer": {
-        "conformer_partition_rules",
-        "make_pipeline_train_step",
-        "make_pipelined_forward",
-        "pipeline_partition_rules",
-        "pipelined_encoder_forward",
-        "stack_block_params",
-        "unstack_block_params",
-    },
-    "models.transducer": {
-        "make_transducer_pipeline_train_step",
-        "transducer_partition_rules",
-        "transducer_pipeline_partition_rules",
-        "transducer_stack_block_params",
-        "transducer_unstack_block_params",
-    },
-}
+# names still to port (ROADMAP.md queue A); empty since A8 landed
+QUEUED = {}
 
 
 @pytest.mark.parametrize("name", MODULES)

@@ -193,3 +193,105 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
     env["PYTHONPATH"] = REPO
     subprocess.run([sys.executable, "-c", code], env=env, check=True, cwd=REPO)
+
+
+def _op_cases():
+    """CPU inputs of each registered operator: the arguments the wrappers
+    pass it."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(5, 3, 17, generator=g)
+    f = torch.randn(2, 6, 5, generator=g)
+    t0, t1 = torch.randint(0, 6, (2, 6), generator=g), torch.randint(0, 6, (2, 6), generator=g)
+    w0 = torch.rand(2, 6, generator=g)
+    tmask, fmask = torch.rand(2, 6, generator=g) > 0.5, torch.rand(2, 5, generator=g) > 0.5
+    ref, hyp = torch.randint(0, 5, (7, 3), generator=g), torch.randint(0, 5, (6, 3), generator=g)
+    p = torch.softmax(torch.randn(6, 2, 9, generator=g), -1)
+    nonext, blank = p[..., :8].contiguous(), p[..., 8].contiguous()
+    tv, ti = kernels.top_m_reference(nonext, 8)
+    ops = torch.ops.pydrobert_tpu_torch
+    return {
+        "decode_prologue": (ops.decode_prologue.default, (x, 4, None)),
+        "decode_prologue_bias": (ops.decode_prologue.default, (x, 4, torch.randn(16, generator=g))),
+        "top_m": (ops.top_m.default, (x, 4)),
+        "spec_augment_apply": (ops.spec_augment_apply.default, (f, t0, t1, w0, 1 - w0, tmask, fmask)),
+        "spec_augment_apply_identity": (
+            ops.spec_augment_apply.default, (f, None, None, None, None, None, None)
+        ),
+        "edit_distance": (
+            ops.edit_distance.default,
+            (ref, hyp, torch.tensor([7, 3, 0]), torch.tensor([6, 2, 1]), 1.0, 1.0, 2.0, False),
+        ),
+        "ctc_beam_search": (
+            ops.ctc_beam_search.default, (nonext, blank, torch.tensor([6, 3]), 4, tv, ti)
+        ),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_op_cases()))
+def test_registered_operator_passes_opcheck(case):
+    """Each kernel as a ``torch.library`` operator: its schema, its CPU
+    (plain) implementation, its fake implementation's shapes, dtypes and
+    strides against the real outputs, and the AOT dispatch, by
+    ``torch.library.opcheck``; its CPU outputs equal the plain version's."""
+    op, args = _op_cases()[case]
+    result = torch.library.opcheck(op, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+    got = op(*args)
+    name = op._schema.name.split("::")[1]
+    ref = getattr(kernels, f"{name}_reference")
+    if name == "decode_prologue":
+        exp = ref(*args)
+        exp = exp[:2] + (torch.stack(exp[2:]),)
+    elif name == "ctc_beam_search":
+        exp = ref(*args[:4], (args[4], args[5]))
+    else:
+        exp = ref(*args)
+    for a, b in zip(got if isinstance(got, tuple) else (got,), exp if isinstance(exp, tuple) else (exp,)):
+        assert torch.equal(a, b)
+
+
+def test_export_records_the_operators_on_cpu():
+    """A wrapper traced by ``torch.export`` records its operator also on the
+    CPU (so the program launches the kernel once it is moved to the card),
+    and the program's CPU outputs equal the eager wrapper's, which takes the
+    plain version without the operator."""
+    x = torch.from_numpy(_logits((5, 3, 17), 2))
+
+    class M(torch.nn.Module):
+        def forward(self, x):
+            vals, idx, *stats = kernels.decode_prologue(x, 4)
+            return (vals, idx, *stats, *kernels.top_m(x, 3))
+
+    eager = M()(x)
+    ep = torch.export.export(M(), (x,), strict=False)
+    targets = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+    assert sum("pydrobert_tpu_torch.decode_prologue" in t for t in targets) == 1
+    assert sum("pydrobert_tpu_torch.top_m" in t for t in targets) == 1
+    got = ep.module()(x)
+    assert len(got) == len(eager) == 7
+    for a, b in zip(got, eager):
+        assert torch.equal(a, b)
+
+
+def test_wrappers_refuse_dtensors(tmp_path):
+    """A kernel wrapper takes local tensors: a DTensor is refused before
+    any route is taken (the kernels sit after the encoder's gathered
+    output)."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,))
+        x = distribute_tensor(torch.from_numpy(_logits((5, 3, 17), 3)), mesh)
+        with pytest.raises(TypeError, match="DTensor"):
+            kernels.decode_prologue(x, 4)
+        with pytest.raises(TypeError, match="DTensor"):
+            kernels.top_m(x, 4)
+    finally:
+        dist.destroy_process_group()
