@@ -55,7 +55,13 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    CPU copy of the LM (probabilities within rtol 1e-4), the prologue on the
    served logits bit-exact; encoder, decode and request wall times in
    turn, launches a frame, and the prologue's own time at M=55 beside its
-   bound;
+   bound; then the three requests again with
+   ``config.SPARSE_MEMBERSHIP_GATHER`` on (the order-2 slots answered by
+   one gather of the LM's bigram table): still one prologue launch a
+   request, every utterance equal to the compare route up to ties (the
+   JAX package's rule for its two routes), the first request equal to a
+   CPU gather decode (rtol 1e-4), its decode ms and launches a frame
+   beside the compare route's, and the table's bytes;
 4e. probing tables: ``tests/fixtures/big5.arpa.gz`` (5-gram, V=10,240)
    parsed with the port's ``parse_arpa_lm`` and built on the card, whose
    orders 2-4 have only hash-probing tables: full log-probs and sequence
@@ -91,8 +97,9 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    a step;
 8. n-gram beam search (bench_ngram_beam_search): bench.py's 3-gram with
    ``RandomState(4)`` on the card, ``BeamSearch(lm, 16, eos=7)`` over 32
-   rows of 100 steps on the sparse route, equal to a CPU copy's search;
-   utterances a second and launches a step;
+   rows of 100 steps on the sparse route, equal to a CPU copy's search,
+   and bit-equal with ``config.SPARSE_MEMBERSHIP_GATHER`` on (BeamSearch
+   does not read it); utterances a second and launches a step;
 9. seq2seq MER training (BASELINE config #5): 5 steps of
    ``make_mer_train_step`` (4 samples, 16 steps, eos 63, 12-token
    references, Adam 1e-3), each launching the edit-distance kernel once
@@ -178,7 +185,11 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    ``edit_distance`` launch a 32-utterance batch, equal to the command on
    the CPU; 1.0 for all-blank hypotheses), and references with seeded edits
    scored likewise; epoch s, steps a second, the loader's host share,
-   checkpoint ms and bytes, and a traced epoch's idle share;
+   checkpoint ms and bytes, and a traced epoch's idle share; then
+   ``examples/train_ctc_asr_torch.py``'s ``main`` at its defaults on the
+   card, twice in one directory: 2 epochs, then a call to 3 that resumes
+   and trains the third alone (one ``spec_augment_apply`` launch a step,
+   ``edit_distance`` launched by each call's scoring);
 21. the mixture-of-experts step: phase 5's model with 4 experts, top-2,
    capacity 1.25, aux weight 0.01, 3 steps at B=32, T=1000; a float32
    2-layer copy's step held to the float64 witness (as phase 5's), its
@@ -1179,7 +1190,7 @@ def phase_lm_serve(pkg, kernels, model, requests, lm):
     that bias bit-exact against its plain version. Then the encoder, decode
     and request wall times in turn, the decode's launches a frame from a
     trace, and the prologue's own time at M=55 beside its bound."""
-    LookupLanguageModel, ctc_recognizer, CTCPrefixSearch, lm_bias = pkg
+    LookupLanguageModel, ctc_recognizer, CTCPrefixSearch, lm_bias, config = pkg
     V = lm.vocab_size
     search = CTCPrefixSearch(WIDTH, beta=LM_BETA, lm=lm)
     route = search.lm_route()
@@ -1254,6 +1265,8 @@ def phase_lm_serve(pkg, kernels, model, requests, lm):
     prologue["m32_bias_ms"] = device_ms(
         lambda: kernels.decode_prologue(x, M_HEADLINE, g_bias), "prologue_kernel", **counted
     )
+    gather = lm_gather(config, kernels, model, recognize, search, cpu_search, requests,
+                       (outputs, captured, dec_ms, profiled["kernel_launches"] / T))
     emit({
         "phase": "lm_serve", "nvidia_smi": smi_line(),
         "model": "ConformerCTC d512 L8 H8 V1024 bf16", "width": WIDTH, "beta": LM_BETA,
@@ -1272,8 +1285,120 @@ def phase_lm_serve(pkg, kernels, model, requests, lm):
                                                    "kernel_launches", "top_kernels")},
         "launches_per_frame": profiled["kernel_launches"] / T,
         "prologue": prologue,
+        "gather": gather,
     })
+    launches["decode_prologue"] += gather["launches"]["decode_prologue"]
     return launches, prologue
+
+
+def ties_compare(got, exp, rtol=3e-5):
+    """tests/test_decoding.py's "up to ties" rule (:783-800) for ``(y (T,
+    N, W), y_lens, y_probs)`` triples: each row's sorted probabilities
+    within ``rtol`` (atol 1e-7), and every finite beam of ``exp`` found in
+    ``got`` among the beams whose probability lies within 1e-4 (relative)
+    of its own, with the same length and tokens."""
+    (gy, gl, gp), (ey, el, ep) = (tuple(t.cpu() for t in x) for x in (got, exp))
+    sorted_ok = bool(torch.isclose(gp.sort(-1).values, ep.sort(-1).values,
+                                   rtol=rtol, atol=1e-7).all())
+    missing = []
+    N, W = ep.shape
+    for n in range(N):
+        for k in range(W):
+            p = float(ep[n, k])
+            if math.isinf(p):
+                continue
+            L = int(el[n, k])
+            near = ((gp[n] - p).abs() < 1e-4 * max(1.0, abs(p))).tolist()
+            if not any(
+                near[kk] and int(gl[n, kk]) == L and torch.equal(gy[:L, n, kk], ey[:L, n, k])
+                for kk in range(W)
+            ):
+                missing.append([n, k])
+    same = torch.equal(gl, el) and torch.equal(gp, ep) and torch.equal(gy, ey)
+    return {"sorted_probs_ok": sorted_ok, "beams_missing": missing[:8],
+            "bit_equal": same, "ok": sorted_ok and not missing}
+
+
+def lm_gather(config, kernels, model, recognize, search, cpu_search, requests, compare):
+    """The LM serve's three requests again with ``config.
+    SPARSE_MEMBERSHIP_GATHER`` on (set here, restored after): the order-2
+    slots answered by one gather of the LM's bigram table. Still one
+    ``decode_prologue`` launch a request; every utterance's beams equal
+    the compare route's on the same logits up to ties (the JAX package's
+    rule for its own two routes); the first request's decode equal to a
+    CPU gather decode (lengths and tokens exact, probabilities within rtol
+    1e-4); the encoder's logits bit-equal to the compare pass's; the
+    decode's wall ms beside the compare route's, the two taken
+    in turn, launches a frame beside the compare route's (``compare``: its
+    outputs, logits, decode ms and launches a frame), and the table's
+    bytes."""
+    outputs, captured, cmp_ms, cmp_per_frame = compare
+    old = config.SPARSE_MEMBERSHIP_GATHER
+    config.SPARSE_MEMBERSHIP_GATHER = True
+    try:
+        table = search.lm._order2_table()
+        if table is None:
+            raise AssertionError("the LM has no bigram table: the gather route would compare")
+        again = []
+        hook = model.register_forward_hook(lambda mod, inp, out: again.append(out))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        served = [recognize(f, l) for f, l in requests]
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        hook.remove()
+        want = dict.fromkeys(launches, 0) | {"decode_prologue": len(requests)}
+        if launches != want:
+            raise AssertionError(f"lm gather launches {launches}, expected {want}")
+
+        def as_search(out):
+            hyps, hlens, probs = out
+            return hyps.permute(2, 0, 1), hlens, probs
+
+        # the same requests give the same logits, so the compare pass's
+        # outputs are the compare route's on these logits
+        if not all(torch.equal(a[0], b[0]) for a, b in zip(again, captured)):
+            raise AssertionError("lm gather: the encoder's logits differ from the compare pass's")
+        checks = [ties_compare(as_search(g), as_search(c)) for g, c in zip(served, outputs)]
+        if not all(c["ok"] for c in checks):
+            raise AssertionError(f"lm gather vs the compare route: {checks}")
+        logits, out_lens = again[0]
+        x = logits.transpose(0, 1).contiguous()
+        cpu = search_compare(
+            tuple(t.cpu() for t in as_search(served[0])),
+            cpu_search(x.cpu(), out_lens.cpu()), 1e-4,
+        )
+        if not cpu["ok"]:
+            raise AssertionError(f"lm gather: the card vs a CPU gather decode: {cpu}")
+        decode = torch.no_grad()(lambda: search(x, out_lens))
+        profiled = trace(decode)
+
+        def route(on):
+            def run():
+                config.SPARSE_MEMBERSHIP_GATHER = on
+                return decode()
+            return run
+
+        # the two routes in turn, so they see the same host load
+        (cmp_turn_ms, dec_ms), runs = host_ms([route(False), route(True)], reps=5)
+    finally:
+        config.SPARSE_MEMBERSHIP_GATHER = old
+    T = x.shape[0]
+    return {
+        "launches": launches, "serve_s_first_pass": serve_s,
+        "table_bytes": table.numel() * table.element_size(),
+        "table_rows": table.numel() // search.lm.vocab_size,
+        "vs_compare_route": checks, "vs_cpu_gather_decode": cpu,
+        "decode_ms_per_batch": dec_ms, "runs_ms": runs[1],
+        "compare_decode_ms_per_batch": cmp_turn_ms, "compare_runs_ms": runs[0],
+        "compare_decode_ms_lm_serve_phase": cmp_ms,
+        "decode_trace": {k: profiled[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                                   "kernel_launches", "top_kernels")},
+        "launches_per_frame": profiled["kernel_launches"] / T,
+        "compare_launches_per_frame": cmp_per_frame,
+    }
 
 
 def phase_lm_probing(pkg):
@@ -2090,11 +2215,13 @@ def phase_s2s_serve(s2s, kernels):
     })
 
 
-def phase_ngram_beam(LookupLanguageModel, BeamSearch, kernels):
+def phase_ngram_beam(LookupLanguageModel, BeamSearch, kernels, config):
     """bench_ngram_beam_search's case: bench.py's 3-gram built with
     ``RandomState(4)`` on the card, ``BeamSearch(lm, 16, eos=7)`` over 32
     rows of 100 steps: the sparse route. Lengths and tokens must equal a CPU
-    copy's search, log probabilities within rtol 1e-5.
+    copy's search, log probabilities within rtol 1e-5; with
+    ``config.SPARSE_MEMBERSHIP_GATHER`` on, which BeamSearch does not read
+    (ROADMAP C12), every output bit-equal to the flag off.
     Utterances a second and launches a step."""
     lm = bench_lm(LookupLanguageModel, seed=4)
     search = BeamSearch(lm, NGRAM_W, eos=NGRAM_EOS)
@@ -2110,6 +2237,13 @@ def phase_ngram_beam(LookupLanguageModel, BeamSearch, kernels):
     check = search_compare(tuple(t.cpu() for t in got), exp, 1e-5)
     if not check["ok"]:
         raise AssertionError(f"n-gram beam search: the card's beams vs the CPU's: {check}")
+    old, config.SPARSE_MEMBERSHIP_GATHER = config.SPARSE_MEMBERSHIP_GATHER, True
+    try:
+        flagged = search(batch_size=NGRAM_B, max_iters=NGRAM_S)
+    finally:
+        config.SPARSE_MEMBERSHIP_GATHER = old
+    if not all(torch.equal(a, b) for a, b in zip(flagged, got)):
+        raise AssertionError("n-gram beam search: the gather flag changed BeamSearch's output")
     steps = counting(lm, "sparse_corrections_ext")
     run = lambda: search(batch_size=NGRAM_B, max_iters=NGRAM_S)  # noqa: E731
     run()
@@ -2122,6 +2256,7 @@ def phase_ngram_beam(LookupLanguageModel, BeamSearch, kernels):
                "max_corrections": lm.max_corrections},
         "route": "sparse", "batch": NGRAM_B, "width": NGRAM_W, "max_iters": NGRAM_S,
         "eos": NGRAM_EOS, "steps": n_steps, "launches": launches, "vs_cpu": check,
+        "gather_flag_bit_equal": True,
         "best_len_mean": float(got[1][:, 0].float().mean()),
         "search_ms": ms, "runs_ms": runs[0], "utt_per_s": NGRAM_B / (ms / 1e3),
         "trace": {k: profiled[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
@@ -3697,6 +3832,9 @@ def phase_recipe(pkg, kernels, cfg=RECIPE, dev="cuda"):
         if kernels.LAUNCHES["spec_augment_apply"] != len(epochs[0]["losses"]):
             raise AssertionError(f"traced epoch launches {dict(kernels.LAUNCHES)}")
         train_launches["spec_augment_apply"] += kernels.LAUNCHES["spec_augment_apply"]
+        script = recipe_script(kernels, os.path.join(work, "script"), dev)
+        train_launches["spec_augment_apply"] += script["launches"]["spec_augment_apply"]
+        score_launches["edit_distance"] += script["launches"]["edit_distance"]
         emit({
             "phase": "recipe", "model": "ConformerCTC d512 L8 H8 V1024 bf16, dropout 0.1",
             "utterances": cfg["utts"], "frames": frames, "tokens": tokens,
@@ -3705,13 +3843,71 @@ def phase_recipe(pkg, kernels, cfg=RECIPE, dev="cuda"):
             "checkpoint_save_ms": save_ms, "checkpoint_load_ms": load_ms,
             "checkpoint_bytes": ckpt_bytes, "resume_bit_equal": True,
             "decode_ms": decode_ms, "hyp_len_max": max(hyp_lens), "all_blank": all_blank,
-            "scores": scores, "traced_epoch": traced,
+            "scores": scores, "traced_epoch": traced, "script": script,
             "launches": {"spec_augment_apply": train_launches["spec_augment_apply"],
                          **score_launches},
         })
         return {"spec_augment_apply": train_launches["spec_augment_apply"], **score_launches}
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+RECIPE_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                             "train_ctc_asr_torch.py")
+
+
+def recipe_script(kernels, work, dev):
+    """examples/train_ctc_asr_torch.py's ``main`` at its defaults (16
+    synthesized utterances, batch 4) on ``dev``, twice in ``work``: 2
+    epochs, then ``--num-epochs 3``, which must resume from the second
+    checkpoint and train the third epoch alone. Both calls return 0, every
+    training step launches ``spec_augment_apply`` once and each scoring
+    launches ``edit_distance``; returns the launches of both calls, their
+    seconds, the history's epochs, the error rate and what the script
+    printed."""
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location("train_ctc_asr_torch", RECIPE_SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    hist = os.path.join(work, "hist.csv")
+    calls, total = [], {"spec_augment_apply": 0, "edit_distance": 0}
+    for epochs in (2, 3):
+        kernels.reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = mod.main(["--work-dir", work, "--device", dev, "--num-epochs", str(epochs)])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: kernels.LAUNCHES[k] for k in total}
+        with open(hist) as f:
+            rows = [int(line.split(",")[0]) for line in f.read().splitlines()[1:]]
+        trained = [line for line in out.getvalue().splitlines() if line.startswith("epoch ")]
+        calls.append({"num_epochs": epochs, "rc": rc, "s": seconds, "launches": launches,
+                      "hist_epochs": rows, "trained": trained})
+        if rc != 0:
+            raise AssertionError(f"the recipe script returned {rc}: {calls}")
+        for k in total:
+            total[k] += launches[k]
+    first, second = calls
+    steps = first["launches"]["spec_augment_apply"] // 2
+    if (
+        first["hist_epochs"] != [1, 2] or second["hist_epochs"] != [1, 2, 3]
+        or [len(c["trained"]) for c in calls] != [2, 1]
+        or not second["trained"][0].startswith("epoch 3:")
+        or steps == 0 or second["launches"]["spec_augment_apply"] != steps
+        or min(c["launches"]["edit_distance"] for c in calls) < 1
+    ):
+        raise AssertionError(f"the recipe script did not train, resume and score: {calls}")
+    with open(os.path.join(work, "wer.txt")) as f:
+        rate = float(f.read())
+    if not (math.isfinite(rate) and rate >= 0):
+        raise AssertionError(f"the recipe script scored {rate}")
+    return {"script": os.path.relpath(RECIPE_SCRIPT), "calls": calls, "error_rate": rate,
+            "steps_per_epoch": steps, "launches": total}
 
 
 def moe_layers(model):
@@ -5174,7 +5370,7 @@ def main(argv):
         (config, ctc_recognizer, CTCPrefixSearch), kernels, model, requests
     )
     lm_launches, times["decode_prologue"]["lm_serve"] = phase_lm_serve(
-        (LookupLanguageModel, ctc_recognizer, CTCPrefixSearch, _lm_bias),
+        (LookupLanguageModel, ctc_recognizer, CTCPrefixSearch, _lm_bias, config),
         kernels, model, requests, lm,
     )
     del model, recognize, requests, lm
@@ -5191,7 +5387,7 @@ def main(argv):
     s2s = (AttentionSeq2Seq, Seq2SeqConfig, Seq2SeqDecoderLM, BeamSearch,
            make_mer_train_step, adam)
     phase_s2s_serve(s2s, kernels)
-    phase_ngram_beam(LookupLanguageModel, BeamSearch, kernels)
+    phase_ngram_beam(LookupLanguageModel, BeamSearch, kernels, config)
     mer_launches, times["edit_distance"]["seq2seq_train"] = phase_s2s_train(
         s2s, decoding, kernels
     )

@@ -17,7 +17,25 @@ This package imports ``torch`` and ``numpy`` only, never ``jax`` or
 
 import torch
 
-__all__ = ["default_device"]
+# the public submodules, as the JAX package lists them, and the device
+# policy
+__all__ = [
+    "argcheck",
+    "config",
+    "data",
+    "default_device",
+    "distributions",
+    "estimators",
+    "export",
+    "functional",
+    "models",
+    "modules",
+    "ops",
+    "parallel",
+    "serving",
+    "training",
+    "utils",
+]
 
 
 def default_device(device=None) -> torch.device:

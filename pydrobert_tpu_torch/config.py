@@ -107,9 +107,13 @@ SPARSE_MEMBERSHIP_GATHER = (
 """Answer the sparse decode's "is token v a stored n-gram under this
 context" through the direct-indexed bigram table
 (:meth:`pydrobert_tpu_torch.lm.LookupLanguageModel.order2_values`) instead
-of comparing against the correction lists. Off by default, as in the JAX
-package; only the default compare path is ported, so turning it on makes
-the sparse route raise :class:`NotImplementedError`."""
+of comparing its order-2 slots against the correction lists; the
+order >= 3 slots are still compared. Off by default, as in the JAX package.
+Only :class:`pydrobert_tpu_torch.ops.decoding.CTCPrefixSearch` reads it
+(at call time); an LM whose table is None (no bigrams, or more than
+``LookupLanguageModel._DENSE_NGRAM_MAX`` entries) takes the compare path.
+:class:`~pydrobert_tpu_torch.ops.decoding.BeamSearch` ignores it, as the
+JAX package's does."""
 
 EPS_NINF = math.log(1.1754943508222875e-38) / 2
 """A small enough log-space value that exponentiating it is very close to 0."""

@@ -605,6 +605,7 @@ class LookupLanguageModel(MixableSequentialLanguageModel):
         self._combined_cache = None
         self._combined_dev = None
         self._order2_cache = None
+        self._order2_dev = None
         self._uni_t = torch.as_tensor(self._uni_logp, device=self.device)
 
     def _store_logzs(self, kid_maps, logb_maps) -> None:
@@ -1057,6 +1058,15 @@ class LookupLanguageModel(MixableSequentialLanguageModel):
             arr[c * V + toks] = t.child_logp[start:start + length]
         self._order2_cache = arr
         return arr
+
+    def _order2_table(self) -> Optional[torch.Tensor]:
+        """:meth:`order2_values` on the LM's device, copied there once."""
+        if self._order2_dev is None:
+            arr = self.order2_values()
+            if arr is None:
+                return None
+            self._order2_dev = torch.as_tensor(arr, device=self.device)
+        return self._order2_dev
 
     # -- persistence ---------------------------------------------------------
     def state_dict(self) -> Dict[str, np.ndarray]:

@@ -410,6 +410,8 @@ def _ctc_prefix_search_advance_sparse(
     prev_is_prefix: torch.Tensor,
     vocab_size: int,
     valid: Optional[torch.Tensor] = None,
+    bi: Optional[torch.Tensor] = None,
+    c1: Optional[torch.Tensor] = None,
 ):
     """One frame of CTC prefix search with a backoff n-gram LM shallow-fused
     (``lm_probs**beta * am``), scoring only candidate slots.
@@ -426,13 +428,22 @@ def _ctc_prefix_search_advance_sparse(
     ``am_at`` maps token ids ``(N, Q)`` to the frame's acoustic
     probabilities and ``uni_at`` to unigram log-probs clamped at -1e30.
     ``valid`` and the return value are :func:`_ctc_advance_tail`'s.
+
+    With ``bi``, the flat bigram table of :meth:`~pydrobert_tpu_torch.lm.
+    LookupLanguageModel.order2_values` on the search's device, and ``c1
+    (N, Kp)``, each beam's most recent context token, the order-2 slots'
+    membership and values come from one gather of ``bi[c1 * V + v]``
+    (``config.SPARSE_MEMBERSHIP_GATHER``; ``decoding.py:1226-1269`` of the
+    JAX package) and only the order >= 3 slots are compared. ``c1`` is a
+    token in ``[0, V)`` or the LM's ``sos``, both below the table's
+    ``base``, so every index lies in the table.
     """
     top_vals, top_inds = top_g
     nb_prev, b_prev = probs_prev
     N, Kp = nb_prev.shape
     M = top_inds.shape[1]
     V = vocab_size
-    base, ctoks, cvals, cvalid, logZ = sparse[:5]
+    base, ctoks, cvals, cvalid, logZ, logb, bounds = sparse
     ctoks = ctoks.long()
     C = ctoks.shape[2]
     K = min(width, Kp * (V + 1))
@@ -449,17 +460,48 @@ def _ctc_prefix_search_advance_sparse(
 
     # the corrected value and match flag of every (beam k, candidate token)
     # pair, the candidates being the other beams' last tokens and the
-    # shared top-M tokens. Corrections are unique per context, so each sum
-    # has at most one nonzero term.
+    # shared top-M tokens
     cand2 = torch.cat([y_prev_last, top_inds], 1)  # (N, Kp + M)
-    eqm = (ctoks[:, :, None, :] == cand2[:, None, :, None]) & cvalid[:, :, None, :]
-    val_sum = torch.where(eqm, cvals[:, :, None, :], 0.0).sum(3)
-    found_all = eqm.any(3)  # (N, Kp, Kp + M)
-    found_tm = found_all[..., :Kp]
-    shared_in_corr = found_all[..., Kp:]  # (N, Kp, M)
-    lm_tm = val_sum[..., :Kp] + torch.where(
-        found_tm, 0.0, base[:, :, None] + uni_last[:, None, :]
-    )
+    if bi is not None:
+        # the highest stored order wins: the unigram backoff, overridden by
+        # the bigram table's value, overridden by a match among the order
+        # >= 3 slots [hi0, C). +inf marks an absent pair; the inner where
+        # keeps it out of the sum.
+        hi0 = int(bounds[1])
+        big = torch.take(bi, c1[:, :, None] * V + cand2[:, None, :])  # (N, Kp, Kp + M)
+        biq = big[..., :Kp]
+        found_tm = torch.isfinite(biq)
+        pen2 = logb[..., 1:].sum(-1)  # (N, Kp): backoffs of the orders above 2
+        lm_tm = torch.where(
+            found_tm,
+            pen2[:, :, None] + torch.where(found_tm, biq, 0.0),
+            base[:, :, None] + uni_last[:, None, :],
+        )
+        shared_in_corr = torch.isfinite(big[..., Kp:])  # (N, Kp, M)
+        if C > hi0:
+            mhi = (
+                ctoks[:, :, None, hi0:] == cand2[:, None, :, None]
+            ) & cvalid[:, :, None, hi0:]  # (N, Kp, Kp + M, C - hi0)
+            anyhi = mhi.any(3)
+            any3 = anyhi[..., :Kp]
+            lm_tm = torch.where(
+                any3,
+                torch.where(mhi[..., :Kp, :], cvals[:, :, None, hi0:], 0.0).sum(3),
+                lm_tm,
+            )
+            found_tm = found_tm | any3
+            shared_in_corr = shared_in_corr | anyhi[..., Kp:]
+    else:
+        # corrections are unique per context, so each sum has at most one
+        # nonzero term
+        eqm = (ctoks[:, :, None, :] == cand2[:, None, :, None]) & cvalid[:, :, None, :]
+        val_sum = torch.where(eqm, cvals[:, :, None, :], 0.0).sum(3)
+        found_all = eqm.any(3)  # (N, Kp, Kp + M)
+        found_tm = found_all[..., :Kp]
+        shared_in_corr = found_all[..., Kp:]  # (N, Kp, M)
+        lm_tm = val_sum[..., :Kp] + torch.where(
+            found_tm, 0.0, base[:, :, None] + uni_last[:, None, :]
+        )
     # fused ext prob of beam j's last token under beam k's context; a
     # beam's own last token is the diagonal
     p_tm = am_last[:, None, :] * torch.exp(beta * (lm_tm - logZ[:, :, None]))
@@ -666,11 +708,13 @@ class CTCPrefixSearch(torch.nn.Module):
                 )
             lens = lens.to(dev, torch.long)
         route = self.lm_route()
-        if route == "sparse" and config.SPARSE_MEMBERSHIP_GATHER:
-            raise NotImplementedError(
-                "SPARSE_MEMBERSHIP_GATHER (the bigram-table membership test) "
-                "is not ported; only the default compare path is"
-            )
+        # the bigram table of the membership gather, on the LM's device;
+        # None (the compare path) when the LM has none
+        bi = (
+            lm._order2_table()
+            if route == "sparse" and config.SPARSE_MEMBERSHIP_GATHER
+            else None
+        )
         prev = {} if initial_state is None else initial_state
 
         if route is None and initial_state is None and self._takes_beam_route(T, N, V):
@@ -768,6 +812,7 @@ class CTCPrefixSearch(torch.nn.Module):
                     (top_vals_t, top_inds_t), partial(am_at, fr), uni_at,
                     blank_t, beta, lm.sparse_corrections_ext(ctx), W,
                     (nb, b), y_buf, y_last, y_lens, is_prefix, V, valid,
+                    bi, ctx[0],
                 ), state
             p_last = am_at(fr, y_last)
             p_last_ext = None
@@ -1084,11 +1129,6 @@ class BeamSearch:
             # beam's C stored corrections, and base_k keeps the beam's
             # order, so the top-W extensions come from a static top-M of
             # the unigrams, the corrections and eos
-            if config.SPARSE_MEMBERSHIP_GATHER:
-                raise NotImplementedError(
-                    "SPARSE_MEMBERSHIP_GATHER (the bigram-table membership "
-                    "test) is not ported; only the default compare path is"
-                )
             Ng = lm.max_ngram
             M = min(V, W + lm.max_corrections + 1)
             uni_np = np.asarray(lm._uni_logp)

@@ -29,3 +29,24 @@ def random_prob_dicts(V, N, seed, sos, density=0.5):
                 d[key] = val if n == N else (val, float(-rng.rand()))
         dicts.append(d)
     return dicts
+
+
+def fused_prob_dicts(V, N, seed, density=60):
+    """tests/test_decoding.py's ``_random_fused_lm`` draws: ``density``
+    random n-grams per order above 1, sos = V allowed in contexts."""
+    rng = np.random.RandomState(seed)
+    sos = V
+    uni = {w: (float(-rng.rand() * 5 - 0.1), float(-rng.rand())) for w in range(V)}
+    uni[sos] = (float("-inf"), float(-rng.rand()))
+    dicts = [uni]
+    ctx_pool = list(range(V)) + [sos]
+    for n in range(2, N + 1):
+        d = {}
+        for _ in range(density):
+            key = tuple(int(rng.choice(ctx_pool)) for _ in range(n - 1)) + (
+                int(rng.randint(V)),
+            )
+            val = float(-rng.rand() * 5 - 0.1)
+            d[key] = val if n == N else (val, float(-rng.rand()))
+        dicts.append(d)
+    return dicts

@@ -528,10 +528,15 @@ def _recipe_pkg():
 
 def test_recipe_phase_rehearsal(smoke, rehearse_train):
     launches = smoke.phase_recipe(_recipe_pkg(), rehearse_train, SMALL_RECIPE, dev="cpu")
-    # 2 epochs and a traced third of 2 steps; 2 scored directories of 3 batches
-    assert launches == {"spec_augment_apply": 6, "edit_distance": 6}
+    # 2 epochs and a traced third of 2 steps; 2 scored directories of 3
+    # batches; the recipe script's 2 epochs and resumed third of 4 steps,
+    # each call scored in one batch
+    assert launches == {"spec_augment_apply": 6 + 12, "edit_distance": 6 + 2}
     line = rehearse_train.lines[-1]
     assert line["phase"] == "recipe" and line["resume_bit_equal"]
+    script = line["script"]
+    assert [c["hist_epochs"] for c in script["calls"]] == [[1, 2], [1, 2, 3]]
+    assert script["launches"] == {"spec_augment_apply": 12, "edit_distance": 2}
     assert all(e["loader_reads"] == {"native": 2, "per_item": 0} for e in line["epochs"])
     assert line["epochs"][1]["mean_loss"] < line["epochs"][0]["mean_loss"]
     assert set(line["scores"]) == {"trained", "noisy"}
@@ -552,6 +557,17 @@ def test_recipe_phase_fails_a_wrong_resume(smoke, rehearse_train, monkeypatch):
                         "load_model_and_optimizer_for_epoch", wrong)
     with pytest.raises(AssertionError, match="resume"):
         smoke.phase_recipe(_recipe_pkg(), rehearse_train, SMALL_RECIPE, dev="cpu")
+
+
+def test_recipe_phase_fails_a_script_that_does_not_resume(smoke, rehearse_train, monkeypatch,
+                                                          tmp_path):
+    """A recipe script whose controller forgets the history retrains from
+    the first epoch on its second call, and the phase fails."""
+    from pydrobert_tpu_torch import training
+
+    monkeypatch.setattr(training.TrainingStateController, "get_last_epoch", lambda self: 0)
+    with pytest.raises(AssertionError, match="did not train, resume and score"):
+        smoke.recipe_script(rehearse_train, str(tmp_path), "cpu")
 
 
 def test_moe_phase_rehearsal(smoke, rehearse_train):
@@ -868,3 +884,66 @@ def test_profiling_phase_fails_a_mark_around_part_of_a_trip(smoke, rehearse, mon
     with pytest.raises(AssertionError, match="a frame between two short decodes"):
         smoke.phase_profiling(_profiling_pkg(), rehearse, None, _small_artifact(smoke, ()),
                               dev="cpu")
+
+
+@pytest.fixture
+def lm_served(smoke, rehearse, monkeypatch):
+    """The LM serve's compare pass at a small shape on the CPU: a 2-layer
+    ConformerCTC over V=40, three requests of 4 utterances, a 3-gram fused
+    at beta 0.5 through ``ctc_recognizer`` at width 4. Returns
+    ``lm_gather``'s arguments after the config."""
+    from _lm_dicts import random_prob_dicts
+    from pydrobert_tpu_torch.export import ctc_recognizer
+    from pydrobert_tpu_torch.lm import LookupLanguageModel
+    from pydrobert_tpu_torch.models import ConformerConfig, ConformerCTC
+    from pydrobert_tpu_torch.ops.decoding import CTCPrefixSearch
+
+    monkeypatch.setattr(smoke, "trace", lambda fn, warmup=True: _stub_trace(fn))
+    V = 40
+    lm = LookupLanguageModel(V, sos=V, prob_dicts=random_prob_dicts(V, 3, 8, V), device="cpu")
+    cfg = ConformerConfig(vocab_size=V, num_filts=8, d_model=16, num_layers=2, num_heads=2,
+                          subsample_channels=4, conv_kernel=5, dtype=torch.float32)
+    model = ConformerCTC(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.ctc_head.weight.mul_(8.0)
+    g = torch.Generator().manual_seed(1)
+    requests = [(torch.randn((4, 60, 8), generator=g), torch.randint(30, 61, (4,), generator=g))
+                for _ in range(3)]
+    search = CTCPrefixSearch(4, beta=0.5, lm=lm)
+    assert search.lm_route() == "sparse"
+    recognize = ctc_recognizer(model, 4, beta=0.5, lm=lm)
+    captured = []
+    hook = model.register_forward_hook(lambda mod, inp, out: captured.append(out))
+    outputs = [recognize(f, n) for f, n in requests]
+    hook.remove()
+    cpu_search = CTCPrefixSearch(4, beta=0.5, lm=smoke.cpu_copy(LookupLanguageModel, lm))
+    return (rehearse, model, recognize, search, cpu_search, requests,
+            (outputs, captured, 1.0, 100.0))
+
+
+def test_lm_gather_rehearsal(smoke, lm_served):
+    """The gather pass: one prologue launch a request, every utterance
+    equal to the compare pass up to ties, the first request equal to a
+    CPU gather decode, the flag restored."""
+    from pydrobert_tpu_torch import config
+
+    out = smoke.lm_gather(config, *lm_served)
+    assert not config.SPARSE_MEMBERSHIP_GATHER
+    assert out["launches"]["decode_prologue"] == 3
+    assert all(c["ok"] for c in out["vs_compare_route"])
+    assert out["vs_cpu_gather_decode"]["ok"]
+    assert out["table_bytes"] == 41 * 40 * 4 and out["table_rows"] == 41
+
+
+def test_lm_gather_fails_a_wrong_table(smoke, lm_served, monkeypatch):
+    """A bigram table whose values are off by 0.5 moves the gather
+    route's probabilities away from the compare route's, and the pass
+    fails."""
+    from pydrobert_tpu_torch import config
+
+    lm = lm_served[3].lm
+    table = lm._order2_table() + 0.5
+    monkeypatch.setattr(lm, "_order2_table", lambda: table)
+    with pytest.raises(AssertionError, match="vs the compare route"):
+        smoke.lm_gather(config, *lm_served)
+    assert not config.SPARSE_MEMBERSHIP_GATHER

@@ -737,20 +737,25 @@ def _lm_pair(dev, V, N, seed, probing=False, monkeypatch=None):
     return cpu, card
 
 
-@pytest.mark.parametrize("route", ["sparse", "uni", "dense"])
+@pytest.mark.parametrize("route", ["sparse", "sparse_gather", "uni", "dense"])
 def test_lm_search_on_card_matches_cpu(dev, route, monkeypatch):
     """A 4-gram (or unigram) LM over V=40 at W=8, T=30: hypotheses and
     lengths equal to the CPU decode's, probabilities within rtol 1e-5; the
     sparse and unigram routes launch the prologue once, the dense one
-    (forced by a zero correction bound) not at all."""
+    (forced by a zero correction bound) not at all. ``sparse_gather`` is
+    the sparse route with ``SPARSE_MEMBERSHIP_GATHER`` on, its bigram
+    table on the card."""
     cpu, card = _lm_pair(dev, 40, 1 if route == "uni" else 4, 6)
     if route == "dense":
         monkeypatch.setattr(pconfig, "SPARSE_FUSION_MAX_CORRECTIONS", 0)
+    monkeypatch.setattr(pconfig, "SPARSE_MEMBERSHIP_GATHER", route == "sparse_gather")
+    if route == "sparse_gather":
+        assert card._order2_table().device.type == "cuda"
     x = _logits((30, 6, 41), 8, torch.device("cpu"))
     lens = torch.tensor([30, 25, 17, 7, 1, 0])
     cy, cl, cp = CTCPrefixSearch(8, 0.5, cpu)(x, lens)
     search = CTCPrefixSearch(8, 0.5, card)
-    assert search.lm_route() == route
+    assert search.lm_route() == route.removesuffix("_gather")
     kernels.reset_launches()
     gy, gl, gp = (t.cpu() for t in search(x.to(dev), lens.to(dev)))
     assert kernels.LAUNCHES["decode_prologue"] == (0 if route == "dense" else 1)

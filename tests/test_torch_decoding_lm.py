@@ -3,7 +3,9 @@ three routes: sparse (a lookup n-gram LM through the prologue's ``g_bias``
 and per-beam corrections), unigram (the factored advance with the same
 bias) and dense (the full softmax, with the product fusion and with
 ``valid_mixture``), with DECODE_RENORM on and off, float32 and bfloat16
-logits, and an initial state.
+logits, and an initial state. The sparse route also with
+``SPARSE_MEMBERSHIP_GATHER`` on (set in both packages): the order-2 slots
+answered by one gather of the LM's bigram table.
 
 The port LM is carried across by the JAX LM's ``state_dict()``. Lengths
 and hypotheses (within each beam's length) must be equal; probabilities
@@ -29,7 +31,7 @@ from pydrobert_tpu_torch import lm as plm_mod
 from pydrobert_tpu_torch.ops import decoding as pdec
 from pydrobert_tpu_torch.ops import kernels
 
-from _lm_dicts import random_prob_dicts
+from _lm_dicts import fused_prob_dicts, random_prob_dicts
 
 RTOL = 1e-5
 
@@ -71,22 +73,48 @@ def run_both(jlm, plm, T, N, W, seed, beta=0.5, valid_mixture=False,
     return psearch, got, exp
 
 
-# route -> (V, max_ngram, LM seed, valid_mixture, forced dense)
+# route -> (V, max_ngram, LM seed, valid_mixture, forced dense, gather)
 ROUTES = {
-    "sparse": (20, 3, 1, False, False),
-    "uni": (20, 1, 2, False, False),
-    "dense": (20, 3, 1, False, True),
-    "dense_mixture": (20, 3, 1, True, False),
+    "sparse": (20, 3, 1, False, False, False),
+    "sparse_gather": (20, 3, 1, False, False, True),
+    "uni": (20, 1, 2, False, False, False),
+    "dense": (20, 3, 1, False, True, False),
+    "dense_mixture": (20, 3, 1, True, False, False),
 }
+
+
+def set_gather(monkeypatch, on):
+    """``SPARSE_MEMBERSHIP_GATHER`` in both packages."""
+    monkeypatch.setattr(jconfig, "SPARSE_MEMBERSHIP_GATHER", on)
+    monkeypatch.setattr(pconfig, "SPARSE_MEMBERSHIP_GATHER", on)
+
+
+def record_tables(monkeypatch, contexts=None):
+    """Wrap the sparse advance: the list it returns gets whether each call
+    was handed a bigram table, and ``contexts`` (a list) each call's
+    order-1 context tokens ``c1``."""
+    seen = []
+    advance = pdec._ctc_prefix_search_advance_sparse
+
+    def wrapped(*args, **kwargs):
+        seen.append(args[14] is not None)
+        if contexts is not None:
+            contexts.append(args[15].clone())
+        return advance(*args, **kwargs)
+
+    monkeypatch.setattr(pdec, "_ctc_prefix_search_advance_sparse", wrapped)
+    return seen
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("renorm", [True, False])
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_lm_search_matches_jax(route, renorm, dtype, monkeypatch):
-    V, Ng, seed, mixture, forced = ROUTES[route]
+    V, Ng, seed, mixture, forced, gather = ROUTES[route]
     monkeypatch.setattr(jconfig, "DECODE_RENORM", renorm)
     monkeypatch.setattr(pconfig, "DECODE_RENORM", renorm)
+    set_gather(monkeypatch, gather)
+    tables = record_tables(monkeypatch)
     if forced:
         # more corrections than the sparse route takes: the dense advance
         monkeypatch.setattr(jconfig, "SPARSE_FUSION_MAX_CORRECTIONS", 0)
@@ -98,14 +126,18 @@ def test_lm_search_matches_jax(route, renorm, dtype, monkeypatch):
         pdec, "decode_prologue", lambda *a: calls.append(a) or prologue(*a)
     )
     psearch, got, exp = run_both(
-        jlm, plm, 12, 4, 4, seed=100 + len(route), valid_mixture=mixture, dtype=dtype
+        jlm, plm, 12, 4, 4, seed=100 + len(route.removesuffix("_gather")), valid_mixture=mixture,
+        dtype=dtype,
     )
     assert psearch.lm_route() == route.split("_")[0]
     _compare_search(got, exp)
-    if route in ("sparse", "uni"):
+    if psearch.lm_route() == "sparse":
+        # every frame of the gather route took the table, none of the other
+        assert tables == [gather] * 12
+    if route in ("sparse", "sparse_gather", "uni"):
         # the prologue took the LM's bias, at M = 2W + corrections
         (logits, M, g_bias), = calls
-        assert M == min(V, 8 + (plm.max_corrections if route == "sparse" else 0))
+        assert M == min(V, 8 + (plm.max_corrections if route != "uni" else 0))
         assert g_bias.dtype == torch.float32 and g_bias.is_contiguous()
     else:
         assert not calls
@@ -171,9 +203,10 @@ def test_lm_search_rejects_bad_lms(monkeypatch):
     x = torch.zeros((3, 2, 11))
     with pytest.raises(RuntimeError, match="Expected dim 2"):
         pdec.CTCPrefixSearch(4, 0.5, plm)(x)
+    # the gather route checks the vocabulary as well
     monkeypatch.setattr(pconfig, "SPARSE_MEMBERSHIP_GATHER", True)
-    with pytest.raises(NotImplementedError, match="MEMBERSHIP"):
-        pdec.CTCPrefixSearch(4, 0.5, plm)(torch.zeros((3, 2, 21)))
+    with pytest.raises(RuntimeError, match="Expected dim 2"):
+        pdec.CTCPrefixSearch(4, 0.5, plm)(x)
 
 
 def _bias_tie_case():
@@ -249,3 +282,134 @@ def test_lm_search_with_a_fused_lm_matches_jax():
     psearch, got, exp = run_both(jf, pf, 10, 3, 4, seed=14)
     assert psearch.lm_route() == "dense"
     _compare_search(got, exp)
+
+
+# ---- SPARSE_MEMBERSHIP_GATHER: the bigram-table route ----
+
+
+def fused_trial(trial, seed0=4100):
+    """The draws of tests/test_decoding.py's gather tests (:761-800): V
+    4-40, orders 2-4, W 1-8, T 1-11, N 1-3, beta in [0, 2), unscaled
+    logits and lengths in [0, T], with the last row's length set to 0 when
+    N > 1. Returns the JAX LM, the port's copy (by its state dict), W,
+    beta, logits and lengths."""
+    rng = np.random.RandomState(seed0 + trial)
+    V = int(rng.randint(4, 40))
+    Ng = int(rng.randint(2, 5))
+    W = int(rng.randint(1, 9))
+    T = int(rng.randint(1, 12))
+    N = int(rng.randint(1, 4))
+    pd = fused_prob_dicts(V, Ng, seed0 + 1000 + trial, density=int(rng.randint(1, 200)))
+    beta = float(rng.rand() * 2)
+    logits = rng.randn(T, N, V + 1).astype(np.float32)
+    lens = rng.randint(0, T + 1, (N,)).astype(np.int32)
+    if N > 1:
+        lens[-1] = 0
+    jlm = jlm_mod.LookupLanguageModel(V, sos=V, prob_dicts=pd)
+    plm = plm_mod.LookupLanguageModel(V, sos=V, device="cpu")
+    plm.load_state_dict(jlm.state_dict())
+    return jlm, plm, W, beta, logits, lens
+
+
+def both_searches(jlm, plm, W, beta, logits, lens):
+    exp = jax.jit(jdec.CTCPrefixSearch(W, beta, jlm))(jnp.asarray(logits), jnp.asarray(lens))
+    got = pdec.CTCPrefixSearch(W, beta, plm)(torch.from_numpy(logits), torch.from_numpy(lens))
+    return got, exp
+
+
+@pytest.mark.parametrize("trial", range(6))
+def test_gather_route_matches_jax_gather_route(trial, monkeypatch):
+    """Random fused LMs with the flag on in both packages: the port's
+    gather route against the JAX package's, every frame with the table."""
+    set_gather(monkeypatch, True)
+    tables = record_tables(monkeypatch)
+    jlm, plm, W, beta, logits, lens = fused_trial(trial)
+    assert plm.order2_values() is not None
+    got, exp = both_searches(jlm, plm, W, beta, logits, lens)
+    _compare_search(got, exp)
+    assert tables == [True] * logits.shape[0]
+
+
+def _same_up_to_ties(got, exp, trial):
+    """tests/test_decoding.py's criterion (:783-800): sorted probabilities
+    within rtol 3e-5, and each real beam of ``exp`` found in ``got`` among
+    the beams of nearly equal probability."""
+    sy, slens, sprobs = (t.numpy() for t in got)
+    dy, dlens, dprobs = (t.numpy() for t in exp)
+    np.testing.assert_allclose(np.sort(dprobs, -1), np.sort(sprobs, -1), rtol=3e-5, atol=1e-7)
+    N, W = dprobs.shape
+    for n in range(N):
+        for k in range(W):
+            if np.isinf(dprobs[n, k]):
+                continue
+            L = dlens[n, k]
+            ok = any(
+                slens[n, kk] == L and (sy[:L, n, kk] == dy[:L, n, k]).all()
+                for kk in range(W)
+                if abs(sprobs[n, kk] - dprobs[n, k]) < 1e-4 * max(1, abs(dprobs[n, k]))
+            )
+            assert ok, (trial, n, k, dy[:L, n, k], dprobs[n, k], sprobs[n])
+
+
+@pytest.mark.parametrize("trial", range(4))
+def test_gather_route_matches_compare_route(trial, monkeypatch):
+    """The port's gather route against the port's compare route on the
+    same inputs, up to ties (the JAX package holds its own two routes to
+    this, not bit for bit)."""
+    _, plm, W, beta, logits, lens = fused_trial(trial)
+    x, n = torch.from_numpy(logits), torch.from_numpy(lens)
+    monkeypatch.setattr(pconfig, "SPARSE_MEMBERSHIP_GATHER", False)
+    exp = pdec.CTCPrefixSearch(W, beta, plm)(x, n)
+    monkeypatch.setattr(pconfig, "SPARSE_MEMBERSHIP_GATHER", True)
+    got = pdec.CTCPrefixSearch(W, beta, plm)(x, n)
+    _same_up_to_ties(got, exp, trial)
+
+
+def test_gather_route_without_a_table_takes_the_compare_path(monkeypatch):
+    """An LM whose ``order2_values()`` is None (here: more entries than
+    ``_DENSE_NGRAM_MAX``, lowered in both packages) takes the compare
+    path with the flag on, as in the JAX package."""
+    monkeypatch.setattr(jlm_mod.LookupLanguageModel, "_DENSE_NGRAM_MAX", 100)
+    monkeypatch.setattr(plm_mod.LookupLanguageModel, "_DENSE_NGRAM_MAX", 100)
+    set_gather(monkeypatch, True)
+    tables = record_tables(monkeypatch)
+    pd = random_prob_dicts(20, 3, 1, sos=20)
+    jlm = jlm_mod.LookupLanguageModel(20, sos=20, prob_dicts=pd)
+    plm = plm_mod.LookupLanguageModel(20, sos=20, device="cpu")
+    plm.load_state_dict(jlm.state_dict())
+    assert plm.order2_values() is None and jlm.order2_values() is None
+    psearch, got, exp = run_both(jlm, plm, 10, 3, 4, seed=31)
+    assert psearch.lm_route() == "sparse"
+    _compare_search(got, exp)
+    assert tables == [False] * 10
+
+
+# case -> (T, lengths, W): the first frame alone (every context sos),
+# rows frozen at 1 and 5 of 12 frames, and W above V + 1 (placeholder
+# beams whose contexts come from invalid correction slots)
+GATHER_EDGES = {
+    "sos": (1, [0, 1, 1], 4),
+    "frozen": (12, [0, 1, 5, 12], 4),
+    "placeholders": (9, [9, 3, 0], 25),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GATHER_EDGES))
+def test_gather_route_edge_contexts_match_jax(case, monkeypatch):
+    """The contexts the gather indexes with: each order-1 context is a
+    token below V or sos (= V), so every index lies in the ``(V + 1) * V``
+    table; the searches equal the JAX package's gather route."""
+    T, lens, W = GATHER_EDGES[case]
+    set_gather(monkeypatch, True)
+    contexts = []
+    tables = record_tables(monkeypatch, contexts)
+    jlm, plm = lm_pair(20, 3, 1)
+    lens = np.asarray(lens, np.int32)
+    _, got, exp = run_both(jlm, plm, T, len(lens), W, seed=40 + T, lens=lens)
+    _compare_search(got, exp)
+    assert tables == [True] * T
+    c1 = torch.cat([c.reshape(-1) for c in contexts])
+    assert int(c1.min()) >= 0 and int(c1.max()) <= plm.sos
+    assert plm.order2_values().shape == ((plm.sos + 1) * 20,)
+    # the first frame reads sos only
+    assert bool((contexts[0] == plm.sos).all())

@@ -128,6 +128,7 @@ def lookup_pair(V, N, seed):
     return jlm, plm
 
 
+@pytest.mark.parametrize("gather", [False, True])
 @pytest.mark.parametrize("route", ["sparse", "dense"])
 @pytest.mark.parametrize(
     "V,order,seed,width,eos,finish_all,batch,max_iters",
@@ -138,8 +139,11 @@ def lookup_pair(V, N, seed):
         (30, 3, 3, 5, 0, False, 4, 9),
     ],
 )
-def test_beam_search_lookup_lm_matches_jax(monkeypatch, route, V, order, seed, width, eos,
-                                           finish_all, batch, max_iters):
+def test_beam_search_lookup_lm_matches_jax(monkeypatch, gather, route, V, order, seed, width,
+                                           eos, finish_all, batch, max_iters):
+    # BeamSearch reads no SPARSE_MEMBERSHIP_GATHER in either package (C12)
+    monkeypatch.setattr(jconfig, "SPARSE_MEMBERSHIP_GATHER", gather)
+    monkeypatch.setattr(pconfig, "SPARSE_MEMBERSHIP_GATHER", gather)
     jlm, plm = lookup_pair(V, order, seed)
     if route == "dense":
         monkeypatch.setattr(jconfig, "SPARSE_FUSION_MAX_CORRECTIONS", 0)

@@ -173,11 +173,21 @@ def test_streaming_rejects_resume_noncausal_and_reuse(models):
         pserving.StreamingCTCRecognizer(pmodel, lm=object())
 
 
-def test_streaming_recognizer_with_lm_matches_jax_and_one_shot(models):
+@pytest.mark.parametrize("gather", [False, True])
+def test_streaming_recognizer_with_lm_matches_jax_and_one_shot(models, gather, monkeypatch):
     """A 3-gram lookup LM fused at beta 0.5 (the sparse route): every
     partial and the finish against the JAX session with the same LM
     (carried by its state dict), and the finish against the port's
-    one-shot LM search of the full forward."""
+    one-shot LM search of the full forward; on the compare route and on
+    the gather route (``SPARSE_MEMBERSHIP_GATHER`` in both packages)."""
+    monkeypatch.setattr(jconfig, "SPARSE_MEMBERSHIP_GATHER", gather)
+    monkeypatch.setattr(pconfig, "SPARSE_MEMBERSHIP_GATHER", gather)
+    tables = []
+    advance = pdec._ctc_prefix_search_advance_sparse
+    monkeypatch.setattr(
+        pdec, "_ctc_prefix_search_advance_sparse",
+        lambda *a: tables.append(a[14] is not None) or advance(*a),
+    )
     jmodel, params, pmodel, feats, lens = models
     V = CFG["vocab_size"]
     jlm = jlm_mod.LookupLanguageModel(V, sos=V, prob_dicts=random_prob_dicts(V, 3, 21, V))
@@ -201,6 +211,7 @@ def test_streaming_recognizer_with_lm_matches_jax_and_one_shot(models):
         logits, out_lens = pmodel(torch.from_numpy(feats), torch.from_numpy(lens))
     one_shot = pdec.CTCPrefixSearch(4, 0.5, plm)(logits.transpose(0, 1).contiguous(), out_lens)
     _compare((got[0][: logits.shape[1]],) + got[1:], one_shot)
+    assert tables and set(tables) == {gather}
 
 
 # ------------------------------------------------- transducer sessions
