@@ -1,0 +1,5 @@
+"""The benchmark of the PyTorch and CUDA port (``pydrobert_tpu_torch``).
+
+``python3 portbench/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell once; see ``portbench/README.md``.
+"""
