@@ -49,6 +49,7 @@ from ..lm import (
     SequentialLanguageModel,
 )
 from ..utils import pytree as _pytree
+from ..utils.profiling import span
 from ._loops import frame_loop
 from ._softmax import log_softmax
 from .kernels import ctc_beam_search, ctc_beam_search_fits, decode_prologue
@@ -679,6 +680,10 @@ class CTCPrefixSearch(torch.nn.Module):
         lens: Optional[torch.Tensor] = None,
         initial_state: Optional[dict] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        with span("search/ctc_prefix"):
+            return self._search(logits, lens, initial_state)
+
+    def _search(self, logits, lens, initial_state):
         if logits.dim() != 3:
             raise RuntimeError("logits must be 3 dimensional")
         if logits.dtype not in (torch.float32, torch.bfloat16):

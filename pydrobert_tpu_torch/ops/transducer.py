@@ -47,6 +47,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from ..utils.pytree import tree_map
 from ._loops import frame_loop
 from ._softmax import log_softmax
@@ -278,13 +279,15 @@ def transducer_greedy_advance(
         # was, so the hypotheses are the eager loop's
         carry = frame_loop(trip, carry, (), 0, T * (E + 1), "transducer_greedy", dev)
         return carry[1:]
-    while True:
-        # every iteration moves a row at most one frame: the slowest row
-        # needs at least this many more (one host sync a check)
-        todo = int((enc_lens - carry[0]).clamp_min(0).max()) if N else 0
-        if todo == 0:
-            break
-        carry = frame_loop(trip, carry, (), 0, todo, "transducer_greedy")
+    with span("search/transducer_greedy"):
+        while True:
+            # every iteration moves a row at most one frame: the slowest
+            # row needs at least this many more (one host sync a check)
+            with span("sync/transducer_greedy"):
+                todo = int((enc_lens - carry[0]).clamp_min(0).max()) if N else 0
+            if todo == 0:
+                break
+            carry = frame_loop(trip, carry, (), 0, todo, "transducer_greedy")
     return carry[1:]
 
 

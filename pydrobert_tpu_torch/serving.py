@@ -34,6 +34,7 @@ import torch
 from .models.conformer import streaming_margin
 from .ops import transducer as _rnnt
 from .ops.decoding import CTCPrefixSearch
+from .utils.profiling import span
 
 __all__ = [
     "StreamingCTCRecognizer",
@@ -324,52 +325,60 @@ class StreamingTransducerRecognizer:
                 f"streams {np.nonzero(resumed)[0].tolist()} ended (fell "
                 "behind the shared timeline) and cannot resume"
             )
-        sess.buf = torch.cat([sess.buf, feats], 1)
-        sess.total = sess.total + new_lens
-        sess.pushed += T_new
-        if _ceil4(sess.pushed) > self.max_frames:
-            raise RuntimeError(
-                f"stream exceeds max_frames={self.max_frames} post-subsample frames"
-            )
-        # decode fully determined frames in chunks of a fixed size
-        while sess.pushed // 4 - sess.o0 >= self.chunk:
-            self._decode_window(sess, sess.o0 + self.chunk, sess.total // 4)
-        return self._partial(sess)
+        with span("stream/push"):
+            sess.buf = torch.cat([sess.buf, feats], 1)
+            sess.total = sess.total + new_lens
+            sess.pushed += T_new
+            if _ceil4(sess.pushed) > self.max_frames:
+                raise RuntimeError(
+                    f"stream exceeds max_frames={self.max_frames} post-subsample frames"
+                )
+            # decode fully determined frames in chunks of a fixed size
+            while sess.pushed // 4 - sess.o0 >= self.chunk:
+                self._decode_window(sess, sess.o0 + self.chunk, sess.total // 4)
+            return self._partial(sess)
 
     def finish(self, sess: StreamingSession):
         """Decode everything outstanding; the final hypotheses."""
         if sess.done:
             raise RuntimeError("session already finished")
-        out_lens = _ceil4(sess.total)
-        o1 = int(out_lens.max(initial=0))
-        # the frames still on the shared frontier
-        while sess.o0 < o1:
-            self._decode_window(sess, min(sess.o0 + self.chunk, o1), out_lens)
-        # deferred tails: streams whose last partial-block frame fell
-        # behind the frontier before it was determined. One encode; each
-        # stream gets its own tail frame as a chunk of one
-        pending = out_lens - sess.consumed
-        assert (pending >= 0).all() and (pending <= 1).all(), pending
-        if pending.any():
-            tail_o = np.where(pending > 0, out_lens - 1, 0)
-            m0 = max(int(tail_o[pending > 0].min()) - self.R - 1, 0)
-            i0 = 4 * m0
-            f = sess.buf[:, i0 - sess.base :]
-            l = torch.from_numpy(np.clip(sess.total - i0, 0, f.shape[1]))
-            with torch.no_grad():
-                enc, _ = self.model.encode(f, l, pos_offset=m0)
-            pick = torch.from_numpy(np.clip(tail_o - m0, 0, enc.shape[1] - 1)).to(self.device)
-            enc_tail = enc[torch.arange(enc.shape[0], device=self.device), pick][:, None]
-            self._advance(sess, enc_tail, pending)
-        sess.done = True
-        if self.mode == "greedy":
-            _, u, hyps, _, _ = sess.carry
-            return hyps, u
-        return _rnnt.transducer_beam_finalize(sess.carry)
+        with span("stream/finish"):
+            out_lens = _ceil4(sess.total)
+            o1 = int(out_lens.max(initial=0))
+            # the frames still on the shared frontier
+            while sess.o0 < o1:
+                self._decode_window(sess, min(sess.o0 + self.chunk, o1), out_lens)
+            # deferred tails: streams whose last partial-block frame fell
+            # behind the frontier before it was determined. One encode; each
+            # stream gets its own tail frame as a chunk of one
+            pending = out_lens - sess.consumed
+            assert (pending >= 0).all() and (pending <= 1).all(), pending
+            if pending.any():
+                tail_o = np.where(pending > 0, out_lens - 1, 0)
+                m0 = max(int(tail_o[pending > 0].min()) - self.R - 1, 0)
+                i0 = 4 * m0
+                with span("stream/encode"), torch.no_grad():
+                    f = sess.buf[:, i0 - sess.base :]
+                    l = self._on_device(np.clip(sess.total - i0, 0, f.shape[1]), "stream_window")
+                    enc, _ = self.model.encode(f, l, pos_offset=m0)
+                pick = self._on_device(np.clip(tail_o - m0, 0, enc.shape[1] - 1), "stream_tail")
+                enc_tail = enc[torch.arange(enc.shape[0], device=self.device), pick][:, None]
+                self._advance(sess, enc_tail, pending)
+            sess.done = True
+            if self.mode == "greedy":
+                _, u, hyps, _, _ = sess.carry
+                return hyps, u
+            return _rnnt.transducer_beam_finalize(sess.carry)
+
+    def _on_device(self, a: np.ndarray, site: str) -> torch.Tensor:
+        """Host lengths on the model's device: a copy from pageable memory,
+        which waits for the card's queue to drain."""
+        with span("sync/" + site):
+            return torch.from_numpy(a).to(self.device)
 
     @torch.no_grad()
     def _advance(self, sess: StreamingSession, enc_chunk, chunk_lens: np.ndarray):
-        lens = torch.from_numpy(chunk_lens).to(self.device)
+        lens = self._on_device(chunk_lens, "stream_advance")
         step, joint = self.model.predictor.stepper(), self.model.joint
         if self.mode == "greedy":
             sess.carry = _rnnt.transducer_greedy_advance(
@@ -387,14 +396,15 @@ class StreamingTransducerRecognizer:
         """Advance the decode over global frames ``[sess.o0, o1)``."""
         m0 = max(sess.o0 - self.R - 1, 0)
         i0, i1 = 4 * m0, min(4 * o1, sess.pushed)
-        f = sess.buf[:, i0 - sess.base : i1 - sess.base]
-        N, Tf, F = f.shape
-        if Tf < self.Lw:
-            # pad to the fixed window; padded frames sit beyond every
-            # stream's valid length, so the encoder masks them out
-            f = torch.cat([f, f.new_zeros((N, self.Lw - Tf, F))], 1)
-        l = torch.from_numpy(np.clip(sess.total - i0, 0, i1 - i0))
-        enc, _ = self.model.encode(f, l, pos_offset=m0)
+        with span("stream/encode"):
+            f = sess.buf[:, i0 - sess.base : i1 - sess.base]
+            N, Tf, F = f.shape
+            if Tf < self.Lw:
+                # pad to the fixed window; padded frames sit beyond every
+                # stream's valid length, so the encoder masks them out
+                f = torch.cat([f, f.new_zeros((N, self.Lw - Tf, F))], 1)
+            l = self._on_device(np.clip(sess.total - i0, 0, i1 - i0), "stream_window")
+            enc, _ = self.model.encode(f, l, pos_offset=m0)
         sl0 = sess.o0 - m0
         enc_chunk = enc[:, sl0 : sl0 + self.chunk]
         # only streams on the frontier read this window; a drained stream's

@@ -9,10 +9,14 @@
 - :func:`profile_program`: CUDA-event medians of a function with that
   overhead amortized over back-to-back calls, plus
   :func:`~pydrobert_tpu_torch.utils.hlostats.compiled_stats`.
-- :func:`loop_trip`: the mark the port's decode loops put around each trip,
-  from which :func:`~pydrobert_tpu_torch.utils.hlostats.compiled_stats`
-  counts the device launches of one trip. It costs one flag read while no
-  profiler runs.
+- :func:`span`: the port's named marks on the timeline, ``pydt.<name>``
+  ranges while a profiler runs: a streaming push or finish and its window
+  encodes, a search, each point where the host waits on the card
+  (:data:`SYNC_PREFIX`), and through :func:`loop_trip` each trip of the
+  decode loops, from which
+  :func:`~pydrobert_tpu_torch.utils.hlostats.compiled_stats` counts the
+  device launches of one trip. A mark costs one flag read while no
+  profiler runs, and is off while a program is exported or compiled.
 """
 
 import contextlib
@@ -25,27 +29,43 @@ import torch
 
 __all__ = [
     "LOOP_PREFIX",
+    "SYNC_PREFIX",
     "annotate",
     "loop_trip",
     "measure_sync_overhead",
     "profile_program",
+    "span",
     "trace",
 ]
 
 LOOP_PREFIX = "pydt.loop/"
 """Name prefix of the profiler ranges :func:`loop_trip` opens."""
 
+SYNC_PREFIX = "pydt.sync/"
+"""Name prefix of the spans around a point where the host waits on the
+card: it reads a device value, or copies a host array to the card (a
+pageable copy that synchronizes the stream)."""
+
 
 def _profiling() -> bool:
     return torch.autograd.profiler._is_profiler_enabled
 
 
-def loop_trip(name: str):
-    """A ``record_function`` range ``LOOP_PREFIX + name`` around one trip of
-    a loop while a profiler runs; a no-op context otherwise."""
-    if _profiling():
-        return torch.profiler.record_function(LOOP_PREFIX + name)
+def span(name: str):
+    """A ``record_function`` range ``"pydt." + name`` while a profiler
+    runs; a no-op context otherwise, and always while
+    :func:`torch.export.export` or :func:`torch.compile` traces the code, so
+    a traced program holds no profiler operator."""
+    if _profiling() and not (
+        torch.compiler.is_exporting() or torch.compiler.is_compiling()
+    ):
+        return torch.profiler.record_function("pydt." + name)
     return contextlib.nullcontext()
+
+
+def loop_trip(name: str):
+    """:func:`span` ``"loop/" + name`` around one trip of a loop."""
+    return span("loop/" + name)
 
 
 def _activities():

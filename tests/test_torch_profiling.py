@@ -2,7 +2,9 @@
 ``utils.cache``) against the JAX package's, each test named after the JAX
 test it mirrors (``tests/test_foundation.py``, ``tests/test_decoding.py``):
 the same host fingerprint, the same loop trip counts, and the same FLOPs
-and transcendentals where both count the same operations (exactly)."""
+and transcendentals where both count the same operations (exactly). The
+port's own spans (``profiling.span``) are held to the work they mark: a
+streaming push or finish, the searches, their loop trips and host syncs."""
 
 import json
 import os
@@ -10,15 +12,26 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from pydrobert_tpu.utils import cache as jcache
 from pydrobert_tpu.utils import hlostats as jstats
 from pydrobert_tpu.utils import profiling as jprof
+from pydrobert_tpu_torch import config as pconfig
+from pydrobert_tpu_torch import serving as pserving
+from pydrobert_tpu_torch.ops import decoding as pdec
+from pydrobert_tpu_torch.ops import transducer as ptrans
 from pydrobert_tpu_torch.ops._loops import frame_loop
 from pydrobert_tpu_torch.utils import cache as pcache
 from pydrobert_tpu_torch.utils import hlostats as pstats
 from pydrobert_tpu_torch.utils import profiling as pprof
+
+# the span tests run on the serving tests' tiny causal CTC and transducer
+# models: tests/conftest.py only registers markers, so a fixture that two
+# modules share is imported from the one that defines it (a third module
+# needing them would move them to a helper module, as tests/_lm_dicts.py)
+from test_torch_serving import models, rnnt  # noqa: F401
 
 
 def test_host_keyed_compile_cache(tmp_path, monkeypatch):
@@ -156,3 +169,220 @@ def test_compiled_stats_on_the_transducer_greedy_loop():
     assert st["loop_name"] == "transducer_greedy"
     assert 7 <= st["loop_trip_count"] <= 7 * 3
     assert st["loop_kernels"] > 5
+
+
+# ---- the port's spans: which range holds which, and that they change nothing ----
+
+
+def _pydt_ranges(prof):
+    """``(name, names of the ranges around it)`` of every ``pydt.`` range
+    of a profile, in order."""
+    out = []
+    for e in prof.events():
+        if not e.name.startswith("pydt."):
+            continue
+        outer, p = [], e.cpu_parent
+        while p is not None:
+            outer.append(p.name)
+            p = p.cpu_parent
+        out.append((e.name, outer))
+    return out
+
+
+def _profiled(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, _pydt_ranges(prof)
+
+
+def _greedy_session(pmodel):
+    return pserving.StreamingTransducerRecognizer(
+        pmodel, chunk=4, mode="greedy", max_symbols_per_frame=3, max_frames=32
+    )
+
+
+@pytest.mark.parametrize("size, windows", [(3, 0), (16, 1), (45, 2)])
+def test_push_span_holds_its_encodes_advances_and_syncs(rnnt, size, windows, monkeypatch):
+    """One push is one ``pydt.stream/push``. Inside it: a window encode and
+    a greedy advance for each chunk it decodes (``size // 4 // 4`` at chunk
+    4), the two length copies of each, and one ``pydt.sync/transducer_greedy``
+    for each check the loop made (counted here: one before each run of
+    trips, and the last, which finds nothing left)."""
+    _, _, pmodel, feats, lens = rnnt
+    made = {"advances": 0, "runs": 0}
+    advance, loop = ptrans.transducer_greedy_advance, ptrans.frame_loop
+
+    def counted_advance(*args, **kwargs):
+        made["advances"] += 1
+        return advance(*args, **kwargs)
+
+    def counted_loop(*args, **kwargs):
+        made["runs"] += 1
+        return loop(*args, **kwargs)
+
+    monkeypatch.setattr(ptrans, "transducer_greedy_advance", counted_advance)
+    monkeypatch.setattr(ptrans, "frame_loop", counted_loop)
+    rec = _greedy_session(pmodel)
+    sess = rec.start(feats.shape[0])
+    _, ranges = _profiled(
+        lambda: rec.push(sess, torch.from_numpy(feats[:, :size]), np.clip(lens, 0, size))
+    )
+    checks = made["advances"] + made["runs"]
+    assert made["advances"] == windows and checks >= 2 * windows
+    names = [n for n, _ in ranges]
+    assert names.count("pydt.stream/push") == 1
+    want = {
+        "pydt.stream/encode": windows,
+        "pydt.search/transducer_greedy": windows,
+        "pydt.sync/stream_window": windows,
+        "pydt.sync/stream_advance": windows,
+        "pydt.sync/transducer_greedy": checks,
+    }
+    assert {n: names.count(n) for n in want} == want
+    for name, outer in ranges:
+        if name != "pydt.stream/push" and not name.startswith("pydt.loop/"):
+            assert "pydt.stream/push" in outer, name
+    for name, outer in ranges:
+        if name == "pydt.sync/transducer_greedy":
+            assert "pydt.search/transducer_greedy" in outer
+            assert not any(o.startswith("pydt.loop/") for o in outer)
+        if name == "pydt.sync/stream_window":
+            assert "pydt.stream/encode" in outer
+
+
+@pytest.mark.parametrize("size, windows, tail", [(16, 0, 0), (21, 1, 0), (45, 1, 1)])
+def test_finish_span_holds_its_encodes_advances_and_syncs(rnnt, size, windows, tail,
+                                                          monkeypatch):
+    """A finish after a push of ``size`` frames is one
+    ``pydt.stream/finish``. Inside it: an encode, its length copy, an
+    advance and its length copy for each window still on the frontier;
+    for the deferred tails one more encode and advance, and the tail
+    pick's copy (``pydt.sync/stream_tail``); and one
+    ``pydt.sync/transducer_greedy`` for each check the loops made."""
+    _, _, pmodel, feats, lens = rnnt
+    made = {"encodes": 0, "advances": 0, "runs": 0}
+    encode, advance, loop = pmodel.encode, ptrans.transducer_greedy_advance, ptrans.frame_loop
+
+    def counted(key, fn):
+        def call(*args, **kwargs):
+            made[key] += 1
+            return fn(*args, **kwargs)
+
+        return call
+
+    rec = _greedy_session(pmodel)
+    sess = rec.start(feats.shape[0])
+    rec.push(sess, torch.from_numpy(feats[:, :size]), np.clip(lens, 0, size))
+    monkeypatch.setattr(pmodel, "encode", counted("encodes", encode))
+    monkeypatch.setattr(ptrans, "transducer_greedy_advance", counted("advances", advance))
+    monkeypatch.setattr(ptrans, "frame_loop", counted("runs", loop))
+    _, ranges = _profiled(lambda: rec.finish(sess))
+    assert made["encodes"] == made["advances"] == windows + tail
+    names = [n for n, _ in ranges]
+    assert names.count("pydt.stream/finish") == 1
+    want = {
+        "pydt.stream/encode": windows + tail,
+        "pydt.search/transducer_greedy": windows + tail,
+        "pydt.sync/stream_window": windows + tail,
+        "pydt.sync/stream_advance": windows + tail,
+        "pydt.sync/stream_tail": tail,
+        "pydt.sync/transducer_greedy": made["advances"] + made["runs"],
+    }
+    assert {n: names.count(n) for n in want} == want
+    for name, outer in ranges:
+        if name != "pydt.stream/finish":
+            assert "pydt.stream/finish" in outer, name
+
+
+@pytest.mark.parametrize("route", ["scan", "beam"])
+def test_prefix_search_span_holds_every_trip(models, route, monkeypatch):
+    """``CTCPrefixSearch`` is one ``pydt.search/ctc_prefix``, around every
+    trip of its frame loop (one a frame after the first on the scan route,
+    none on the whole-loop route), with no host sync inside a trip."""
+    _, _, pmodel, feats, lens = models
+    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "1" if route == "beam" else "0")
+    with torch.no_grad():
+        logits, out_lens = pmodel(torch.from_numpy(feats), torch.from_numpy(lens))
+    x = logits.transpose(0, 1).contiguous()
+    search = pdec.CTCPrefixSearch(4)
+    assert search._takes_beam_route(*x.shape[:2], x.shape[2] - 1) == (route == "beam")
+    _, ranges = _profiled(lambda: search(x, out_lens))
+    names = [n for n, _ in ranges]
+    assert names.count("pydt.search/ctc_prefix") == 1
+    trips = [outer for n, outer in ranges if n == "pydt.loop/ctc_prefix_search"]
+    assert len(trips) == (x.shape[0] - 1 if route == "scan" else 0)
+    assert all("pydt.search/ctc_prefix" in outer for outer in trips)
+    for name, outer in ranges:
+        if name.startswith(pprof.SYNC_PREFIX):
+            assert not any(o.startswith(pprof.LOOP_PREFIX) for o in outer), name
+
+
+@pytest.mark.parametrize("path", ["stream", "prefix_search"])
+def test_spans_are_null_without_a_profiler_and_change_no_output(models, rnnt, path,
+                                                                monkeypatch):
+    """``span`` is a null context unless a profiler runs, and while export
+    or compile traces the code even then; a profiled call's outputs are
+    bit-equal to an unprofiled one's."""
+    import contextlib
+
+    from torch.profiler import profile
+
+    assert isinstance(pprof.span("x"), contextlib.nullcontext)
+    assert isinstance(pprof.loop_trip("x"), contextlib.nullcontext)
+    with profile():
+        assert not isinstance(pprof.span("x"), contextlib.nullcontext)
+        for flag in ("is_exporting", "is_compiling"):
+            with monkeypatch.context() as m:
+                m.setattr(torch.compiler, flag, lambda: True)
+                assert isinstance(pprof.span("x"), contextlib.nullcontext)
+    if path == "stream":
+        _, _, pmodel, feats, lens = rnnt
+
+        def call():
+            rec = _greedy_session(pmodel)
+            sess = rec.start(feats.shape[0])
+            first = rec.push(sess, torch.from_numpy(feats[:, :21]), np.clip(lens, 0, 21))
+            first = tuple(t.clone() for t in first)
+            rest = np.clip(lens - 21, 0, feats.shape[1] - 21)
+            rec.push(sess, torch.from_numpy(feats[:, 21:]), rest)
+            return first + tuple(rec.finish(sess))
+    else:
+        _, _, pmodel, feats, lens = models
+        with torch.no_grad():
+            logits, out_lens = pmodel(torch.from_numpy(feats), torch.from_numpy(lens))
+        x = logits.transpose(0, 1).contiguous()
+
+        def call():
+            return pdec.CTCPrefixSearch(4)(x, out_lens)
+
+    plain = call()
+    traced, ranges = _profiled(call)
+    assert ranges
+    assert len(plain) == len(traced)
+    for a, b in zip(plain, traced):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_exported_recognizer_holds_no_profiler_operator(models, tmp_path):
+    """Exported under a running profiler, the recognizer's program holds no
+    profiler operator and the same operators in every body as one
+    exported without it."""
+    from torch.profiler import profile
+
+    from pydrobert_tpu_torch import export as pexport
+
+    _, _, pmodel, feats, lens = models
+
+    def bodies(path):
+        art = pexport.export_ctc_recognizer(str(path), pmodel, specs=[(3, 45)], width=4)
+        return pstats.count_body_kernels(art._programs[0])
+
+    plain = bodies(tmp_path / "plain")
+    with profile():
+        traced = bodies(tmp_path / "traced")
+    assert traced == plain
+    assert len(plain) == 2  # the main graph and the search's scan body
+    ops = [op for b in traced.values() for op in b["ops"]]
+    assert ops and not any("record_function" in op or "profiler" in op for op in ops)
