@@ -25,17 +25,24 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    search at (T=500, N=32, V=1024, W=16) with diffuse, decisive and
    tie-heavy logits, at W=2, W=8 and W=32 and at T=2, ragged lengths with
    0 and 1, lengths, the whole path buffer and probabilities bit-exact;
+   its renormalizing variant against its plain version, the per-frame
+   scan, at (500, 32, 1025) in bf16 (diffuse, decisive, ties), float32,
+   W=2, W=32, T=2 and the offline cell's (875, 256, 1025) with LibriSpeech
+   lengths: lengths, tokens up to them and probabilities bit-exact; its
+   time at the cell's shape beside the scan's;
 3. serving: a seeded d512/L8/H8/V1024 ConformerCTC (bf16) serves three
-   requests of 32 utterances through ``ctc_recognizer(width=16)``; the
-   decode-prologue kernel must have been launched by them, the card's
-   hypotheses for four utterances must match a CPU decode of the same
-   logits, and the model on the card must match itself on the CPU;
+   requests of 32 utterances through ``ctc_recognizer(width=16)``: one
+   decode-prologue and one renormalizing beam-kernel launch a request,
+   hypotheses and probabilities bit-equal to the card's own scan
+   (``USE_BEAM_KERNEL="0"``), the card's hypotheses for four utterances
+   must match a CPU decode of the same logits, and the model on the card
+   must match itself on the CPU;
 4. serving times (medians of 7 after warm-up): each kernel's own device
    time from a torch.profiler trace, beside its wrapper's, its plain
    version's and ``torch.topk``'s per call from CUDA events around 20
    queued calls, and its bound; wall times of the encoder, the decode and a
    whole request, taken in turn so they share the host's load; peak memory;
-4b. beam serving: the same three requests with ``USE_BEAM_KERNEL="1"``;
+4b. raw beam serving: the same three requests with ``DECODE_RENORM`` off;
    one ``top_m`` and one ``ctc_beam_search`` launch each, hypotheses equal
    to the card's own scan with ``DECODE_RENORM`` off (lengths and tokens
    exact, probabilities within rtol 1e-4); encoder, decode and request wall
@@ -43,9 +50,11 @@ it exits non-zero before printing any result. Phases, one JSON line each:
 4c. streaming: the same widths as a causal config (``attention_context=
    (16, 0)``, ``causal_conv=True``, R=240) serve 32 streams of 1000-2000
    raw frames through ``StreamingCTCRecognizer``, 32 raw frames a push,
-   partials every 16th push, the beam route forced; push latency, finish
-   latency and launches; a float32 copy's finish on 4 streams equals the
-   one-shot search of its full forward;
+   partials every 16th push, on the default (renormalizing whole-loop)
+   route and again with ``DECODE_RENORM`` off (``top_m`` and the raw-mass
+   ``ctc_beam_search`` each search); on each, push latency, finish
+   latency and launches, and a float32 copy's finish on 4 streams equals
+   the one-shot search of its full forward;
 4d. LM serving (BASELINE config #3): bench.py's random 3-gram over V=1024,
    built with the port's own code, fused at beta 0.5 into the serve
    phase's three requests through ``ctc_recognizer(model, 16, beta=0.5,
@@ -132,13 +141,14 @@ it exits non-zero before printing any result. Phases, one JSON line each:
 14. blank-skip serving (bench_ctc_blankskip): its logits (B=256, T=500,
    V=1024, ``RandomState(8)`` in bench.py's order) through
    ``compress_blank_frames(threshold=0.99, max_frames=128)`` and
-   ``CTCPrefixSearch(16)`` on the scan route (one prologue launch), the
+   ``CTCPrefixSearch(16)`` on the default route (one prologue and one
+   renormalizing beam-kernel launch, bit-equal to the card's scan), the
    compression bit-equal to the CPU's, hypotheses equal to a CPU search of
    the same compressed logits at all 256 rows; the same without the cut
-   (the first 32 rows held), and the cut call on the beam route (one
-   ``top_m`` and one ``ctc_beam_search`` launch) equal to the card's
-   raw-mass scan, the beam kernel bit-equal to its plain version on
-   those inputs (its first N=256 shape); kept and cut frame shares,
+   (the first 32 rows held), and the cut call on the raw route
+   (``DECODE_RENORM`` off: one ``top_m`` and one ``ctc_beam_search``
+   launch) equal to the card's raw-mass scan, both beam kernels bit-equal
+   to their plain versions on those inputs; kept and cut frame shares,
    compress and decode ms,
    utterances a second, and the three kernels' times at these shapes;
 15. the feature front end at (16, 1000, 80): ``mean_var_norm``,
@@ -217,15 +227,18 @@ it exits non-zero before printing any result. Phases, one JSON line each:
    equal to the CPU's; each command's wall seconds;
 24. serving artifacts (``export.py``): the serve cell's model exported with
    ``torch.export`` at spec (32, 2000) as a greedy head and as width-16
-   heads on the scan and on the beam route, each with the default
-   arguments (the kernels' registered operators recorded: the prologue's
-   on the scan route, ``top_m``'s and ``ctc_beam_search``'s on the beam
-   route), and the transducer cell's greedy and width-4 beam heads at
-   (32, 500); all five served in turn by one fresh process that imports
-   no model code (``ARTIFACT_SERVER``): three requests and a padded call
-   (B=20, T=1500 for CTC), every output bit-equal to the live head on the
-   card, ``decode_prologue`` launched once a request there on the scan
-   route, ``top_m`` and ``ctc_beam_search`` once each on the beam route;
+   heads on the scan route (``USE_BEAM_KERNEL="0"``), with the default
+   arguments and with ``DECODE_RENORM`` off (the kernels' registered
+   operators recorded: the prologue's on the scan route, the prologue's
+   and ``ctc_beam_search_renorm``'s by default, ``top_m``'s and
+   ``ctc_beam_search``'s with renorm off), and the transducer cell's
+   greedy and width-4 beam heads at (32, 500); all six served in turn by
+   one fresh process that imports no model code (``ARTIFACT_SERVER``):
+   three requests and a padded call (B=20, T=1500 for CTC), every output
+   bit-equal to the live head on the card, ``decode_prologue`` launched
+   once a request there on the scan route, it and
+   ``ctc_beam_search_renorm`` once each by default, ``top_m`` and
+   ``ctc_beam_search`` once each with renorm off;
    export seconds, graph nodes, bytes, load, first-call and request ms
    beside the live request's;
 25. ``parallel/`` on a one-rank group (NCCL with gloo for the CPU side):
@@ -617,7 +630,7 @@ def phase_kernels(kernels, lm_bias, lm_m):
 
 
 def phase_main_path(torch_pkg):
-    ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch, kernels = torch_pkg
+    config, ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch, kernels = torch_pkg
     cfg, model = make_model(ConformerConfig, ConformerCTC)
     recognize = ctc_recognizer(model, width=WIDTH)
     requests = make_requests(cfg)
@@ -633,10 +646,25 @@ def phase_main_path(torch_pkg):
     serve_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     hook.remove()
-    if launches["decode_prologue"] != N_REQUESTS:
-        raise AssertionError(f"decode_prologue launches {launches}, expected {N_REQUESTS}")
+    want = {"decode_prologue": N_REQUESTS, "ctc_beam_search_renorm": N_REQUESTS,
+            "top_m": 0, "ctc_beam_search": 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"serve launches {launches}, expected {want}")
 
     check_served(outputs, captured, cfg)
+    # the renormalizing kernel is the card's own scan, bit for bit
+    saved = config.USE_BEAM_KERNEL
+    config.USE_BEAM_KERNEL = "0"
+    try:
+        vs_scan = [
+            same_search((hyps.permute(2, 0, 1), hlens, probs),
+                        CTCPrefixSearch(WIDTH)(logits.transpose(0, 1).contiguous(), out_lens))
+            for (hyps, hlens, probs), (logits, out_lens) in zip(outputs, captured)
+        ]
+    finally:
+        config.USE_BEAM_KERNEL = saved
+    if not all(c["ok"] for c in vs_scan):
+        raise AssertionError(f"served requests vs the card's scan: {vs_scan}")
 
     # the card's hypotheses against a CPU decode of the same logits
     (hyps, hlens, probs), (logits, out_lens) = outputs[0], captured[0]
@@ -678,6 +706,7 @@ def phase_main_path(torch_pkg):
         "phase": "main_path", "model": "ConformerCTC d512 L8 H8 V1024 bf16",
         "requests": N_REQUESTS, "batch": N_BATCH, "t_raw": T_RAW, "width": WIDTH,
         "launches": launches, "serve_s_first_pass": serve_s,
+        "vs_card_scan_bits": all(c["ok"] for c in vs_scan),
         "cpu_check_utts": k, "y_probs_max_rel_err": prob_err,
         "model_f32_card_vs_cpu_max_abs_err": model_err,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
@@ -748,16 +777,20 @@ def phase_profile(config, ConformerConfig, ConformerCTC, ctc_recognizer, CTCPref
     decode = trace(lambda: search(x, out_lens))
     decode["launches_per_frame"] = decode["kernel_launches"] / x.shape[0]
     encoder = trace(lambda: encode(feats, lens))
-    saved = config.USE_BEAM_KERNEL
-    config.USE_BEAM_KERNEL = "1"
+    saved = config.USE_BEAM_KERNEL, config.DECODE_RENORM
     try:
+        config.USE_BEAM_KERNEL = "0"
+        scan_decode = trace(lambda: search(x, out_lens))
+        scan_decode["launches_per_frame"] = scan_decode["kernel_launches"] / x.shape[0]
+        config.USE_BEAM_KERNEL, config.DECODE_RENORM = "auto", False
         beam_request = trace(lambda: recognize(feats, lens))
         beam_decode = trace(lambda: search(x, out_lens))
     finally:
-        config.USE_BEAM_KERNEL = saved
+        config.USE_BEAM_KERNEL, config.DECODE_RENORM = saved
     emit({
         "phase": "profile", "request": served, "encoder": encoder, "decode": decode,
-        "beam_request": beam_request, "beam_decode": beam_decode,
+        "scan_decode": scan_decode, "raw_beam_request": beam_request,
+        "raw_beam_decode": beam_decode,
     })
 
 
@@ -828,6 +861,8 @@ def phase_times(kernels, model, recognize, requests, CTCPrefixSearch, logits):
     feats, lens = requests[0]
     search = CTCPrefixSearch(WIDTH)
     out_lens = (((lens + 1) // 2) + 1) // 2
+    times["ctc_beam_search_renorm"] = renorm_kernel_times(kernels, x, out_lens)
+    line["ctc_beam_search_renorm"] = times["ctc_beam_search_renorm"]
     encode = torch.no_grad()(model)
     (enc_ms, dec_ms, req_ms), runs = host_ms([
         lambda: encode(feats, lens),
@@ -848,7 +883,7 @@ def phase_times(kernels, model, recognize, requests, CTCPrefixSearch, logits):
 
 
 # ---------------------------------------------------------------------------
-# The whole-loop beam search (USE_BEAM_KERNEL="1"): its kernel, the beam
+# The whole-loop beam search (DECODE_RENORM off): its kernel, the beam
 # route through ctc_recognizer, and streaming CTC serving through it.
 
 TINY = 1.1754943508222875e-38  # smallest normal float32
@@ -899,6 +934,151 @@ def search_compare(got, exp, rtol):
         and bool(torch.isclose(gp[fin], ep[fin], rtol=rtol, atol=1e-12).all())
     )
     return res
+
+
+def same_search(got, exp):
+    """:func:`search_compare` with every probability's bits equal."""
+    res = search_compare(got, exp, rtol=0.0)
+    res["probs_bit_exact"] = same_bits(got[2], exp[2])
+    res["ok"] = res["ok"] and res["probs_bit_exact"]
+    return res
+
+
+def renorm_inputs(kernels, x, W):
+    """What the default route hands ``ctc_beam_search_renorm`` for
+    time-major logits ``x (T, N, V + 1)``: the decode prologue's top-``2W``
+    values ``exp(top - max) / den`` and indices, the max, the denominator
+    and the blank's probability."""
+    tl, ti, mx, den, bl = kernels.decode_prologue(x, min(x.shape[-1] - 1, 2 * W))
+    return torch.exp(tl - mx[..., None]) / den[..., None], ti, mx, den, torch.exp(bl - mx) / den
+
+
+def renorm_bound_ms(lens, T, N, W, M, itemsize):
+    """:func:`beam_bound_ms` for the renormalizing kernel: for each frame a
+    row runs, the tv/ti rows, the blank, the max and the denominator and W
+    gathered logits in, and per beam a rescale (4 operations) and a
+    probability (3) besides the ranking; the paths, lengths, masses and
+    each row's exponent out once."""
+    frames = int(lens.clamp(0, T).sum())
+    bytes_ = (frames * (8 * M + itemsize * W + 12) + 4 * N + 8 * T * N * W + 12 * N * W
+              + 4 * N)
+    ops = frames * (3 * W * (M + 2) + 2 * W * W + 7 * W)
+    t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def renorm_kernel_times(kernels, x, lens, plain_reps=3):
+    """The renormalizing kernel on time-major logits ``x`` and ``lens``: its
+    device time, its wrapper's, its plain version's (the scan), its bound,
+    microseconds a frame of the longest row, and its outputs against the
+    plain version's (bit-exact)."""
+    T, N, Vp1 = x.shape
+    W = WIDTH
+    M = min(Vp1 - 1, 2 * W)
+    args = (x, *renorm_inputs(kernels, x, W), lens)
+
+    def kernel():
+        return kernels.ctc_beam_search_renorm(*args, W)
+
+    def plain():
+        return kernels.ctc_beam_search_renorm_reference(*args, W)
+
+    got, exp = kernel(), plain()
+    vs_plain = same_search(got[:3], exp[:3])
+    vs_plain["ls_exact"] = torch.equal(got[3], exp[3])
+    if not (vs_plain["ok"] and vs_plain["ls_exact"]):
+        raise AssertionError(f"ctc_beam_search_renorm vs its plain version: {vs_plain}")
+    wrapper = cuda_ms(kernel)
+    own = device_ms(kernel, "ctc_beam_kernel",
+                    count=lambda: kernels.LAUNCHES["ctc_beam_search_renorm"])
+    ms = wrapper if own is None else own
+    frames = int(lens.clamp(max=T).max())
+    bound = renorm_bound_ms(lens, T, N, W, M, x.element_size())
+    return {
+        "ms": ms, "ms_from": "cuda_events" if own is None else "profiler",
+        "traces": TRACES["ctc_beam_kernel"],
+        "trace_notes": TRACE_NOTES.get("ctc_beam_kernel"),
+        "wrapper_ms": wrapper,
+        "plain_ms": cuda_ms(plain, reps=plain_reps, inner=1, warmup=1),
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": None, "library": "none: no PyTorch call runs a CTC beam search",
+        "shape": [T, N, Vp1 - 1, W], "dtype": str(x.dtype).split(".")[-1],
+        "frames_longest_row": frames, "frames_all_rows": int(lens.clamp(max=T).sum()),
+        "us_per_frame": ms * 1e3 / frames, "vs_plain": vs_plain,
+    }
+
+
+# the offline cell's search (portbench ctc_l.prefix16): B=256 of LibriSpeech
+# test-clean lengths (a log-normal of mean 7.42 s, log-sd 0.63, in [1, 35]
+# s) padded to 35 s, 875 encoder frames a 35 s row
+CELL = dict(T=875, N=256, V=1024, mean_s=7.42, log_sd=0.63, seed=19)
+RENORM_CASES = (  # name, (T, N, V), width, logit scale, quarter steps, dtype
+    ("headline_diffuse", (500, 32, 1024), WIDTH, 0.5, False, torch.bfloat16),
+    ("headline_decisive", (500, 32, 1024), WIDTH, 8.0, False, torch.bfloat16),
+    ("headline_ties", (500, 32, 1024), WIDTH, 3.0, True, torch.bfloat16),
+    ("headline_f32", (500, 32, 1024), WIDTH, 2.0, False, torch.float32),
+    ("w2", (500, 32, 1024), 2, 8.0, False, torch.bfloat16),
+    ("w32", (500, 32, 1024), 32, 8.0, False, torch.bfloat16),
+    ("t2", (2, 32, 1024), WIDTH, 2.0, False, torch.bfloat16),
+)
+
+
+def cell_lengths(cfg, gen):
+    """Encoder frames of the cell's utterances: seconds from the
+    log-normal, 100 raw frames a second, subsampled by 4."""
+    mu = math.log(cfg["mean_s"]) - cfg["log_sd"] ** 2 / 2
+    sec = torch.exp(mu + cfg["log_sd"] * torch.randn((cfg["N"],), generator=gen)).clamp(1, 35)
+    return torch.ceil(sec * 100 / 4).long().clamp(max=cfg["T"])
+
+
+def phase_renorm_kernel(kernels, CTCPrefixSearch, config, cell=CELL):
+    """The renormalizing beam kernel against its plain version, the scan,
+    on the card (``RENORM_CASES``: diffuse logits whose raw masses would
+    underflow, decisive ones, bf16 ties, float32, W=2 and 32, T=2; ragged
+    lengths with 0, 1 and T), lengths, tokens up to them, every
+    probability's bits and each row's exponent exact; the default search's
+    launches; then its times at the offline cell's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    worst = 0.0
+    for name, (T, N, V), W, scale, ties, dtype in RENORM_CASES:
+        x = torch.randn((T, N, V + 1), generator=gen, device="cuda") * scale
+        if ties:
+            x = torch.round(x * 4) / 4
+        x = x.to(dtype)
+        lens = torch.randint(T // 2, T + 1, (N,), generator=gen, device="cuda")
+        lens[0], lens[1], lens[2] = T, 0, 1
+        args = (x, *renorm_inputs(kernels, x, W), lens)
+        got = kernels.ctc_beam_search_renorm(*args, W)
+        exp = kernels.ctc_beam_search_renorm_reference(*args, W)
+        torch.cuda.synchronize()
+        res = same_search(got[:3], exp[:3])
+        res.update(ls_exact=torch.equal(got[3], exp[3]), ls_min=int(exp[3].min()))
+        kernels.reset_launches()
+        served = CTCPrefixSearch(W)(x, lens)
+        res["search_launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        saved = config.USE_BEAM_KERNEL
+        config.USE_BEAM_KERNEL = "0"
+        try:
+            res["search_vs_scan"] = same_search(served, CTCPrefixSearch(W)(x, lens))["ok"]
+        finally:
+            config.USE_BEAM_KERNEL = saved
+        emit({"phase": "kernels", "kernel": "ctc_beam_search_renorm", "case": name,
+              "shape": [T, N, V, W], "scale": scale, "ties": ties,
+              "dtype": str(dtype).split(".")[-1], **res})
+        want = {"decode_prologue": 1, "ctc_beam_search_renorm": 1}
+        if not (res["ok"] and res["ls_exact"] and res["search_vs_scan"]
+                and res["search_launches"] == want):
+            raise AssertionError(f"ctc_beam_search_renorm parity failed for case {name}: {res}")
+        worst = max(worst, max_abs_err(zip(got, exp)))
+    cpu_gen = torch.Generator().manual_seed(cell["seed"])
+    lens = cell_lengths(cell, cpu_gen).cuda()
+    x = (torch.randn((cell["T"], cell["N"], cell["V"] + 1), generator=cpu_gen) * 8.0).to(
+        "cuda", torch.bfloat16)
+    times = renorm_kernel_times(kernels, x, lens, plain_reps=2)
+    emit({"phase": "renorm_kernel_cell", "nvidia_smi": smi_line(), "cell": dict(cell),
+          "lens": {"min": int(lens.min()), "median": float(lens.float().median()),
+                   "max": int(lens.max())}, **times})
+    return worst, times
 
 
 def phase_beam_kernel(kernels):
@@ -960,14 +1140,15 @@ def check_served(outputs, captured, cfg):
 
 
 def phase_beam_serve(pkg, kernels, model, requests):
-    """The three requests of the serve phase through the beam route: one
-    ``top_m`` and one ``ctc_beam_search`` launch each, hypotheses equal to
-    the card's own scan with DECODE_RENORM off (the raw masses the kernel
-    carries) by the JAX package's rule; then wall times of the encoder, the
-    decode and the request in turn, and the kernel's times."""
+    """The three requests of the serve phase through the raw beam route
+    (DECODE_RENORM off): one ``top_m`` and one ``ctc_beam_search`` launch
+    each, hypotheses equal to the card's own scan with DECODE_RENORM off
+    (the raw masses the kernel carries) by the JAX package's rule; then
+    wall times of the encoder, the decode and the request in turn, and the
+    kernel's times."""
     config, ctc_recognizer, CTCPrefixSearch = pkg
     saved = config.USE_BEAM_KERNEL, config.DECODE_RENORM
-    config.USE_BEAM_KERNEL = "1"
+    config.DECODE_RENORM = False
     try:
         recognize = ctc_recognizer(model, width=WIDTH)
         captured = []
@@ -980,7 +1161,8 @@ def phase_beam_serve(pkg, kernels, model, requests):
         serve_s = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         hook.remove()
-        want = {"decode_prologue": 0, "top_m": N_REQUESTS, "ctc_beam_search": N_REQUESTS}
+        want = {"decode_prologue": 0, "top_m": N_REQUESTS, "ctc_beam_search": N_REQUESTS,
+                "ctc_beam_search_renorm": 0}
         if any(launches[k] != v for k, v in want.items()):
             raise AssertionError(f"beam route launches {launches}, expected {want}")
         check_served(outputs, captured, model.cfg)
@@ -993,7 +1175,7 @@ def phase_beam_serve(pkg, kernels, model, requests):
             checks.append(search_compare((hyps.permute(2, 0, 1), hlens, probs), exp, 1e-4))
         if not all(c["ok"] for c in checks):
             raise AssertionError(f"beam route vs the card's raw-mass scan: {checks}")
-        config.USE_BEAM_KERNEL, config.DECODE_RENORM = "1", saved[1]
+        config.USE_BEAM_KERNEL = saved[0]
 
         feats, lens = requests[0]
         logits, out_lens = captured[0]
@@ -1072,14 +1254,34 @@ def stream_session(rec, feats, lens, partials_every=0, times=None):
     return res
 
 
+def stream_route(rec, kernels, feats, lens, want):
+    """One timed streaming session of ``rec`` after a short warm one, its
+    launches equal to ``want`` a search (every other kernel's 0); the
+    outputs, the launches, the push and finish times and the peak memory."""
+    stream_session(rec, feats[:, : 4 * STREAM_PUSH], lens.clip(max=4 * STREAM_PUSH), 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {"push": [], "partial": [], "finish": []}
+    kernels.reset_launches()
+    out = stream_session(rec, feats, lens, STREAM_PARTIALS_EVERY, times)
+    launches = dict(kernels.LAUNCHES)
+    searches = len(times["partial"]) + 1
+    if any(v != searches * want.get(k, 0) for k, v in launches.items()):
+        raise AssertionError(f"streaming launches {launches}, {searches} searches of {want}")
+    return out, launches, times, torch.cuda.max_memory_allocated()
+
+
 def phase_stream(pkg, kernels):
     """Streaming CTC serving: the flagship widths as a causal config, 32
     streams of 1000-2000 raw frames pushed 32 at a time (chunk 8), partials
-    every 16th push, the beam route forced, so every partial and the finish
-    launch the beam kernel. A float32 copy streams 4 of them, and its
-    finish must equal the one-shot search of its full forward (lengths and
-    tokens exact, probabilities within rtol 1e-4: the windowed and the
-    one-shot forwards sum in other orders)."""
+    every 16th push, on the default route, so every partial and the finish
+    launch the prologue and the renormalizing beam kernel; then the same
+    streams with DECODE_RENORM off, every search launching ``top_m`` and
+    the raw-mass ``ctc_beam_search``. On each route a float32 copy streams
+    4 of them, and its finish must equal the one-shot search of its full
+    forward on that route (lengths and tokens exact, probabilities within
+    rtol 1e-4: the windowed and the one-shot forwards sum in other
+    orders)."""
     config, ConformerConfig, ConformerCTC, CTCPrefixSearch, StreamingCTCRecognizer = pkg
     cfg = ConformerConfig(
         vocab_size=1024, num_filts=80, d_model=512, num_layers=8, num_heads=8,
@@ -1092,57 +1294,59 @@ def phase_stream(pkg, kernels):
     feats = torch.randn((N_BATCH, T_RAW, cfg.num_filts), generator=gen, device="cuda")
     lens = torch.randint(T_RAW // 2, T_RAW + 1, (N_BATCH,), generator=gen, device="cuda")
     lens = lens.cpu().numpy()
-    saved = config.USE_BEAM_KERNEL
-    config.USE_BEAM_KERNEL = "1"
+    m32 = ConformerCTC(dataclasses.replace(cfg, dtype=torch.float32), device="cuda")
+    m32.load_state_dict(model.state_dict())
+    k = 4
+    rec = StreamingCTCRecognizer(model, chunk=STREAM_CHUNK, width=WIDTH)
+    out_lens = torch.from_numpy(-(-lens // 4)).cuda()
+    S = -(-int(out_lens.max()) // 32) * 32  # decode_pad_multiple
+    routes, launches = {}, {}
+    saved = config.DECODE_RENORM
     try:
-        rec = StreamingCTCRecognizer(model, chunk=STREAM_CHUNK, width=WIDTH)
-        stream_session(rec, feats[:, : 4 * STREAM_PUSH], lens.clip(max=4 * STREAM_PUSH), 2)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times = {"push": [], "partial": [], "finish": []}
-        kernels.reset_launches()
-        y, y_lens, y_probs = stream_session(rec, feats, lens, STREAM_PARTIALS_EVERY, times)
-        launches = dict(kernels.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        searches = len(times["partial"]) + 1
-        if launches["ctc_beam_search"] != searches or launches["top_m"] != searches:
-            raise AssertionError(f"streaming launches {launches}, {searches} searches")
-        out_lens = torch.from_numpy(-(-lens // 4)).cuda()
-        S = -(-int(out_lens.max()) // 32) * 32  # decode_pad_multiple
-        assert tuple(y.shape) == (S, N_BATCH, WIDTH) and tuple(y_lens.shape) == (N_BATCH, WIDTH)
-        assert bool((y_lens <= out_lens[:, None]).all())
-        assert bool(((y_probs >= 0) & (y_probs <= 1)).all()), "probabilities out of [0, 1]"
-        assert bool((y_probs[:, :-1] >= y_probs[:, 1:]).all()), "beams out of order"
-
-        m32 = ConformerCTC(dataclasses.replace(cfg, dtype=torch.float32), device="cuda")
-        m32.load_state_dict(model.state_dict())
-        k = 4
-        got = stream_session(
-            StreamingCTCRecognizer(m32, chunk=STREAM_CHUNK, width=WIDTH), feats[:k], lens[:k]
-        )
-        with torch.no_grad():
-            lg, ol = m32(feats[:k], torch.from_numpy(lens[:k]).cuda())
-        exp = CTCPrefixSearch(WIDTH)(lg.transpose(0, 1).contiguous(), ol)
-        parity = search_compare(got, exp, rtol=1e-4)
-        if not parity["ok"]:
-            raise AssertionError(f"streaming finish vs one-shot (f32, {k} streams): {parity}")
+        for route, renorm, want in (
+            ("renorm", True, {"decode_prologue": 1, "ctc_beam_search_renorm": 1}),
+            ("raw", False, {"top_m": 1, "ctc_beam_search": 1}),
+        ):
+            config.DECODE_RENORM = renorm
+            (y, y_lens, y_probs), got, times, peak = stream_route(rec, kernels, feats, lens, want)
+            for name, v in got.items():
+                launches[name] = launches.get(name, 0) + v
+            assert tuple(y.shape) == (S, N_BATCH, WIDTH)
+            assert tuple(y_lens.shape) == (N_BATCH, WIDTH)
+            assert bool((y_lens <= out_lens[:, None]).all())
+            assert bool(((y_probs >= 0) & (y_probs <= 1)).all()), "probabilities out of [0, 1]"
+            assert bool((y_probs[:, :-1] >= y_probs[:, 1:]).all()), "beams out of order"
+            one = stream_session(
+                StreamingCTCRecognizer(m32, chunk=STREAM_CHUNK, width=WIDTH), feats[:k], lens[:k]
+            )
+            with torch.no_grad():
+                lg, ol = m32(feats[:k], torch.from_numpy(lens[:k]).cuda())
+            exp = CTCPrefixSearch(WIDTH)(lg.transpose(0, 1).contiguous(), ol)
+            parity = search_compare(one, exp, rtol=1e-4)
+            if not parity["ok"]:
+                raise AssertionError(
+                    f"streaming finish vs one-shot ({route}, f32, {k} streams): {parity}")
+            routes[route] = {
+                "pushes": len(times["push"]) + len(times["partial"]),
+                "partials": len(times["partial"]),
+                "launches": {name: v for name, v in got.items() if v},
+                "push_ms_median": statistics.median(times["push"]),
+                "push_ms_max": max(times["push"]),
+                "partial_push_ms_median": (
+                    statistics.median(times["partial"]) if times["partial"] else None
+                ),
+                "finish_ms": times["finish"][0], "peak_mem_bytes": peak,
+                "finish_vs_one_shot_f32": dict(parity, streams=k),
+            }
     finally:
-        config.USE_BEAM_KERNEL = saved
+        config.DECODE_RENORM = saved
     emit({
         "phase": "stream", "model": "ConformerCTC d512 L8 H8 V1024 bf16, causal",
         "attention_context": list(STREAM_CONTEXT), "causal_conv": True, "R": rec.R,
         "window_raw_frames": rec.Lw, "streams": N_BATCH,
         "raw_frames_min": int(lens.min()), "raw_frames_max": int(lens.max()),
         "push_raw_frames": STREAM_PUSH, "chunk": STREAM_CHUNK, "width": WIDTH,
-        "pushes": len(times["push"]) + len(times["partial"]),
-        "partials": len(times["partial"]), "launches": launches,
-        "push_ms_median": statistics.median(times["push"]),
-        "push_ms_max": max(times["push"]),
-        "partial_push_ms_median": (
-            statistics.median(times["partial"]) if times["partial"] else None
-        ),
-        "finish_ms": times["finish"][0], "peak_mem_bytes": peak,
-        "finish_vs_one_shot_f32": dict(parity, streams=k),
+        "routes": routes,
     })
     return launches
 
@@ -2799,18 +3003,19 @@ def blankskip_inputs(B, T, V, seed=8):
 
 def phase_blankskip(pkg, kernels, cfg=BLANKSKIP, dev="cuda", cpu_rows=32):
     """bench_ctc_blankskip's cell: ``compress_blank_frames(threshold=0.99,
-    max_frames=128)`` then ``CTCPrefixSearch(16)`` (the scan route) at
-    B=256, T=500, V=1024. The card's compression must be bit-equal to the
-    CPU's, its hypotheses and lengths equal to a CPU search of the same
-    compressed logits at every row; the same decode without the cut is
-    held at the first ``cpu_rows`` rows; the cut call through the beam
-    route (USE_BEAM_KERNEL="1") must equal the card's raw-mass scan, and
-    the beam kernel its plain version on the same inputs (path buffer and
-    probability bits exact, as in ``phase_beam_kernel``). Prints
-    the kept and cut shares of the frames (at 0.99 few blanks dominate,
-    so the cut, not the compression, does the shortening) and times.
-    Returns the launches of the scan call and of the beam call, and the
-    kernels' times at this cell's shapes."""
+    max_frames=128)`` then ``CTCPrefixSearch(16)`` (the default route: the
+    prologue and the renormalizing beam kernel) at B=256, T=500, V=1024.
+    The card's compression must be bit-equal to the CPU's, its hypotheses
+    and lengths equal to a CPU search of the same compressed logits at
+    every row and bit-equal to the card's scan (``USE_BEAM_KERNEL="0"``);
+    the same decode without the cut is held at the first ``cpu_rows``
+    rows; the cut call through the raw beam route (DECODE_RENORM off) must
+    equal the card's raw-mass scan, and each beam kernel its plain version
+    on the same inputs (path buffer and probability bits exact, as in
+    ``phase_beam_kernel``). Prints the kept and cut shares of the frames
+    (at 0.99 few blanks dominate, so the cut, not the compression, does the
+    shortening) and times. Returns the launches of the default call and of
+    the raw beam call, and the kernels' times at this cell's shapes."""
     config, CTCPrefixSearch, compress_blank_frames = pkg
     B, T, V, F, thr = cfg["B"], cfg["T"], cfg["V"], cfg["max_frames"], cfg["threshold"]
     logits_np, lens_np = blankskip_inputs(B, T, V, cfg["seed"])
@@ -2819,15 +3024,21 @@ def phase_blankskip(pkg, kernels, cfg=BLANKSKIP, dev="cuda", cpu_rows=32):
     search = CTCPrefixSearch(WIDTH)
     saved = config.USE_BEAM_KERNEL, config.DECODE_RENORM
     try:
-        config.USE_BEAM_KERNEL = "0"
         torch.cuda.synchronize()
         kernels.reset_launches()
         clg, clens = compress_blank_frames(x, lens, threshold=thr, max_frames=F)
         got = search(clg, clens)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        if launches["decode_prologue"] != 1 or launches["top_m"] or launches["ctc_beam_search"]:
-            raise AssertionError(f"blank-skip scan call launches {launches}, expected one prologue")
+        want = {"decode_prologue": 1, "ctc_beam_search_renorm": 1, "top_m": 0,
+                "ctc_beam_search": 0}
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"blank-skip call launches {launches}, expected {want}")
+        config.USE_BEAM_KERNEL = "0"
+        scan_check = same_search(got, search(clg, clens))
+        config.USE_BEAM_KERNEL = saved[0]
+        if not scan_check["ok"]:
+            raise AssertionError(f"blank-skip decode vs the card's scan: {scan_check}")
         full, full_lens = compress_blank_frames(x, lens, threshold=thr)
         ref_c, ref_lens = compress_blank_frames(x_cpu, lens_cpu, threshold=thr, max_frames=F)
         ref_full, ref_full_lens = compress_blank_frames(x_cpu, lens_cpu, threshold=thr)
@@ -2855,13 +3066,14 @@ def phase_blankskip(pkg, kernels, cfg=BLANKSKIP, dev="cuda", cpu_rows=32):
             lambda: search(full, full_lens),
         ], reps=5)
 
-        config.USE_BEAM_KERNEL = "1"
+        config.DECODE_RENORM = False
         torch.cuda.synchronize()
         kernels.reset_launches()
         beam = search(clg, clens)
         torch.cuda.synchronize()
         beam_launches = dict(kernels.LAUNCHES)
-        want = {"decode_prologue": 0, "top_m": 1, "ctc_beam_search": 1}
+        want = {"decode_prologue": 0, "top_m": 1, "ctc_beam_search": 1,
+                "ctc_beam_search_renorm": 0}
         if any(beam_launches[k] != v for k, v in want.items()):
             raise AssertionError(f"blank-skip beam route launches {beam_launches}, expected {want}")
         config.USE_BEAM_KERNEL, config.DECODE_RENORM = "0", False
@@ -2869,7 +3081,7 @@ def phase_blankskip(pkg, kernels, cfg=BLANKSKIP, dev="cuda", cpu_rows=32):
         beam_check = search_compare(beam, raw, 1e-4)
         if not beam_check["ok"]:
             raise AssertionError(f"blank-skip beam route vs the card's raw-mass scan: {beam_check}")
-        config.USE_BEAM_KERNEL, config.DECODE_RENORM = "1", saved[1]
+        config.USE_BEAM_KERNEL = saved[0]
         (beam_ms,), beam_runs = host_ms([lambda: search(clg, clens)], reps=5)
     finally:
         config.USE_BEAM_KERNEL, config.DECODE_RENORM = saved
@@ -2894,11 +3106,21 @@ def phase_blankskip(pkg, kernels, cfg=BLANKSKIP, dev="cuda", cpu_rows=32):
     if not (vs_plain["ok"] and vs_plain["buffer_exact"] and vs_plain["probs_bit_exact"]):
         raise AssertionError(f"ctc_beam_search vs its plain version at the blank-skip shape: "
                              f"{vs_plain}")
+    renorm_args = (xc, *renorm_inputs(kernels, xc, WIDTH), clens)
+    got_r = kernels.ctc_beam_search_renorm(*renorm_args, WIDTH)
+    exp_r = kernels.ctc_beam_search_renorm_reference(*renorm_args, WIDTH)
+    renorm_vs_plain = same_search(got_r[:3], exp_r[:3])
+    renorm_vs_plain["ls_exact"] = torch.equal(got_r[3], exp_r[3])
+    if not (renorm_vs_plain["ok"] and renorm_vs_plain["ls_exact"]):
+        raise AssertionError(f"ctc_beam_search_renorm vs its plain version at the blank-skip "
+                             f"shape: {renorm_vs_plain}")
     calls = {
         "decode_prologue": (lambda: kernels.decode_prologue(xc, m), "prologue_kernel"),
         "top_m": (lambda: kernels.top_m(nonext, m), "prologue_kernel"),
         "ctc_beam_search": (lambda: kernels.ctc_beam_search(nonext, blank, clens, WIDTH, top),
                             "ctc_beam_kernel"),
+        "ctc_beam_search_renorm": (
+            lambda: kernels.ctc_beam_search_renorm(*renorm_args, WIDTH), "ctc_beam_kernel"),
     }
     times = {
         "decode_prologue": dict(bound=prologue_bound_ms(Tc, N, Vp1, m, 4), shape=[Tc, N, Vp1],
@@ -2906,6 +3128,9 @@ def phase_blankskip(pkg, kernels, cfg=BLANKSKIP, dev="cuda", cpu_rows=32):
         "top_m": dict(bound=topm_bound_ms(Tc * N, V, m, 4), shape=[Tc, N, V], m=m),
         "ctc_beam_search": dict(bound=beam_bound_ms(clens, Tc, N, WIDTH, m),
                                 shape=[Tc, N, V, WIDTH], vs_plain=vs_plain),
+        "ctc_beam_search_renorm": dict(
+            bound=renorm_bound_ms(clens, Tc, N, WIDTH, m, xc.element_size()),
+            shape=[Tc, N, V, WIDTH], vs_plain=renorm_vs_plain),
     }
     for name, t in times.items():
         fn, kernel = calls[name]
@@ -2932,7 +3157,7 @@ def phase_blankskip(pkg, kernels, cfg=BLANKSKIP, dev="cuda", cpu_rows=32):
                          "max": int(ref_full_lens.max())},
         "cut_frames": kept - int(ref_lens.sum()), "cut_share": 1 - int(ref_lens.sum()) / kept,
         "compress_equals_cpu_bits": compress_ok,
-        "vs_cpu_cut": cut_check, "vs_cpu_uncut_rows": cpu_rows, "vs_cpu_uncut": full_check,
+        "vs_card_scan_cut": scan_check, "vs_cpu_cut": cut_check, "vs_cpu_uncut_rows": cpu_rows, "vs_cpu_uncut": full_check,
         "launches": launches, "prologue_launches_per_call": launches["decode_prologue"],
         "compress_ms": comp_ms, "decode_ms": dec_ms,
         "utt_per_s": B / ((comp_ms + dec_ms) / 1e3),
@@ -4630,7 +4855,8 @@ ARTIFACT = dict(
     model=dict(vocab_size=1024, num_filts=80, d_model=512, num_layers=8, num_heads=8),
     head_scale=32.0, spec=(N_BATCH, T_RAW), width=WIDTH, requests=N_REQUESTS,
     pad_call=(20, 1500), rnnt=None, rnnt_spec=(RNNT_B, RNNT_T), rnnt_requests=RNNT_REQUESTS,
-    reps=3, heads=("ctc_greedy", "ctc_w16_scan", "ctc_w16_beam", "rnnt_greedy", "rnnt_beam"),
+    reps=3, heads=("ctc_greedy", "ctc_w16_scan", "ctc_w16_beam", "ctc_w16_raw", "rnnt_greedy",
+                   "rnnt_beam"),
 )
 
 # The artifacts served in one fresh process that imports torch, the
@@ -4782,19 +5008,22 @@ def served_check(name, rec, live, expect):
 def phase_artifact(pkg, kernels, cfg=ARTIFACT, dev="cuda"):
     """Serving artifacts of the serve cell's ConformerCTC (d512/L8/H8/V1024,
     bf16, head x32) at spec (32, 2000): greedy, width 16 on the scan route
-    and width 16 on the beam route (``USE_BEAM_KERNEL="1"``), each exported
-    with the default arguments (the kernels' operators recorded); then the
+    (``USE_BEAM_KERNEL="0"``), width 16 with the default arguments (the
+    renormalizing whole-loop route) and width 16 with ``DECODE_RENORM``
+    off (the raw-mass whole-loop route), each exported with the kernels'
+    operators recorded; then the
     transducer cell's greedy (2 symbols a frame) and width-4 beam (4 rounds)
     heads at (32, 500). Each is exported (seconds, graph nodes, the
     kernels' operator nodes, bytes) and served by ``ARTIFACT_SERVER``, one
-    fresh process that loads and serves the five in turn: three requests
+    fresh process that loads and serves the six in turn: three requests
     and a B=20, T=1500 call padded to the spec and sliced back, every
     output bit-equal to the live head on the card (the padded call's to the
     live head on the same zero-padded batch, sliced to its 20 rows), the
     kernels' launches counted there (one ``decode_prologue`` a request on
-    the scan route, one ``top_m`` and one ``ctc_beam_search`` on the beam
-    route); load, first-call and request times beside the live
-    request's."""
+    the scan route, one ``decode_prologue`` and one
+    ``ctc_beam_search_renorm`` by default, one ``top_m`` and one
+    ``ctc_beam_search`` on the raw route); load, first-call and request
+    times beside the live request's."""
     import shutil
     import tempfile
 
@@ -4816,15 +5045,16 @@ def phase_artifact(pkg, kernels, cfg=ARTIFACT, dev="cuda"):
     work = tempfile.mkdtemp(prefix="pdt_artifacts_")
     heads, out = {}, {}
     try:
-        for name, width, route in (
-            ("ctc_greedy", None, "auto"),
-            ("ctc_w16_scan", cfg["width"], "auto"),
-            ("ctc_w16_beam", cfg["width"], "1"),
+        for name, width, route, renorm in (
+            ("ctc_greedy", None, "auto", True),
+            ("ctc_w16_scan", cfg["width"], "0", True),
+            ("ctc_w16_beam", cfg["width"], "auto", True),
+            ("ctc_w16_raw", cfg["width"], "auto", False),
         ):
             if name not in cfg["heads"]:
                 continue
-            saved = config.USE_BEAM_KERNEL
-            config.USE_BEAM_KERNEL = route
+            saved = config.USE_BEAM_KERNEL, config.DECODE_RENORM
+            config.USE_BEAM_KERNEL, config.DECODE_RENORM = route, renorm
             try:
                 path = os.path.join(work, name)
                 t0 = time.perf_counter()
@@ -4835,7 +5065,7 @@ def phase_artifact(pkg, kernels, cfg=ARTIFACT, dev="cuda"):
                 live.append(padded_live(recognize, calls[-1], cfg["spec"]))
                 live_ms = cuda_ms(lambda: recognize(*requests[0]), reps=cfg["reps"], inner=1)
             finally:
-                config.USE_BEAM_KERNEL = saved
+                config.USE_BEAM_KERNEL, config.DECODE_RENORM = saved
             stats = artifact_stats(art, path, count_body_kernels)
             heads[name] = (path, live, live_ms, export_s, stats)
             del art
@@ -4877,6 +5107,10 @@ def phase_artifact(pkg, kernels, cfg=ARTIFACT, dev="cuda"):
             "ctc_greedy": {}, "rnnt_greedy": {}, "rnnt_beam": {},
             "ctc_w16_scan": {"decode_prologue": cfg["requests"]} if on_card else {},
             "ctc_w16_beam": (
+                {"decode_prologue": cfg["requests"], "ctc_beam_search_renorm": cfg["requests"]}
+                if on_card else {}
+            ),
+            "ctc_w16_raw": (
                 {"top_m": cfg["requests"], "ctc_beam_search": cfg["requests"]} if on_card else {}
             ),
         }
@@ -4884,7 +5118,8 @@ def phase_artifact(pkg, kernels, cfg=ARTIFACT, dev="cuda"):
         recorded = {
             "ctc_greedy": {}, "rnnt_greedy": {}, "rnnt_beam": {},
             "ctc_w16_scan": {"decode_prologue": 1},
-            "ctc_w16_beam": {"top_m": 1, "ctc_beam_search": 1},
+            "ctc_w16_beam": {"decode_prologue": 1, "ctc_beam_search_renorm": 1},
+            "ctc_w16_raw": {"top_m": 1, "ctc_beam_search": 1},
         }
         for name, h in heads.items():
             if h[4]["kernel_ops"] != recorded[name]:
@@ -4892,7 +5127,8 @@ def phase_artifact(pkg, kernels, cfg=ARTIFACT, dev="cuda"):
                     f"artifact {name} records the operators {h[4]['kernel_ops']}, "
                     f"expected {recorded[name]}"
                 )
-        launches = {"decode_prologue": 0, "top_m": 0, "ctc_beam_search": 0}
+        launches = {"decode_prologue": 0, "top_m": 0, "ctc_beam_search": 0,
+                    "ctc_beam_search_renorm": 0}
         recs, servers_s = serve_artifacts(
             [(name, h[0], calls if name.startswith("ctc") else rcalls)
              for name, h in heads.items()],
@@ -5158,7 +5394,8 @@ def phase_profiling(pkg, kernels, rnnt_per_frame, cfg=ARTIFACT, dev="cuda"):
     """``profile_program`` on a served request (the serve cell, width 16):
     its median beside a CUDA-event time and ``measure_sync_overhead``, and
     from its ``compiled_stats`` the launches a trip of the scan decode's
-    marked loop; ``compiled_stats`` of the transducer greedy decode (the
+    marked loop (``USE_BEAM_KERNEL="0"`` for the CTC head while it runs);
+    ``compiled_stats`` of the transducer greedy decode (the
     transducer cell, 2 symbols a frame, ``rnnt_greedy``'s first request);
     and the decode prologue's wrapper, which launches directly, beside its
     registered operator, which exported programs call.
@@ -5173,6 +5410,8 @@ def phase_profiling(pkg, kernels, rnnt_per_frame, cfg=ARTIFACT, dev="cuda"):
     (``rnnt_per_frame``; None skips it), where the slack covers the
     launches before and after the loop, spread over the frames, and the
     trips that launch more or less than the median one."""
+    from pydrobert_tpu_torch import config
+
     ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch, rnnt, profiling, hlostats = pkg
     mcfg = ConformerConfig(**cfg["model"])
     model = ConformerCTC(mcfg, device=dev, generator=torch.Generator().manual_seed(SEED))
@@ -5190,17 +5429,22 @@ def phase_profiling(pkg, kernels, rnnt_per_frame, cfg=ARTIFACT, dev="cuda"):
     # one profile of a served request: its stats, and the scan decode's
     # loop inside it
     sync_s = profiling.measure_sync_overhead()
-    ctc = profiling.profile_program(recognize, feats, lens, calls=2, reps=2)
-    events_ms = cuda_ms(lambda: recognize(feats, lens), reps=cfg["reps"], inner=1)
-    F = min(PROFILE_FRAMES, frames // 2)
-    search = CTCPrefixSearch(cfg["width"])
-    with torch.no_grad():
-        short = [
-            hlostats.compiled_stats(
-                search, x[:n].contiguous(), out_lens.clamp(max=n)
-            )["kernel_launches"]
-            for n in (F, 2 * F)
-        ]
+    saved = config.USE_BEAM_KERNEL
+    config.USE_BEAM_KERNEL = "0"
+    try:
+        ctc = profiling.profile_program(recognize, feats, lens, calls=2, reps=2)
+        events_ms = cuda_ms(lambda: recognize(feats, lens), reps=cfg["reps"], inner=1)
+        F = min(PROFILE_FRAMES, frames // 2)
+        search = CTCPrefixSearch(cfg["width"])
+        with torch.no_grad():
+            short = [
+                hlostats.compiled_stats(
+                    search, x[:n].contiguous(), out_lens.clamp(max=n)
+                )["kernel_launches"]
+                for n in (F, 2 * F)
+            ]
+    finally:
+        config.USE_BEAM_KERNEL = saved
     decode_per_frame = (short[1] - short[0]) / F
     out = {"ctc_scan_decode": {
         "frames": frames, "loop_kernels": ctc["loop_kernels"],
@@ -5362,10 +5606,13 @@ def main(argv):
     errs = phase_kernels(kernels, _lm_bias(lm._uni_t, LM_BETA), lm_m)
     errs.update(phase_new_kernels(kernels, img))
     errs["ctc_beam_search"] = phase_beam_kernel(kernels)
+    errs["ctc_beam_search_renorm"], renorm_cell = phase_renorm_kernel(
+        kernels, CTCPrefixSearch, config)
     model, recognize, requests, launches, (logits, out_lens), served = phase_main_path(
-        (ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch, kernels)
+        (config, ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch, kernels)
     )
     times = phase_times(kernels, model, recognize, requests, CTCPrefixSearch, logits)
+    times["ctc_beam_search_renorm"]["offline_cell"] = renorm_cell
     beam_launches, times["ctc_beam_search"] = phase_beam_serve(
         (config, ctc_recognizer, CTCPrefixSearch), kernels, model, requests
     )
@@ -5375,7 +5622,7 @@ def main(argv):
     )
     del model, recognize, requests, lm
     phase_lm_probing((LookupLanguageModel, parse_arpa_lm, CTCPrefixSearch, config))
-    phase_stream(
+    stream_launches = phase_stream(
         (config, ConformerConfig, ConformerCTC, CTCPrefixSearch, StreamingCTCRecognizer),
         kernels,
     )
@@ -5432,13 +5679,20 @@ def main(argv):
     rows = []
     times["decode_prologue"]["launches_by_path"] = {
         "serve": launches["decode_prologue"], "lm serve": lm_launches["decode_prologue"],
+        "stream": stream_launches["decode_prologue"],
         "blankskip": skip_launches["decode_prologue"],
         "artifact": artifact_launches["decode_prologue"],
     }
+    times["ctc_beam_search_renorm"]["launches_by_path"] = {
+        "serve": launches["ctc_beam_search_renorm"],
+        "stream": stream_launches["ctc_beam_search_renorm"],
+        "blankskip": skip_launches["ctc_beam_search_renorm"],
+        "artifact": artifact_launches["ctc_beam_search_renorm"],
+    }
     for name in ("top_m", "ctc_beam_search"):
         times[name]["launches_by_path"] = {
-            "beam serve": beam_launches[name], "blankskip": skip_beam_launches[name],
-            "artifact": artifact_launches[name],
+            "beam serve": beam_launches[name], "stream": stream_launches[name],
+            "blankskip": skip_beam_launches[name], "artifact": artifact_launches[name],
         }
     times["edit_distance"]["launches_by_path"] = {
         "score": score_launches["edit_distance"],
@@ -5453,11 +5707,12 @@ def main(argv):
         k: v["spec_augment_apply"] for k, v in sa_paths.items()
     }
     for name, src, replaces, path, n in (
-        ("decode_prologue", "prologue.cu", 1664, "serve, lm serve, blankskip, artifact",
+        ("decode_prologue", "prologue.cu", 1664, "serve, lm serve, stream, blankskip, artifact",
          launches["decode_prologue"] + lm_launches["decode_prologue"]
+         + stream_launches["decode_prologue"]
          + skip_launches["decode_prologue"] + artifact_launches["decode_prologue"]),
-        ("top_m", "prologue.cu", 1359, "beam serve, blankskip, artifact",
-         beam_launches["top_m"] + skip_beam_launches["top_m"] + artifact_launches["top_m"]),
+        ("top_m", "prologue.cu", 1359, "beam serve, stream, blankskip, artifact",
+         sum(times["top_m"]["launches_by_path"].values())),
         ("spec_augment_apply", "spec_augment.cu", 180, "train, recipe, moe, remat, corpus",
          sum(v["spec_augment_apply"] for v in sa_paths.values())),
         ("edit_distance", "edit_distance.cu", 49,
@@ -5465,9 +5720,10 @@ def main(argv):
          score_launches["edit_distance"] + mer_launches["edit_distance"]
          + reinforce_launches["edit_distance"] + recipe_launches["edit_distance"]
          + corpus_launches["edit_distance"]),
-        ("ctc_beam_search", "ctc_beam.cu", 649, "beam serve, blankskip, artifact",
-         beam_launches["ctc_beam_search"] + skip_beam_launches["ctc_beam_search"]
-         + artifact_launches["ctc_beam_search"]),
+        ("ctc_beam_search", "ctc_beam.cu", 649, "beam serve, stream, blankskip, artifact",
+         sum(times["ctc_beam_search"]["launches_by_path"].values())),
+        ("ctc_beam_search_renorm", "ctc_beam.cu", 649, "serve, stream, blankskip, artifact",
+         sum(times["ctc_beam_search_renorm"]["launches_by_path"].values())),
     ):
         rows.append({
             "name": name, "route": "cuda", "source": csrc + src,

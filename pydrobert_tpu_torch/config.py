@@ -72,21 +72,23 @@ trajectory wherever that stays in normal range. Final probabilities below
 the normal f32 floor flush to zero."""
 
 USE_BEAM_KERNEL = os.environ.get("PYDROBERT_TPU_TORCH_BEAM_KERNEL", "auto")
-"""Route :class:`pydrobert_tpu_torch.ops.decoding.CTCPrefixSearch` (no LM)
-through the whole-loop beam search
-(:func:`pydrobert_tpu_torch.ops.kernels.ctc_beam_search`): ``"1"`` forces
-it, ``"0"`` forces the per-frame scan, and ``"auto"`` (the default) takes
-it only when :data:`DECODE_RENORM` is off.
+"""An on/off switch: ``"0"`` keeps
+:class:`pydrobert_tpu_torch.ops.decoding.CTCPrefixSearch` (no LM) on the
+per-frame scan, and any other value (the default is ``"auto"``) routes it
+through a whole-loop kernel wherever the shape fits.
 
-The whole-loop search carries raw linear masses, the reference's
-semantics, while the scan with :data:`DECODE_RENORM` on (the default) is
-denormal-proof; so ``"auto"`` never routes to it under the defaults, and
-``"1"`` is an explicit opt-in to raw masses. Either way the search also
-needs ``T >= 2``, ``1 < width <= min(32, V)`` and a shape whose state fits
-one block's shared memory
+The kernel follows :data:`DECODE_RENORM`: on (the default),
+:func:`pydrobert_tpu_torch.ops.kernels.ctc_beam_search_renorm`, the
+denormal-proof scan's own loop with its rescales, bit for bit; off,
+:func:`pydrobert_tpu_torch.ops.kernels.ctc_beam_search`, which carries
+raw linear masses, the reference's semantics. Either way the search
+needs ``T >= 2``, ``1 < width <= min(32, V)`` and a shape whose state
+fits one block's shared memory
 (:func:`pydrobert_tpu_torch.ops.kernels.ctc_beam_search_fits`). The JAX
 package's counterpart, ``USE_PALLAS_BEAM``, times both routes on the
-device to choose under ``"auto"``; nothing is timed here."""
+device to choose under ``"auto"`` and never takes its kernel with
+``DECODE_RENORM`` on unless forced; nothing is timed here, so the value
+has no third meaning."""
 
 SPARSE_FUSION_MAX_CORRECTIONS = int(
     os.environ.get("PYDROBERT_TPU_TORCH_SPARSE_FUSION_MAX_C", "128")

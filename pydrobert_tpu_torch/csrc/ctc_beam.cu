@@ -66,9 +66,31 @@
 // kernel's one-hot sums turn a picked -0.0 into +0.0, this kernel adds
 // 0.0f.
 //
-// Plain C interface for ctypes: the entry returns cudaGetLastError() after
+// The renormalizing variant (pydt_ctc_beam_search_renorm) extends the same
+// TPU kernel to what the prefix search runs by default. The JAX package
+// never sends a search with DECODE_RENORM on to its kernel
+// (pydrobert_tpu/ops/decoding.py:1906-1919): raw masses underflow on long,
+// diffuse rows, and the per-frame scan rescales them. This variant is that
+// scan's frame loop (pydrobert_tpu_torch/ops/decoding.py, CTCPrefixSearch:
+// the factored advance plus the rescale) in one launch, bit for bit. It
+// takes what the scan's decode prologue gives (the top-M values and
+// indices, the softmax max mx and denominator den of each frame, the
+// blank's probability) and the logits (T, N, V + 1), f32 or bf16, in place
+// of a (T, N, V) softmax: a token's probability is the scan's am_at,
+// expf(max(lg, -1e30) - mx) / den, each step rounded alone. After every
+// frame t >= 1 the block rescales its row by 2**-e, e the exponent of beam
+// 0's total mass (clamped at -126), clamps both masses at -1e30 and adds e
+// to the row's int32 exponent; frames past the row's length only rescale,
+// and stop once e is 0 (a rescale by 1 changes nothing more). It returns
+// the raw masses nb + b and the exponent; the wrapper folds them together
+// as the scan does. Phases (b), (c) and (e) are one template, so the
+// raw-mass kernel is the same code with the flag off. Its bound is the
+// raw kernel's: the longest row's chain of frames, one block a row.
+//
+// Plain C interface for ctypes: each entry returns cudaGetLastError() after
 // its launch, allocates nothing, and runs on the caller's stream.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -111,6 +133,33 @@ __device__ __forceinline__ float float_of(int k) {
   return __int_as_float(k >= 0 ? k : (k ^ 0x7FFFFFFF));
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// The scan's am_at: exp(max(lg, -1e30) - mx) / den, each step rounded as
+// ATen rounds it (clamp_min keeps a NaN)
+__device__ __forceinline__ float am_at(float lg, float mx, float den) {
+  const float x = lg != lg ? lg : fmaxf(lg, -1.0e30f);
+  return __fdiv_rn(expf(__fsub_rn(x, mx)), den);
+}
+
+// The scan's rescale exponent: e with best = m * 2**e, m in [0.5, 1) (1
+// when best is not positive), at least -126
+__device__ __forceinline__ int renorm_exp(float best) {
+  int e;
+  frexpf(best > 0.f ? best : 1.f, &e);
+  return max(e, -126);
+}
+
+// x * 2**-e rounded once (the power is exact), clamped at the placeholder
+// mass as the scan clamps it
+__device__ __forceinline__ float rescale(float x, int e) {
+  const float y = __fmul_rn(x, ldexpf(1.f, -e));
+  return y != y ? y : fmaxf(y, kDummy);
+}
+
 // how many of the WP keys at `row`, sorted descending, exceed th: an
 // unrolled branchless binary search, log2(WP) + 1 loads
 template <int WP>
@@ -124,19 +173,25 @@ __device__ __forceinline__ int count_above(const int* row, int th) {
 
 // WP = pad_w(W); NS = candidate slots a lane holds, ceil((2 WP + 2) / 32).
 // One block runs on an SM, so the registers of the whole SM are its own.
-template <int WP>
+// RENORM off: probs is nonext (T, N, V) f32 and mx, den and y_ls are
+// unused. On: probs is the logits (T, N, V + 1) of type L, mx and den the
+// softmax's (T, N) stats, and y_ls (N,) receives each row's exponent.
+template <int WP, bool RENORM, typename L>
 __global__ void __launch_bounds__(kWarp * WP, 1)
     ctc_beam_kernel(const float* __restrict__ tv, const int* __restrict__ ti,
-                    const float* __restrict__ nonext,
+                    const L* __restrict__ probs,
+                    const float* __restrict__ mx,
+                    const float* __restrict__ den,
                     const float* __restrict__ blank,
                     const int* __restrict__ lens_in, int T, int N, int V,
                     int W, int M, int64_t* __restrict__ y,
                     int64_t* __restrict__ y_lens,
-                    float* __restrict__ y_probs) {
+                    float* __restrict__ y_probs, int* __restrict__ y_ls) {
   constexpr int NS = WP == 32 ? 3 : WP == 16 ? 2 : 1;
   constexpr int P = kWarp / WP;  // lanes that share one candidate in (c)
   extern __shared__ __align__(16) int smem[];
   const int S = M + 2;
+  const int PV = RENORM ? V + 1 : V;  // a frame row of probs
   const int n = blockIdx.x;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
@@ -184,27 +239,35 @@ __global__ void __launch_bounds__(kWarp * WP, 1)
       tvs[tid] = tv[(int64_t)n * M + tid];
       tis[tid] = ti[(int64_t)n * M + tid];
     }
-    if (tid < W) p_last[tid] = nonext[(int64_t)n * V];  // every last is 0
+    if (tid < W) {  // every last is 0
+      const float p0 = to_f32(probs[(int64_t)n * PV]);
+      p_last[tid] = RENORM ? am_at(p0, mx[n], den[n]) : p0;
+    }
     if (tid == 0) blank_s[0] = blank[n];
   }
   __syncthreads();
+  int shift = 0;  // the rescales' exponents (RENORM), alike in each thread
 
   int* cur = buf_a;
   int* nxt = buf_b;
   for (int t = 0; t < steps; ++t) {
     const bool more = t + 1 < steps;
     // (a) start the loads of frame t + 1; they land in (c) and (e)
-    float r_f = 0.f, r_pf = 0.f;
+    float r_f = 0.f, r_pf = 0.f, r_mx = 0.f, r_den = 1.f;
     int r_i = 0;
     if (more) {
       const int64_t row1 = (int64_t)(t + 1) * N + n;
-      const float* nx1 = nonext + row1 * V;
+      const L* nx1 = probs + row1 * PV;
+      if (RENORM && tid < M + W) {
+        r_mx = mx[row1];
+        r_den = den[row1];
+      }
       if (tid < M) {
         r_f = tv[row1 * M + tid];
         r_i = ti[row1 * M + tid];
-        r_pf = nx1[tis[tid]];
+        r_pf = to_f32(nx1[tis[tid]]);
       } else if (tid < M + W) {
-        r_pf = nx1[last[tid - M]];
+        r_pf = to_f32(nx1[last[tid - M]]);
       } else if (tid == M + W) {
         r_f = blank[row1];
       }
@@ -392,6 +455,7 @@ __global__ void __launch_bounds__(kWarp * WP, 1)
       }
     }
     if (more) {
+      if (RENORM) r_pf = am_at(r_pf, r_mx, r_den);
       if (tid < M)
         pf_shared[tid] = r_pf;
       else if (tid < M + W)
@@ -433,8 +497,15 @@ __global__ void __launch_bounds__(kWarp * WP, 1)
         ip_n[k * W + jj] = in;
       }
       if (tid < W) {
-        nb[tid] = n_nb[tid];
-        b[tid] = n_b[tid];
+        float nbv = n_nb[tid], bv = n_b[tid];
+        if (RENORM && t > 0) {  // the scan rescales after frames 1 on
+          const int e = renorm_exp(__fadd_rn(n_nb[0], n_b[0]));
+          nbv = rescale(nbv, e);
+          bv = rescale(bv, e);
+          shift += e;
+        }
+        nb[tid] = nbv;
+        b[tid] = bv;
         lens[tid] = n_lens[tid];
         last[tid] = n_ext[tid];
         if (more) {
@@ -464,10 +535,23 @@ __global__ void __launch_bounds__(kWarp * WP, 1)
     const int tau = i / W, j = i % W;
     y[((int64_t)tau * N + n) * W + j] = tau < lens[j] ? cur[j * TP + tau] : 0;
   }
-  if (tid < W) {
-    y_lens[(int64_t)n * W + tid] = lens[tid];
-    y_probs[(int64_t)n * W + tid] =
-        (len_n == 0 && tid > 0) ? -INFINITY : __fadd_rn(nb[tid], b[tid]);
+  if (tid < W) y_lens[(int64_t)n * W + tid] = lens[tid];
+  if (!RENORM) {
+    if (tid < W)
+      y_probs[(int64_t)n * W + tid] =
+          (len_n == 0 && tid > 0) ? -INFINITY : __fadd_rn(nb[tid], b[tid]);
+  } else if (warp == 0) {
+    // frames max(steps, 1) .. T - 1 only rescale the row
+    float nbv = lane < W ? nb[lane] : 0.f, bv = lane < W ? b[lane] : 0.f;
+    for (int t = max(steps, 1); t < T; ++t) {
+      const int e = renorm_exp(__shfl_sync(kFull, __fadd_rn(nbv, bv), 0));
+      nbv = rescale(nbv, e);
+      bv = rescale(bv, e);
+      shift += e;
+      if (e == 0) break;  // a rescale by 1 changes nothing more
+    }
+    if (lane < W) y_probs[(int64_t)n * W + lane] = __fadd_rn(nbv, bv);
+    if (lane == 0) y_ls[n] = shift;
   }
 }
 
@@ -475,7 +559,7 @@ constexpr int kMaxDevices = 64;
 
 // Let the kernel take up to `bytes` of dynamic shared memory, once per
 // device for the largest size asked so far.
-template <int WP>
+template <int WP, bool RENORM, typename L>
 cudaError_t allow_smem(int dev, size_t bytes) {
   static std::atomic<size_t> granted[kMaxDevices];
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -483,24 +567,52 @@ cudaError_t allow_smem(int dev, size_t bytes) {
       granted[dev].load(std::memory_order_relaxed) >= bytes)
     return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      ctc_beam_kernel<WP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      ctc_beam_kernel<WP, RENORM, L>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess && dev < kMaxDevices)
     granted[dev].store(bytes, std::memory_order_relaxed);
   return err;
 }
 
-template <int WP>
-cudaError_t launch(const float* tv, const int* ti, const float* nonext,
-                   const float* blank, const int* lens, int T, int N, int V,
-                   int W, int M, int64_t* y, int64_t* y_lens, float* y_probs,
+template <int WP, bool RENORM, typename L>
+cudaError_t launch(const float* tv, const int* ti, const L* probs,
+                   const float* mx, const float* den, const float* blank,
+                   const int* lens, int T, int N, int V, int W, int M,
+                   int64_t* y, int64_t* y_lens, float* y_probs, int* y_ls,
                    int dev, cudaStream_t stream) {
   const size_t smem = (size_t)smem_words(T, W, M) * 4;
-  const cudaError_t err = allow_smem<WP>(dev, smem);
+  const cudaError_t err = allow_smem<WP, RENORM, L>(dev, smem);
   if (err != cudaSuccess) return err;
-  ctc_beam_kernel<WP><<<N, kWarp * W, smem, stream>>>(
-      tv, ti, nonext, blank, lens, T, N, V, W, M, y, y_lens, y_probs);
+  ctc_beam_kernel<WP, RENORM, L><<<N, kWarp * W, smem, stream>>>(
+      tv, ti, probs, mx, den, blank, lens, T, N, V, W, M, y, y_lens, y_probs,
+      y_ls);
   return cudaGetLastError();
+}
+
+template <bool RENORM, typename L>
+cudaError_t dispatch(const float* tv, const int* ti, const L* probs,
+                     const float* mx, const float* den, const float* blank,
+                     const int* lens, int T, int N, int V, int W, int M,
+                     int64_t* y, int64_t* y_lens, float* y_probs, int* y_ls,
+                     void* stream) {
+  if (W < 1 || W > kMaxW || M < W || M > V || M > 2 * W || T < 0)
+    return cudaErrorInvalidValue;
+  if (N == 0) return cudaSuccess;
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (pad_w(W)) {
+    case 8:
+      return launch<8, RENORM, L>(tv, ti, probs, mx, den, blank, lens, T, N,
+                                  V, W, M, y, y_lens, y_probs, y_ls, dev, s);
+    case 16:
+      return launch<16, RENORM, L>(tv, ti, probs, mx, den, blank, lens, T, N,
+                                   V, W, M, y, y_lens, y_probs, y_ls, dev, s);
+    default:
+      return launch<32, RENORM, L>(tv, ti, probs, mx, den, blank, lens, T, N,
+                                   V, W, M, y, y_lens, y_probs, y_ls, dev, s);
+  }
 }
 
 }  // namespace pydt_beam
@@ -512,22 +624,30 @@ int pydt_ctc_beam_search(const float* tv, const int* ti, const float* nonext,
                          const float* blank, const int* lens, int T, int N,
                          int V, int W, int M, int64_t* y, int64_t* y_lens,
                          float* y_probs, void* stream) {
-  if (W < 1 || W > pydt_beam::kMaxW || M < W || M > V || M > 2 * W || T < 0)
-    return (int)cudaErrorInvalidValue;
-  if (N == 0) return (int)cudaSuccess;
-  int dev = 0;
-  const cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define PYDT_BEAM_LAUNCH(WP)                                               \
-  return (int)pydt_beam::launch<WP>(tv, ti, nonext, blank, lens, T, N, V, \
-                                    W, M, y, y_lens, y_probs, dev, s)
-  switch (pydt_beam::pad_w(W)) {
-    case 8: PYDT_BEAM_LAUNCH(8);
-    case 16: PYDT_BEAM_LAUNCH(16);
-    default: PYDT_BEAM_LAUNCH(32);
-  }
-#undef PYDT_BEAM_LAUNCH
+  return (int)pydt_beam::dispatch<false, float>(
+      tv, ti, nonext, nullptr, nullptr, blank, lens, T, N, V, W, M, y, y_lens,
+      y_probs, nullptr, stream);
+}
+
+// The renormalizing variant: logits (T, N, V + 1) of dtype 0 (f32) or 1
+// (bf16), the prologue's mx and den (T, N); y_mass (N, W) gets the raw
+// masses nb + b and y_ls (N,) each row's exponent.
+int pydt_ctc_beam_search_renorm(const float* tv, const int* ti,
+                                const void* logits, int dtype,
+                                const float* mx, const float* den,
+                                const float* blank, const int* lens, int T,
+                                int N, int V, int W, int M, int64_t* y,
+                                int64_t* y_lens, float* y_mass, int* y_ls,
+                                void* stream) {
+  if (dtype == 0)
+    return (int)pydt_beam::dispatch<true, float>(
+        tv, ti, static_cast<const float*>(logits), mx, den, blank, lens, T, N,
+        V, W, M, y, y_lens, y_mass, y_ls, stream);
+  if (dtype == 1)
+    return (int)pydt_beam::dispatch<true, __nv_bfloat16>(
+        tv, ti, static_cast<const __nv_bfloat16*>(logits), mx, den, blank,
+        lens, T, N, V, W, M, y, y_lens, y_mass, y_ls, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The shared memory one block takes, for the wrapper's shape check.

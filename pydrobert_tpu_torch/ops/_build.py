@@ -88,6 +88,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p, p, p, i32, i32, i32, i32, i32, p, p, p, p,
     ]
     lib.pydt_ctc_beam_search.restype = i32
+    lib.pydt_ctc_beam_search_renorm.argtypes = [
+        p, p, p, i32, p, p, p, p, i32, i32, i32, i32, i32, p, p, p, p, p,
+    ]
+    lib.pydt_ctc_beam_search_renorm.restype = i32
     lib.pydt_ctc_beam_smem_bytes.argtypes = [i32, i32, i32]
     lib.pydt_ctc_beam_smem_bytes.restype = i64
     return lib

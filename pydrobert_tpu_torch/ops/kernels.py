@@ -6,7 +6,10 @@ versions (counterparts of the kernels in :mod:`pydrobert_tpu.ops.pallas`):
 - :func:`spec_augment_apply` (``csrc/spec_augment.cu``):
   ``spec_augment_apply_kernel``;
 - :func:`edit_distance` (``csrc/edit_distance.cu``): ``edit_distance_kernel``;
-- :func:`ctc_beam_search` (``csrc/ctc_beam.cu``): ``ctc_beam_search_pallas``.
+- :func:`ctc_beam_search` (``csrc/ctc_beam.cu``): ``ctc_beam_search_pallas``,
+  and :func:`ctc_beam_search_renorm`, its renormalizing variant, which the
+  JAX package does not have (its searches with ``DECODE_RENORM`` on never
+  take its kernel).
 
 A wrapper given a CPU tensor runs the plain version. Given a CUDA tensor it
 checks dtype, shape and contiguity, launches the kernel on the current
@@ -16,8 +19,9 @@ falls back to the plain version.
 Each kernel is also a :mod:`torch.library` operator in the
 ``pydrobert_tpu_torch`` namespace (``torch.ops.pydrobert_tpu_torch.
 decode_prologue``, ``top_m``, ``spec_augment_apply``, ``edit_distance``,
-``ctc_beam_search``): its CUDA implementation is the launch above, its CPU
-implementation the plain version, and a fake implementation gives the
+``ctc_beam_search``, ``ctc_beam_search_renorm``): its CUDA implementation
+is the launch above, its CPU implementation the plain version, and a fake
+implementation gives the
 output shapes. Importing this module registers the operators. An eager
 wrapper calls the launch or the plain version directly, without the
 dispatcher; a wrapper traced by :func:`torch.export.export` (or
@@ -34,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import load_library
+from ._ctc_scan import prefix_scan
 from .topk import exact_top_k
 
 __all__ = [
@@ -41,6 +46,8 @@ __all__ = [
     "ctc_beam_search",
     "ctc_beam_search_fits",
     "ctc_beam_search_reference",
+    "ctc_beam_search_renorm",
+    "ctc_beam_search_renorm_reference",
     "decode_prologue",
     "decode_prologue_reference",
     "edit_distance",
@@ -58,6 +65,7 @@ LAUNCHES = {
     "spec_augment_apply": 0,
     "edit_distance": 0,
     "ctc_beam_search": 0,
+    "ctc_beam_search_renorm": 0,
 }
 """Kernel launches per wrapper since the last :func:`reset_launches`."""
 
@@ -859,4 +867,159 @@ def _(nonext_probs, blank_probs, lens, width, top_vals, top_inds):
         nonext_probs.new_empty((T, N, width), dtype=torch.long),
         nonext_probs.new_empty((N, width), dtype=torch.long),
         nonext_probs.new_empty((N, width), dtype=torch.float32),
+    )
+
+
+def _check_renorm_args(logits, top_vals, top_inds, sm_max, sm_den, blank_probs, lens, width):
+    if logits.dim() != 3:
+        raise ValueError("logits must be (T, N, V + 1)")
+    _check_input(logits, "ctc_beam_search_renorm")
+    T, N, Vp1 = logits.shape
+    V = Vp1 - 1
+    W = int(width)
+    if not 1 <= W <= min(32, V):
+        raise ValueError(f"width must be in [1, min(32, V) = {min(32, V)}], got {W}")
+    M = min(V, 2 * W)
+    if tuple(top_vals.shape) != (T, N, M) or tuple(top_inds.shape) != (T, N, M):
+        raise ValueError(f"the top values and indices must be ({T}, {N}, {M})")
+    if top_vals.dtype != torch.float32 or top_inds.dtype != torch.int32:
+        raise TypeError("the top values must be float32 and the indices int32")
+    for name, a in (("sm_max", sm_max), ("sm_den", sm_den), ("blank_probs", blank_probs)):
+        if tuple(a.shape) != (T, N) or a.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 ({T}, {N}), got {a.dtype} {tuple(a.shape)}")
+    if tuple(lens.shape) != (N,):
+        raise ValueError(f"lens must be ({N},), got {tuple(lens.shape)}")
+    if lens.is_floating_point() or lens.dtype == torch.bool:
+        raise TypeError(f"lens must hold integers, got {lens.dtype}")
+    for a in (top_vals, top_inds, sm_max, sm_den, blank_probs, lens):
+        if a.device != logits.device:
+            raise ValueError("every input must be on the logits' device")
+    return T, N, V, W, M
+
+
+def ctc_beam_search_renorm_reference(
+    logits: torch.Tensor,
+    top_vals: torch.Tensor,
+    top_inds: torch.Tensor,
+    sm_max: torch.Tensor,
+    sm_den: torch.Tensor,
+    blank_probs: torch.Tensor,
+    lens: torch.Tensor,
+    width: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`ctc_beam_search_renorm`: the prefix search's
+    own per-frame scan with its rescales
+    (:func:`pydrobert_tpu_torch.ops._ctc_scan.prefix_scan`, no LM), over
+    the same prologue outputs."""
+    _check_renorm_args(logits, top_vals, top_inds, sm_max, sm_den, blank_probs, lens, width)
+    frames = (top_vals, top_inds.long(), logits, sm_max, sm_den, blank_probs)
+    return prefix_scan(frames, lens.long(), int(width), logits.shape[2] - 1, True)
+
+
+def ctc_beam_search_renorm(
+    logits: torch.Tensor,
+    top_vals: torch.Tensor,
+    top_inds: torch.Tensor,
+    sm_max: torch.Tensor,
+    sm_den: torch.Tensor,
+    blank_probs: torch.Tensor,
+    lens: torch.Tensor,
+    width: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The no-LM CTC prefix search with ``DECODE_RENORM`` on in one launch.
+
+    Takes what the search's decode prologue gives for ``logits (T, N, V +
+    1)`` (float32 or bfloat16, blank last): the exact top-``M`` (``M =
+    min(V, 2 * width)``) values ``exp(top_lgts - sm_max) / sm_den`` float32
+    and indices int32 ``(T, N, M)``, the softmax's ``sm_max`` and ``sm_den``
+    and the blank's probabilities ``(T, N)`` float32, and ``lens (N,)``.
+    Every row is rescaled by a power of two after each frame from the
+    second, as the scan does. Returns ``(y (T, N, W) long, y_lens (N, W)
+    long, mass (N, W) float32, ls (N,) int32)``: paths, lengths, the raw
+    masses ``nb + b`` (negative for a placeholder beam) and each row's
+    summed exponent, so that the probabilities are ``mass * 2**ls``. Equal
+    to the scan bit for bit, tokens past a beam's length aside.
+    """
+    T, N, V, W, M = _check_renorm_args(
+        logits, top_vals, top_inds, sm_max, sm_den, blank_probs, lens, width
+    )
+    args = (logits, top_vals, top_inds, sm_max, sm_den, blank_probs, lens)
+    _check_local("ctc_beam_search_renorm", *args)
+    if _traced():
+        return torch.ops.pydrobert_tpu_torch.ctc_beam_search_renorm(*args, W)
+    if not logits.is_cuda:
+        return ctc_beam_search_renorm_reference(*args, W)
+    return _ctc_beam_search_renorm_launch(*args, W)
+
+
+def _ctc_beam_search_renorm_launch(
+    logits: torch.Tensor,
+    top_vals: torch.Tensor,
+    top_inds: torch.Tensor,
+    sm_max: torch.Tensor,
+    sm_den: torch.Tensor,
+    blank_probs: torch.Tensor,
+    lens: torch.Tensor,
+    width: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    T, N, Vp1 = logits.shape
+    V, W, M = Vp1 - 1, width, top_vals.shape[-1]
+    if not ctc_beam_search_fits(T, N, V, W):
+        raise ValueError(
+            f"ctc_beam_search_renorm: T={T}, width={W} needs "
+            f"{_beam_smem_bytes(T, W, M)} bytes of shared memory, more than "
+            f"{_BEAM_SMEM_LIMIT}"
+        )
+    args = [top_vals, top_inds, logits, sm_max, sm_den, blank_probs]
+    if not all(a.is_contiguous() for a in args):
+        raise ValueError("ctc_beam_search_renorm: the inputs must be contiguous")
+    dev = logits.device
+    lens32 = lens.to(torch.int32).contiguous()
+    y = torch.empty((T, N, W), dtype=torch.long, device=dev)
+    y_lens = torch.empty((N, W), dtype=torch.long, device=dev)
+    mass = torch.empty((N, W), dtype=torch.float32, device=dev)
+    ls = torch.empty((N,), dtype=torch.int32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        err = lib.pydt_ctc_beam_search_renorm(
+            *(ctypes.c_void_p(a.data_ptr()) for a in (top_vals, top_inds, logits)),
+            _DTYPE_CODE[logits.dtype],
+            *(ctypes.c_void_p(a.data_ptr()) for a in (sm_max, sm_den, blank_probs, lens32)),
+            T,
+            N,
+            V,
+            W,
+            M,
+            *(ctypes.c_void_p(a.data_ptr()) for a in (y, y_lens, mass, ls)),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        )
+    _raise_on(err, "ctc_beam_search_renorm")
+    LAUNCHES["ctc_beam_search_renorm"] += 1
+    return y, y_lens, mass, ls
+
+
+_ctc_beam_search_renorm_op = torch.library.custom_op(
+    f"{_NS}::ctc_beam_search_renorm",
+    _ctc_beam_search_renorm_launch,
+    mutates_args=(),
+    device_types="cuda",
+)
+
+
+@_ctc_beam_search_renorm_op.register_kernel("cpu")
+def _(logits, top_vals, top_inds, sm_max, sm_den, blank_probs, lens, width):
+    y, y_lens, mass, ls = ctc_beam_search_renorm_reference(
+        logits, top_vals, top_inds, sm_max, sm_den, blank_probs, lens, width
+    )
+    return y.contiguous(), y_lens, mass, ls  # the kernel's layout
+
+
+@_ctc_beam_search_renorm_op.register_fake
+def _(logits, top_vals, top_inds, sm_max, sm_den, blank_probs, lens, width):
+    T, N, _ = logits.shape
+    return (
+        logits.new_empty((T, N, width), dtype=torch.long),
+        logits.new_empty((N, width), dtype=torch.long),
+        logits.new_empty((N, width), dtype=torch.float32),
+        logits.new_empty((N,), dtype=torch.int32),
     )

@@ -240,20 +240,24 @@ def test_transducer_beam_artifact_matches_live(tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(got, live))
 
 
-@pytest.mark.parametrize("route", ["auto", "1"])
-def test_export_records_kernel_operators_on_cpu_platforms(ctc, tmp_path, route):
+@pytest.mark.parametrize("route", ["auto", "0", "raw"])
+def test_export_records_kernel_operators_on_cpu_platforms(ctc, tmp_path, route, monkeypatch):
     """Where the JAX package refuses ``allow_pallas`` with ``"cpu"`` in
     ``platforms`` (``test_export_rejects_pallas_on_cpu_platforms``), every
     port artifact records the kernels' operators and runs on the CPU: a
-    width-4 program traced on the CPU holds the decode prologue's operator
-    (scan route) or ``top_m``'s and ``ctc_beam_search``'s (beam route), and
-    its outputs equal the JAX package's live search. ``platforms`` still
+    width-4 program traced on the CPU with the default arguments holds the
+    decode prologue's and ``ctc_beam_search_renorm``'s operators, on the
+    scan route (``USE_BEAM_KERNEL="0"``) the prologue's, on the raw route
+    (``DECODE_RENORM`` off) ``top_m``'s and ``ctc_beam_search``'s, and its
+    outputs equal the JAX package's live search. ``platforms`` still
     decides where it loads."""
     from pydrobert_tpu_torch import config as pconfig
 
     jmodel, params, pmodel, feats, lens = ctc
-    saved = pconfig.USE_BEAM_KERNEL
-    pconfig.USE_BEAM_KERNEL = route
+    if route == "0":
+        monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "0")
+    saved = pconfig.DECODE_RENORM
+    pconfig.DECODE_RENORM = route != "raw"
     try:
         art = pexport.export_ctc_recognizer(
             str(tmp_path / "art"), pmodel, specs=[(3, 33)], width=4
@@ -262,12 +266,13 @@ def test_export_records_kernel_operators_on_cpu_platforms(ctc, tmp_path, route):
             str(tmp_path / "card"), pmodel, specs=[(3, 33)], width=4, platforms=("cuda",)
         )
     finally:
-        pconfig.USE_BEAM_KERNEL = saved
+        pconfig.DECODE_RENORM = saved
     targets = [
         str(n.target).split(".")[-2] for n in art._programs[0].graph.nodes
         if n.op == "call_function" and "pydrobert_tpu_torch" in str(n.target)
     ]
-    want = ["decode_prologue"] if route == "auto" else ["top_m", "ctc_beam_search"]
+    want = {"auto": ["decode_prologue", "ctc_beam_search_renorm"], "0": ["decode_prologue"],
+            "raw": ["top_m", "ctc_beam_search"]}[route]
     assert targets == want
     got = pexport.ServingArtifact.load(str(tmp_path / "art"), device="cpu")(feats, lens)
     from pydrobert_tpu.ops.decoding import CTCPrefixSearch as JSearch
@@ -279,14 +284,16 @@ def test_export_records_kernel_operators_on_cpu_platforms(ctc, tmp_path, route):
         pexport.ServingArtifact.load(str(tmp_path / "card"), device="cpu")
 
 
-def test_scan_route_exports_one_loop_body(ctc, tmp_path):
-    """The search's frames are one scan in the program, not unrolled:
-    ``count_body_kernels`` finds its body with one trip a frame after the
-    first, and the body's operators equal those a profiled eager trip
-    calls."""
+def test_scan_route_exports_one_loop_body(ctc, tmp_path, monkeypatch):
+    """On the scan route (``USE_BEAM_KERNEL="0"``) the search's frames are
+    one scan in the program, not unrolled: ``count_body_kernels`` finds its
+    body with one trip a frame after the first, and the body's operators
+    equal those a profiled eager trip calls."""
+    from pydrobert_tpu_torch import config as pconfig
     from pydrobert_tpu_torch.ops.decoding import CTCPrefixSearch
     from pydrobert_tpu_torch.utils.hlostats import compiled_stats, count_body_kernels
 
+    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "0")
     jmodel, params, pmodel, feats, lens = ctc
     art = pexport.export_ctc_recognizer(str(tmp_path / "art"), pmodel, specs=[(3, 33)], width=4)
     bodies = count_body_kernels(art._programs[0])

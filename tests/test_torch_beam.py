@@ -1,9 +1,12 @@
 """The port's whole-loop CTC beam search on the CPU: the plain version of
 the ``ctc_beam_search`` kernel against the JAX package's kernel simulator
 (``ctc_beam_search_reference``; its Pallas kernel in interpret mode is a
-slow test there), ``CTCPrefixSearch``'s beam route against the JAX
-package's raw-mass search, and the route's gate. The kernel itself is held
-against the plain version on a card by ``tests/test_torch_cuda.py``."""
+slow test there), ``CTCPrefixSearch``'s raw route (``DECODE_RENORM`` off)
+against the JAX package's raw-mass search, and the gate of both whole-loop
+routes (the default one, ``ctc_beam_search_renorm``, has the scan itself
+as its plain version: ``tests/test_torch_decoding.py``). The kernels are
+held against the plain versions on a card by
+``tests/test_torch_cuda.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -15,8 +18,11 @@ from pydrobert_tpu import config as jconfig
 from pydrobert_tpu.ops import decoding as jdec
 from pydrobert_tpu.ops.pallas import ctc_beam_search_reference as jax_beam_reference
 from pydrobert_tpu_torch import config as pconfig
+from pydrobert_tpu_torch import lm as plm
 from pydrobert_tpu_torch.ops import decoding as pdec
 from pydrobert_tpu_torch.ops import kernels
+
+from _lm_dicts import random_prob_dicts
 
 
 def _probs(T, N, V, seed, scale, ties=False):
@@ -120,6 +126,24 @@ def test_beam_wrapper_checks_arguments():
         kernels.ctc_beam_search(nonext, blank, lens, 4, kernels.top_m(nonext, 4))
 
 
+def test_renorm_wrapper_checks_arguments():
+    """The renormalizing kernel's wrapper refuses what its launch cannot
+    take before any route is chosen: a width out of range, inputs of
+    other dtypes or shapes, float lengths."""
+    logits = torch.zeros(6, 2, 11)
+    tl, ti, mx, den, bl = kernels.decode_prologue(logits, 8)
+    args = [logits, torch.exp(tl - mx[..., None]) / den[..., None], ti, mx, den,
+            torch.exp(bl - mx) / den, torch.tensor([6, 3]), 4]
+    kernels.ctc_beam_search_renorm(*args)
+    for i, bad, err in (
+        (7, 0, ValueError), (7, 11, ValueError), (2, ti.long(), TypeError),
+        (1, args[1][..., :4], ValueError), (3, mx[:5], ValueError),
+        (6, torch.tensor([6.0, 3.0]), TypeError), (0, logits.double(), TypeError),
+    ):
+        with pytest.raises(err):
+            kernels.ctc_beam_search_renorm(*args[:i], bad, *args[i + 1:])
+
+
 def test_beam_fits_follows_shared_memory():
     """Two (W, T) int32 path buffers dominate: at W=16 up to 1,772 frames
     fit a block's 232,448 bytes, at W=32 up to 832."""
@@ -130,13 +154,20 @@ def test_beam_fits_follows_shared_memory():
 
 
 def _route_spy(monkeypatch):
+    """The widths of the whole-loop searches the route takes, either
+    kernel's wrapper."""
     calls = []
 
     def spy(*args, **kwargs):
         calls.append(args[3])
         return kernels.ctc_beam_search(*args, **kwargs)
 
+    def spy_renorm(*args, **kwargs):
+        calls.append(args[7])
+        return kernels.ctc_beam_search_renorm(*args, **kwargs)
+
     monkeypatch.setattr(pdec, "ctc_beam_search", spy)
+    monkeypatch.setattr(pdec, "ctc_beam_search_renorm", spy_renorm)
     return calls
 
 
@@ -150,7 +181,7 @@ def test_beam_route_matches_jax_search_without_renorm(shape, monkeypatch):
     logits, _, _, lens = _probs(T, N, V, 7 + T, 2.0)
     monkeypatch.setattr(jconfig, "DECODE_RENORM", False)
     exp = jax.jit(jdec.CTCPrefixSearch(W))(jnp.asarray(logits), jnp.asarray(lens))
-    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "1")
+    monkeypatch.setattr(pconfig, "DECODE_RENORM", False)
     calls = _route_spy(monkeypatch)
     got = pdec.CTCPrefixSearch(W)(torch.from_numpy(logits), torch.from_numpy(lens))
     assert calls == [W]
@@ -165,20 +196,23 @@ def test_beam_route_matches_port_scan(monkeypatch):
     monkeypatch.setattr(pconfig, "DECODE_RENORM", False)
     monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "0")
     scan = pdec.CTCPrefixSearch(8)(x, ln)
-    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "1")
+    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "auto")
+    calls = _route_spy(monkeypatch)
     beam = pdec.CTCPrefixSearch(8)(x, ln)
+    assert calls == [8]
     _beam_outputs_equal([t.numpy() for t in beam], [t.numpy() for t in scan], rtol=1e-4)
 
 
 @pytest.mark.parametrize(
     "mode,renorm,taken", [
-        ("auto", True, False), ("auto", False, True), ("1", True, True),
+        ("auto", True, True), ("auto", False, True), ("1", True, True),
         ("1", False, True), ("0", True, False), ("0", False, False),
     ],
 )
 def test_beam_route_gate_modes(mode, renorm, taken, monkeypatch):
-    """The defaults ("auto", renorm on) never take the route; "0" never
-    does; "1" always does and "auto" does with renorm off."""
+    """The switch is "0" against any other value: the default ("auto")
+    and another value ("1") take a whole-loop route, the renormalizing one
+    with renorm on; "0" never does."""
     monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", mode)
     monkeypatch.setattr(pconfig, "DECODE_RENORM", renorm)
     calls = _route_spy(monkeypatch)
@@ -191,16 +225,44 @@ def test_beam_route_gate_modes(mode, renorm, taken, monkeypatch):
     "T,V,W", [(9, 12, 1), (1, 12, 4), (0, 12, 4), (9, 3, 4), (9, 40, 33)]
 )
 def test_beam_route_gate_shapes(T, V, W, monkeypatch):
-    """W = 1, T < 2 and W > min(32, V) take the scan even when forced."""
-    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "1")
+    """Under the defaults W = 1, T < 2 and W > min(32, V) take the scan."""
     calls = _route_spy(monkeypatch)
     logits = np.random.RandomState(T + V + W).randn(T, 2, V + 1).astype(np.float32)
     pdec.CTCPrefixSearch(W)(torch.from_numpy(logits))
     assert calls == []
 
 
-def test_beam_route_gate_needs_shared_memory(monkeypatch):
-    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "1")
+def test_beam_route_gate_needs_shared_memory():
+    """Under the defaults a T past the fit takes the scan."""
     search = pdec.CTCPrefixSearch(32)
     assert search._takes_beam_route(832, 4, 1024)
     assert not search._takes_beam_route(833, 4, 1024)
+    assert pdec.CTCPrefixSearch(16)._takes_beam_route(1772, 256, 1024)
+    assert not pdec.CTCPrefixSearch(16)._takes_beam_route(1773, 256, 1024)
+
+
+@pytest.mark.parametrize("case", ["sparse", "uni", "dense", "mixture", "state", "beta0"])
+def test_beam_route_gate_lm_and_state(case, monkeypatch):
+    """Under the defaults every LM route and an ``initial_state`` take the
+    scan; an LM at ``beta == 0`` fuses nothing and takes the whole-loop
+    route."""
+    V = 12
+    order = 1 if case == "uni" else 2
+    lm = plm.LookupLanguageModel(
+        V, sos=V, prob_dicts=random_prob_dicts(V, order, 3, sos=V), device="cpu"
+    )
+    kw = {"lm": lm, "beta": 0.0 if case == "beta0" else 0.5}
+    if case == "dense":
+        monkeypatch.setattr(pconfig, "SPARSE_FUSION_MAX_CORRECTIONS", -1)
+    if case == "mixture":
+        kw["valid_mixture"] = True
+    if case == "state":
+        kw = {}
+    search = pdec.CTCPrefixSearch(4, **kw)
+    assert search.lm_route() == {"sparse": "sparse", "uni": "uni", "dense": "dense",
+                                 "mixture": "dense"}.get(case)
+    calls = _route_spy(monkeypatch)
+    logits, _, _, lens = _probs(9, 3, V, 5, 1.0)
+    state = {"hidden": torch.zeros(3)} if case == "state" else None
+    search(torch.from_numpy(logits), torch.from_numpy(lens), state)
+    assert calls == ([4] if case == "beta0" else [])

@@ -309,6 +309,7 @@ def rehearse(smoke, monkeypatch):
 
     counted(decoding, "decode_prologue")
     counted(decoding, "ctc_beam_search")
+    counted(decoding, "ctc_beam_search_renorm")
     counted(kernels, "top_m")
     kernels.lines = lines
     yield kernels
@@ -324,16 +325,21 @@ def test_blankskip_phase_rehearsal(smoke, rehearse):
     launches, beam_launches, times = smoke.phase_blankskip(
         (config, CTCPrefixSearch, compress_blank_frames), rehearse, cfg, dev="cpu", cpu_rows=3)
     assert (config.USE_BEAM_KERNEL, config.DECODE_RENORM) == saved
-    assert launches["decode_prologue"] == 1 and launches["top_m"] == 0
+    assert launches == {"decode_prologue": 1, "top_m": 0, "spec_augment_apply": 0,
+                        "edit_distance": 0, "ctc_beam_search": 0, "ctc_beam_search_renorm": 1}
     assert beam_launches == {"decode_prologue": 0, "top_m": 1, "spec_augment_apply": 0,
-                             "edit_distance": 0, "ctc_beam_search": 1}
+                             "edit_distance": 0, "ctc_beam_search": 1,
+                             "ctc_beam_search_renorm": 0}
     line = rehearse.lines[-1]
     assert line["phase"] == "blankskip" and line["compress_equals_cpu_bits"]
     assert line["cut_frames"] >= 0 and line["kept_frames"] <= line["valid_frames"]
     assert line["vs_cpu_cut"]["ok"] and line["beam_route"]["vs_card_scan_raw_masses"]["ok"]
-    assert set(times) == {"decode_prologue", "top_m", "ctc_beam_search"}
+    assert line["vs_card_scan_cut"]["ok"]
+    assert set(times) == {"decode_prologue", "top_m", "ctc_beam_search", "ctc_beam_search_renorm"}
     vs_plain = times["ctc_beam_search"]["vs_plain"]
     assert vs_plain["ok"] and vs_plain["buffer_exact"] and vs_plain["probs_bit_exact"]
+    vs_plain = times["ctc_beam_search_renorm"]["vs_plain"]
+    assert vs_plain["ok"] and vs_plain["probs_bit_exact"] and vs_plain["ls_exact"]
     assert all(t["bound_ms"] > 0 for t in times.values())
 
 
@@ -751,18 +757,21 @@ def test_artifact_phase_rehearsal(smoke, rehearse):
     for bit equal to the live heads, the padded call too; the width-4
     programs record the kernels' operators, which run their plain versions
     on the CPU (so nothing launches)."""
-    cfg = _small_artifact(smoke, ("ctc_greedy", "ctc_w16_scan", "ctc_w16_beam", "rnnt_greedy",
-                                  "rnnt_beam"))
+    cfg = _small_artifact(smoke, ("ctc_greedy", "ctc_w16_scan", "ctc_w16_beam", "ctc_w16_raw",
+                                  "rnnt_greedy", "rnnt_beam"))
     launches = smoke.phase_artifact(_artifact_pkg(), rehearse, cfg, dev="cpu")
-    assert launches == {"decode_prologue": 0, "top_m": 0, "ctc_beam_search": 0}
+    assert launches == {"decode_prologue": 0, "top_m": 0, "ctc_beam_search": 0,
+                        "ctc_beam_search_renorm": 0}
     (line,) = [ln for ln in rehearse.lines if ln.get("phase") == "artifact"]
     assert set(line["heads"]) == set(cfg["heads"])
     for head in line["heads"].values():
         assert head["bit_equal_calls"] == 3 and head["bytes"] > 0
     assert line["heads"]["ctc_w16_scan"]["loop_body_nodes"]
     assert line["heads"]["ctc_w16_scan"]["kernel_ops"] == {"decode_prologue": 1}
-    assert line["heads"]["ctc_w16_beam"]["kernel_ops"] == {"top_m": 1, "ctc_beam_search": 1}
-    assert line["server"]["artifacts"] == 5
+    assert line["heads"]["ctc_w16_beam"]["kernel_ops"] == {
+        "decode_prologue": 1, "ctc_beam_search_renorm": 1}
+    assert line["heads"]["ctc_w16_raw"]["kernel_ops"] == {"top_m": 1, "ctc_beam_search": 1}
+    assert line["server"]["artifacts"] == 6
 
 
 def test_artifact_phase_fails_an_artifact_with_other_weights(smoke, rehearse, monkeypatch):

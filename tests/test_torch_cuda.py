@@ -117,7 +117,7 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     kernels.top_m(x, 8)
     assert kernels.LAUNCHES == {
         "decode_prologue": 1, "top_m": 1, "spec_augment_apply": 0, "edit_distance": 0,
-        "ctc_beam_search": 0,
+        "ctc_beam_search": 0, "ctc_beam_search_renorm": 0,
     }
     with pytest.raises(ValueError):
         kernels.decode_prologue(x.transpose(0, 1), 8)  # not contiguous
@@ -125,7 +125,7 @@ def test_wrappers_count_launches_and_check_inputs(dev):
         kernels.decode_prologue(x, 8, torch.zeros(128))  # bias on the CPU
     assert kernels.LAUNCHES == {
         "decode_prologue": 1, "top_m": 1, "spec_augment_apply": 0, "edit_distance": 0,
-        "ctc_beam_search": 0,
+        "ctc_beam_search": 0, "ctc_beam_search_renorm": 0,
     }
 
 
@@ -428,7 +428,7 @@ def test_new_wrappers_count_launches_and_check_inputs(dev, monkeypatch):
     kernels.edit_distance(*ed, 1.0, 1.0, 1.0)
     assert kernels.LAUNCHES == {
         "decode_prologue": 0, "top_m": 0, "spec_augment_apply": 1, "edit_distance": 1,
-        "ctc_beam_search": 0,
+        "ctc_beam_search": 0, "ctc_beam_search_renorm": 0,
     }
     with pytest.raises(ValueError):
         kernels.spec_augment_apply(x, t0, t1, w0, w1, tm.cpu(), fm)
@@ -638,32 +638,122 @@ def _search_equal(got, exp, rtol):
 
 
 def test_beam_route_on_card(dev, monkeypatch):
-    """The forced route launches top_m and the beam kernel once each and
-    agrees with the card's own scan on raw masses (rtol 1e-4: the softmax
-    and the gathers round differently in the last ulps over T frames)."""
+    """With DECODE_RENORM off the route launches top_m and the raw-mass
+    beam kernel once each and agrees with the card's own scan on raw masses
+    (rtol 1e-4: the softmax and the gathers round differently in the last
+    ulps over T frames)."""
     x = _logits((60, 6, 129), 5, dev)
     lens = torch.tensor([60, 41, 30, 7, 1, 0], device=dev)
-    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "1")
+    monkeypatch.setattr(pconfig, "DECODE_RENORM", False)
     kernels.reset_launches()
     got = CTCPrefixSearch(8)(x, lens)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {
         "decode_prologue": 0, "top_m": 1, "spec_augment_apply": 0, "edit_distance": 0,
-        "ctc_beam_search": 1,
+        "ctc_beam_search": 1, "ctc_beam_search_renorm": 0,
     }
     monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "0")
-    monkeypatch.setattr(pconfig, "DECODE_RENORM", False)
     _search_equal(got, CTCPrefixSearch(8)(x, lens), rtol=1e-4)
 
 
+def _renorm_logits(T, N, V, seed, scale, dev, dtype):
+    """Seeded logits (x0.5 diffuse: raw masses would go subnormal within
+    tens of frames; x8 decisive; bfloat16 rounds them onto a coarse grid,
+    so top-M tokens tie) and ragged lengths with 0, 1 and T."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(T, N, V + 1).astype(np.float32) * scale)
+    lens = torch.from_numpy(rng.randint(0, T + 1, N))
+    lens[0], lens[1] = T, 0
+    if N > 2:
+        lens[2] = 1
+    return x.to(dev, dtype), lens.to(dev)
+
+
+def _search_bits_equal(got, exp):
+    """Lengths exact, probabilities bit for bit, tokens up to each length."""
+    (gy, gl, gp), (ey, el, ep) = ([t.cpu() for t in o] for o in (got, exp))
+    assert torch.equal(gl, el)
+    assert _bits_equal(gp, ep)
+    pos = torch.arange(gy.shape[0])[:, None, None]
+    assert torch.equal(torch.where(pos < el, gy, 0), torch.where(pos < el, ey, 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape,scale",
+    [((500, 32, 1024, 16), 0.5), ((500, 32, 1024, 16), 8.0), ((875, 256, 1024, 16), 0.5),
+     ((875, 256, 1024, 16), 8.0), ((64, 8, 128, 8), 2.0), ((40, 5, 30, 3), 3.0),
+     ((60, 4, 200, 32), 1.0), ((2, 3, 50, 16), 1.0), ((1772, 2, 64, 16), 0.5),
+     ((832, 2, 80, 32), 0.5)],
+)
+def test_renorm_route_matches_scan_on_card(dev, monkeypatch, shape, scale, dtype):
+    """The default route (DECODE_RENORM on) launches the prologue and the
+    renormalizing kernel once each and equals the card's own scan bit for
+    bit: hypotheses, lengths and every probability's bits, on diffuse rows
+    whose raw masses would underflow, decisive rows, bfloat16 ties among the
+    top-M, rows of length 0, 1 and T, and the largest T that fits."""
+    T, N, V, W = shape
+    x, lens = _renorm_logits(T, N, V, sum(shape), scale, dev, dtype)
+    kernels.reset_launches()
+    got = CTCPrefixSearch(W)(x, lens)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {
+        "decode_prologue": 1, "top_m": 0, "spec_augment_apply": 0, "edit_distance": 0,
+        "ctc_beam_search": 0, "ctc_beam_search_renorm": 1,
+    }
+    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "0")
+    exp = CTCPrefixSearch(W)(x, lens)
+    _search_bits_equal(got, exp)
+
+
+def test_renorm_kernel_wrapper_launches_or_raises(dev, monkeypatch):
+    """The wrapper launches the kernel (never its plain version) and equals
+    that plain version, the scan, on the card; the raw masses and exponents
+    fold into the search's probabilities; shapes the kernel cannot take and
+    inputs on two devices raise before any launch."""
+    from pydrobert_tpu_torch.ops._ctc_scan import beam_probs
+    from pydrobert_tpu_torch.ops.decoding import _decode_prologue
+
+    x, lens = _renorm_logits(120, 6, 200, 3, 0.5, dev, torch.bfloat16)
+    tl, ti, mx, den, blank = _decode_prologue(x, 16)
+    tv = torch.exp(tl - mx[..., None]) / den[..., None]
+    args = (x, tv, ti, mx, den, blank, lens, 8)
+    exp = kernels.ctc_beam_search_renorm_reference(*args)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(kernels, "ctc_beam_search_renorm_reference", refuse)
+    kernels.reset_launches()
+    got = kernels.ctc_beam_search_renorm(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ctc_beam_search_renorm"] == 1
+    # rows of 100 frames or more rescale past the subnormal floor, where
+    # raw masses would have underflowed to zero
+    assert got[3].dtype == torch.int32 and bool((got[3][lens >= 100] < -149).all())
+    _search_bits_equal(
+        (got[0], got[1], beam_probs(got[2], got[3], True)),
+        (exp[0], exp[1], beam_probs(exp[2], exp[3], True)),
+    )
+    big = torch.zeros((1773, 2, 65), device=dev)
+    bl, bi, bmx, bden, bb = _decode_prologue(big, 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.ctc_beam_search_renorm(big, bl, bi, bmx, bden, bb, lens[:2], 16)
+    with pytest.raises(ValueError):
+        kernels.ctc_beam_search_renorm(*args[:6], lens.cpu(), 8)
+    assert kernels.LAUNCHES["ctc_beam_search_renorm"] == 1
+
+
 def test_streaming_session_on_card_matches_one_shot(dev, monkeypatch):
-    """A causal float32 model streams on the card through the beam route;
-    every search launches the kernel, and finish equals the one-shot search
-    of the full forward (lengths and tokens exact, probabilities within
-    atol 1e-5, as tests/test_serving.py holds the JAX package's)."""
+    """A causal float32 model streams on the card through the default
+    route, every search launching the prologue and the renormalizing
+    kernel, and with ``DECODE_RENORM`` off through the raw route, every
+    search launching ``top_m`` and ``ctc_beam_search``; on each, finish
+    equals the one-shot search of the full forward (lengths and tokens
+    exact, probabilities within atol 1e-5, as tests/test_serving.py holds
+    the JAX package's)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "1")
     cfg = pconf.ConformerConfig(
         vocab_size=12, num_filts=8, d_model=16, num_layers=2, num_heads=2,
         subsample_channels=4, conv_kernel=5, dropout=0.0, dtype=torch.float32,
@@ -675,24 +765,31 @@ def test_streaming_session_on_card_matches_one_shot(dev, monkeypatch):
     lens = np.asarray([45, 35, 23])
     with torch.no_grad():
         logits, out_lens = model(feats.to(dev), torch.from_numpy(lens).to(dev))
-    exp = CTCPrefixSearch(4)(logits.transpose(0, 1).contiguous(), out_lens)
-    rec = pserving.StreamingCTCRecognizer(model, chunk=4, width=4, decode_pad_multiple=16)
-    sess = rec.start(3)
-    kernels.reset_launches()
-    for t, size in ((0, 3), (3, 30), (33, 12)):
-        rec.push(sess, feats[:, t : t + size], np.clip(lens - t, 0, size), partials=True)
-    got = rec.finish(sess)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["ctc_beam_search"] == 4 and kernels.LAUNCHES["top_m"] == 4
-    assert got[0].device.type == "cuda" and got[0].shape[0] == 16
-    gy, gl, gp = (t.cpu() for t in got)
-    ey, el, ep = (t.cpu() for t in exp)
-    assert torch.equal(gl, el)
-    torch.testing.assert_close(gp, ep, atol=1e-5, rtol=0)
-    for n in range(3):
-        for w in range(4):
-            L = int(el[n, w])
-            assert torch.equal(gy[:L, n, w], ey[:L, n, w])
+    for renorm, launched in (
+        (True, ("decode_prologue", "ctc_beam_search_renorm")),
+        (False, ("top_m", "ctc_beam_search")),
+    ):
+        monkeypatch.setattr(pconfig, "DECODE_RENORM", renorm)
+        exp = CTCPrefixSearch(4)(logits.transpose(0, 1).contiguous(), out_lens)
+        rec = pserving.StreamingCTCRecognizer(model, chunk=4, width=4, decode_pad_multiple=16)
+        sess = rec.start(3)
+        kernels.reset_launches()
+        for t, size in ((0, 3), (3, 30), (33, 12)):
+            rec.push(sess, feats[:, t : t + size], np.clip(lens - t, 0, size), partials=True)
+        got = rec.finish(sess)
+        torch.cuda.synchronize()
+        for name in kernels.LAUNCHES:
+            want = 4 * int(name in launched)
+            assert kernels.LAUNCHES[name] == want, (renorm, kernels.LAUNCHES)
+        assert got[0].device.type == "cuda" and got[0].shape[0] == 16
+        gy, gl, gp = (t.cpu() for t in got)
+        ey, el, ep = (t.cpu() for t in exp)
+        assert torch.equal(gl, el)
+        torch.testing.assert_close(gp, ep, atol=1e-5, rtol=0)
+        for n in range(3):
+            for w in range(4):
+                L = int(el[n, w])
+                assert torch.equal(gy[:L, n, w], ey[:L, n, w])
 
 
 # ---------------------------------------------------------------------------
@@ -1346,7 +1443,13 @@ def test_wrappers_launch_through_registered_operators(dev):
         ("ctc_beam_search",
          lambda: kernels.ctc_beam_search(nonext, blank, lens, 4, kernels.top_m(nonext, 8)),
          lambda: ops.ctc_beam_search(nonext, blank, lens, 4, *kernels.top_m(nonext, 8))),
+        ("ctc_beam_search_renorm",
+         lambda: kernels.ctc_beam_search_renorm(x, *renorm_in, 4),
+         lambda: ops.ctc_beam_search_renorm(x, *renorm_in, 4)),
     ]
+    tl, ti, mx, den, bl = pdec._decode_prologue(x, 8)
+    renorm_in = (torch.exp(tl - mx[..., None]) / den[..., None], ti, mx, den, bl,
+                 torch.tensor([6, 3, 1, 0], device=dev))
     for name, wrapper, op in cases:
         kernels.reset_launches()
         got = wrapper()
@@ -1362,8 +1465,11 @@ def test_kernel_artifact_launches_the_operators(dev, tmp_path, export_on):
     """A width-4 CTC artifact, exported with the default arguments on the
     CPU or on the card, records the decode prologue's operator; loaded on
     the card, it launches the kernel once a call and equals the live
-    recognizer on the card bit for bit. The beam route's artifact launches
-    ``top_m`` and ``ctc_beam_search``."""
+    recognizer on the card bit for bit, whatever the config says when it
+    is served: the default route's records the decode prologue's and
+    ``ctc_beam_search_renorm``'s operators and launches each once, the
+    scan's (``USE_BEAM_KERNEL="0"``) the prologue's, and the raw route's
+    (``DECODE_RENORM`` off) ``top_m`` and ``ctc_beam_search``."""
     from pydrobert_tpu_torch import export as pexport
 
     cfg = pconf.ConformerConfig(
@@ -1377,19 +1483,25 @@ def test_kernel_artifact_launches_the_operators(dev, tmp_path, export_on):
     g = torch.Generator().manual_seed(1)
     feats = torch.randn(3, 33, 8, generator=g).to(dev)
     lens = torch.tensor([33, 24, 16], dtype=torch.int32, device=dev)
-    for route, launched in (("auto", ("decode_prologue",)), ("1", ("top_m", "ctc_beam_search"))):
-        saved = pconfig.USE_BEAM_KERNEL
-        pconfig.USE_BEAM_KERNEL = route
+    for route, renorm, launched in (
+        ("auto", True, ("decode_prologue", "ctc_beam_search_renorm")),
+        ("0", True, ("decode_prologue",)),
+        ("auto", False, ("top_m", "ctc_beam_search")),
+    ):
+        saved = pconfig.USE_BEAM_KERNEL, pconfig.DECODE_RENORM
+        pconfig.USE_BEAM_KERNEL, pconfig.DECODE_RENORM = route, renorm
         try:
-            path = str(tmp_path / f"art{route}")
+            path = str(tmp_path / f"art{route}{renorm}")
             pexport.export_ctc_recognizer(path, traced, specs=[(3, 33)], width=4)
             live = pexport.ctc_recognizer(model, 4)(feats, lens)
         finally:
-            pconfig.USE_BEAM_KERNEL = saved
+            pconfig.USE_BEAM_KERNEL, pconfig.DECODE_RENORM = saved
+        # served under the defaults: the program carries its own route
         art = pexport.ServingArtifact.load(path)
         kernels.reset_launches()
         got = art(feats, lens)
-        for name in launched:
-            assert kernels.LAUNCHES[name] == 1, (route, kernels.LAUNCHES)
+        for name in kernels.LAUNCHES:
+            want = int(name in launched)
+            assert kernels.LAUNCHES[name] == want, (route, renorm, kernels.LAUNCHES)
         for a, b in zip(got, live):
-            assert torch.equal(a, b), route
+            assert torch.equal(a, b), (route, renorm)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from pydrobert_tpu.ops import decoding as jdec
+from pydrobert_tpu_torch.ops import _ctc_scan as pscan
 from pydrobert_tpu_torch.ops import decoding as pdec
 
 
@@ -97,6 +98,36 @@ def test_ctc_prefix_search_diffuse_long_renorm():
     assert (got[2] == 0).any()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ctc_prefix_search_whole_loop_route_on_cpu(dtype, monkeypatch):
+    """Under the defaults a fitting no-LM search takes the renormalizing
+    whole-loop route; on the CPU its plain version is the scan itself, so
+    it is bit-equal to ``USE_BEAM_KERNEL="0"`` and holds the JAX package's
+    search with DECODE_RENORM on to this file's rule, here on a long
+    diffuse decode whose raw masses underflow: its longer rows' rescales
+    pass the subnormal floor (a summed exponent below -149)."""
+    calls = []
+    real = pdec.ctc_beam_search_renorm
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(pdec, "ctc_beam_search_renorm", spy)
+    got = _run(120, 5, 64, 8, seed=60300, dtype=dtype, zero_len=True, blank_shift=4.0)
+    assert len(calls) == 1 and calls[0][-1] == 8
+    mass, ls = real(*calls[0])[2:]
+    assert bool((ls < -149).any()) and bool((ls < -126).sum() >= 3)
+    assert torch.equal(got[2], pscan.beam_probs(mass, ls, True))
+    monkeypatch.setattr(pdec.config, "USE_BEAM_KERNEL", "0")
+    scan = pdec.CTCPrefixSearch(8)(calls[0][0], calls[0][6])
+    assert len(calls) == 1
+    assert torch.equal(got[1], scan[1])
+    assert torch.equal(got[2].view(torch.int32), scan[2].view(torch.int32))
+    mask = torch.arange(120)[:, None, None] < scan[1]
+    assert torch.equal(torch.where(mask, got[0], 0), torch.where(mask, scan[0], 0))
+
+
 def test_ldexp_matches_jnp_ldexp():
     """The final mass rescale: x * 2**e with no overflow of 2**e alone and
     the JAX package's flush below the f32 normal floor, bit for bit."""
@@ -108,14 +139,14 @@ def test_ldexp_matches_jnp_ldexp():
     e = rng.randint(-300, 300, x.shape).astype(np.int32)
     e[-6:] = [5, 5, -3, 127, 128, -2]
     exp = np.asarray(jnp.ldexp(jnp.asarray(x), jnp.asarray(e)))
-    got = pdec._ldexp(torch.from_numpy(x), torch.from_numpy(e)).numpy()
+    got = pscan._ldexp(torch.from_numpy(x), torch.from_numpy(e)).numpy()
     np.testing.assert_array_equal(got.view(np.uint32), exp.view(np.uint32))
 
 
 def test_pow2_is_exact():
     e = torch.arange(-149, 128, dtype=torch.int32)
     ref = np.ldexp(np.float64(1.0), e.numpy()).astype(np.float32)
-    np.testing.assert_array_equal(pdec._pow2(e).numpy(), ref)
+    np.testing.assert_array_equal(pscan._pow2(e).numpy(), ref)
 
 
 def test_ctc_prefix_search_lm_not_ported():

@@ -28,6 +28,7 @@ from pydrobert_tpu import config as jconfig
 from pydrobert_tpu.ops import decoding as jdec
 from pydrobert_tpu_torch import config as pconfig
 from pydrobert_tpu_torch import lm as plm_mod
+from pydrobert_tpu_torch.ops import _ctc_scan as pscan
 from pydrobert_tpu_torch.ops import decoding as pdec
 from pydrobert_tpu_torch.ops import kernels
 
@@ -94,7 +95,7 @@ def record_tables(monkeypatch, contexts=None):
     was handed a bigram table, and ``contexts`` (a list) each call's
     order-1 context tokens ``c1``."""
     seen = []
-    advance = pdec._ctc_prefix_search_advance_sparse
+    advance = pscan._ctc_prefix_search_advance_sparse
 
     def wrapped(*args, **kwargs):
         seen.append(args[14] is not None)
@@ -102,7 +103,7 @@ def record_tables(monkeypatch, contexts=None):
             contexts.append(args[15].clone())
         return advance(*args, **kwargs)
 
-    monkeypatch.setattr(pdec, "_ctc_prefix_search_advance_sparse", wrapped)
+    monkeypatch.setattr(pscan, "_ctc_prefix_search_advance_sparse", wrapped)
     return seen
 
 

@@ -160,7 +160,7 @@ def test_wrappers_use_plain_versions_on_cpu():
     assert torch.equal(gv, ev) and torch.equal(gi, ei)
     assert kernels.LAUNCHES == {
         "decode_prologue": 0, "top_m": 0, "spec_augment_apply": 0, "edit_distance": 0,
-        "ctc_beam_search": 0,
+        "ctc_beam_search": 0, "ctc_beam_search_renorm": 0,
     }
 
 
@@ -208,6 +208,10 @@ def _op_cases():
     p = torch.softmax(torch.randn(6, 2, 9, generator=g), -1)
     nonext, blank = p[..., :8].contiguous(), p[..., 8].contiguous()
     tv, ti = kernels.top_m_reference(nonext, 8)
+    lg = torch.randn(6, 3, 11, generator=g).to(torch.bfloat16)
+    tl, rti, mx, den, bl = kernels.decode_prologue_reference(lg, 8)
+    renorm_in = (torch.exp(tl - mx[..., None]) / den[..., None], rti, mx, den,
+                 torch.exp(bl - mx) / den, torch.tensor([6, 0, 3]))
     ops = torch.ops.pydrobert_tpu_torch
     return {
         "decode_prologue": (ops.decode_prologue.default, (x, 4, None)),
@@ -224,6 +228,7 @@ def _op_cases():
         "ctc_beam_search": (
             ops.ctc_beam_search.default, (nonext, blank, torch.tensor([6, 3]), 4, tv, ti)
         ),
+        "ctc_beam_search_renorm": (ops.ctc_beam_search_renorm.default, (lg, *renorm_in, 4)),
     }
 
 

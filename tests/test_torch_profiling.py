@@ -300,9 +300,11 @@ def test_finish_span_holds_its_encodes_advances_and_syncs(rnnt, size, windows, t
 def test_prefix_search_span_holds_every_trip(models, route, monkeypatch):
     """``CTCPrefixSearch`` is one ``pydt.search/ctc_prefix``, around every
     trip of its frame loop (one a frame after the first on the scan route,
-    none on the whole-loop route), with no host sync inside a trip."""
+    none on the raw whole-loop route, whose plain version has no frame
+    loop), with no host sync inside a trip."""
     _, _, pmodel, feats, lens = models
-    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "1" if route == "beam" else "0")
+    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "auto" if route == "beam" else "0")
+    monkeypatch.setattr(pconfig, "DECODE_RENORM", route != "beam")
     with torch.no_grad():
         logits, out_lens = pmodel(torch.from_numpy(feats), torch.from_numpy(lens))
     x = logits.transpose(0, 1).contiguous()
@@ -365,14 +367,15 @@ def test_spans_are_null_without_a_profiler_and_change_no_output(models, rnnt, pa
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-def test_exported_recognizer_holds_no_profiler_operator(models, tmp_path):
-    """Exported under a running profiler, the recognizer's program holds no
-    profiler operator and the same operators in every body as one
-    exported without it."""
+def test_exported_recognizer_holds_no_profiler_operator(models, tmp_path, monkeypatch):
+    """Exported under a running profiler, the recognizer's program on the
+    scan route (``USE_BEAM_KERNEL="0"``) holds no profiler operator and the
+    same operators in every body as one exported without it."""
     from torch.profiler import profile
 
     from pydrobert_tpu_torch import export as pexport
 
+    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "0")
     _, _, pmodel, feats, lens = models
 
     def bodies(path):

@@ -25,6 +25,7 @@ from pydrobert_tpu_torch import lm as plm_mod
 from pydrobert_tpu_torch import serving as pserving
 from pydrobert_tpu_torch.models import conformer as pconf
 from pydrobert_tpu_torch.models import transducer as prnnt
+from pydrobert_tpu_torch.ops import _ctc_scan as pscan
 from pydrobert_tpu_torch.ops import decoding as pdec
 
 from _lm_dicts import random_prob_dicts
@@ -105,16 +106,18 @@ def test_streaming_recognizer_matches_jax(models, pieces, route, monkeypatch):
     """Every partial and the final result against the JAX package's
     session. The beam route is the whole-loop search on raw masses, held
     against the JAX session with DECODE_RENORM off; the scan route is the
-    default renormalized search on both sides."""
+    default renormalized search on both sides (the port's renormalizing
+    whole-loop route, whose plain version is the scan)."""
     jmodel, params, pmodel, feats, lens = models
     if route == "beam":
-        monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "1")
+        monkeypatch.setattr(pconfig, "DECODE_RENORM", False)
         monkeypatch.setattr(jconfig, "DECODE_RENORM", False)
     calls = []
-    beam = pdec.ctc_beam_search
-    monkeypatch.setattr(
-        pdec, "ctc_beam_search", lambda *a, **k: calls.append(1) or beam(*a, **k)
-    )
+    for name in ("ctc_beam_search", "ctc_beam_search_renorm"):
+        monkeypatch.setattr(
+            pdec, name, lambda *a, _f=getattr(pdec, name), _n=name, **k:
+            calls.append(_n) or _f(*a, **k)
+        )
     jrec = JaxRecognizer(jmodel, params, chunk=4, width=4, decode_pad_multiple=16)
     prec = pserving.StreamingCTCRecognizer(pmodel, chunk=4, width=4, decode_pad_multiple=16)
     jsess, psess = jrec.start(3), prec.start(3)
@@ -129,11 +132,11 @@ def test_streaming_recognizer_matches_jax(models, pieces, route, monkeypatch):
         t += size
     _compare(prec.finish(psess), jrec.finish(jsess))
     # one search per partial and one at finish, on the route asked for
-    assert len(calls) == (len(pieces) + 1 if route == "beam" else 0)
+    want = "ctc_beam_search" if route == "beam" else "ctc_beam_search_renorm"
+    assert calls == [want] * (len(pieces) + 1)
 
 
-def test_streaming_finish_matches_port_one_shot(models, monkeypatch):
-    monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "1")
+def test_streaming_finish_matches_port_one_shot(models):
     _, _, pmodel, feats, lens = models
     with torch.no_grad():
         logits, out_lens = pmodel(torch.from_numpy(feats), torch.from_numpy(lens))
@@ -183,9 +186,9 @@ def test_streaming_recognizer_with_lm_matches_jax_and_one_shot(models, gather, m
     monkeypatch.setattr(jconfig, "SPARSE_MEMBERSHIP_GATHER", gather)
     monkeypatch.setattr(pconfig, "SPARSE_MEMBERSHIP_GATHER", gather)
     tables = []
-    advance = pdec._ctc_prefix_search_advance_sparse
+    advance = pscan._ctc_prefix_search_advance_sparse
     monkeypatch.setattr(
-        pdec, "_ctc_prefix_search_advance_sparse",
+        pscan, "_ctc_prefix_search_advance_sparse",
         lambda *a: tables.append(a[14] is not None) or advance(*a),
     )
     jmodel, params, pmodel, feats, lens = models
