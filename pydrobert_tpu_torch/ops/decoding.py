@@ -53,7 +53,7 @@ from ..lm import (
     SequentialLanguageModel,
 )
 from ..utils import pytree as _pytree
-from ..utils.profiling import span
+from ..utils.profiling import loop_trip, span
 from ._ctc_scan import (
     NEG_INF,
     beam_probs,
@@ -466,6 +466,13 @@ class BeamSearch:
     y_log_probs (N, width))``, without the batch axis when ``batch_size``
     is None. The search runs on the initial state's device, else the LM's
     (``cuda`` by default).
+
+    While a profiler runs, a call is one ``pydt.search/beam`` span, each
+    step after the first a ``pydt.loop/beam_search`` trip, and the host's
+    read of whether every element is done a ``pydt.sync/beam_done``.
+    Freezing finished elements leaves alone a state leaf the LM's step and
+    reorder returned unchanged (the same tensor), and ``frozen_bytes``
+    counts the bytes the freezes read and wrote.
     """
 
     def __init__(
@@ -485,6 +492,7 @@ class BeamSearch:
         self.eos = eos
         self.finish_all_paths = argcheck.is_bool(finish_all_paths, "finish_all_paths")
         self.pad_value = argcheck.is_int(pad_value, "pad_value")
+        self.frozen_bytes = 0
 
     def update_log_probs_for_step(
         self, log_probs_prev, log_probs_t, y_prev, y_prev_lens, eos_mask
@@ -512,6 +520,10 @@ class BeamSearch:
         batch_size: Optional[int] = None,
         max_iters: Optional[int] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        with span("search/beam"):
+            return self._search(initial_state, batch_size, max_iters)
+
+    def _search(self, initial_state, batch_size, max_iters):
         lm, W, V, eos = self.lm, self.width, self.lm.vocab_size, self.eos
         initial_state = {} if initial_state is None else initial_state
         if max_iters is None:
@@ -648,59 +660,63 @@ class BeamSearch:
         flat_base = torch.arange(N, device=dev)[:, None] * W
 
         for t in range(1, S):
-            if eos is not None:
-                done = eos_mask.all(1) if self.finish_all_paths else eos_mask[:, 0]
-                if bool(done.all()):
-                    break
-                done_mask = (
-                    eos_mask.all(1, keepdim=True) if self.finish_all_paths else eos_mask[:, :1]
-                )
-            else:
-                done_mask = torch.zeros((N, 1), dtype=torch.bool, device=dev)
-            if use_sparse:
-                in_next = state
-                lp_next, next_src, y_tok = select_sparse(log_probs, ctx, eos_mask, W, W)
-                y_t = y_tok[None]  # (1, N, W)
-            else:
-                log_probs_t, in_next = lm_step(y_buf, state, t, W)
-                log_probs_prev, log_probs_t = self.update_log_probs_for_step(
-                    log_probs, log_probs_t, y_buf, y_lens, eos_mask
-                )
-                log_probs_t = mask_eos(log_probs_t, eos_mask)
-                cand = (log_probs_prev[..., None] + log_probs_t).reshape(N, W * V)
-                lp_next, next_ind = exact_top_k(cand, W)
-                next_src = next_ind // V
-                y_t = (next_ind % V)[None]
-            y_next = torch.gather(y_buf, 2, next_src[None].expand(S, N, W))
-            lens_prefix = torch.gather(y_lens, 1, next_src)
-            y_next = _scatter_token_rows(y_next, lens_prefix, y_t)
-            lens_next = lens_prefix + 1
-            if eos is not None:
-                lens_next = lens_next - torch.gather(eos_mask.long(), 1, next_src)
-            state_next = lm.extract_by_src(in_next, (flat_base + next_src).reshape(-1))
-            if use_sparse:
-                ctx_src = torch.gather(ctx, 2, next_src[None].expand(Ng - 1, N, W))
-                ctx_next = torch.cat([y_t, ctx_src[:-1]], 0)
-                ctx = torch.where(done_mask[None], ctx, ctx_next)
-            # freeze finished batch elements
-            y_next = torch.where(done_mask[None], y_buf, y_next)
-            lens_next = torch.where(done_mask, y_lens, lens_next)
-            lp_next = torch.where(done_mask, log_probs, lp_next)
-            if eos is not None and not use_sparse:
-                keep = done_mask[:, 0].repeat_interleave(W)
+            with loop_trip("beam_search"):
+                if eos is not None:
+                    done = eos_mask.all(1) if self.finish_all_paths else eos_mask[:, 0]
+                    with span("sync/beam_done"):
+                        finished = bool(done.all())
+                    if finished:
+                        break
+                    done_mask = (
+                        eos_mask.all(1, keepdim=True) if self.finish_all_paths else eos_mask[:, :1]
+                    )
+                else:
+                    done_mask = torch.zeros((N, 1), dtype=torch.bool, device=dev)
+                if use_sparse:
+                    in_next = state
+                    lp_next, next_src, y_tok = select_sparse(log_probs, ctx, eos_mask, W, W)
+                    y_t = y_tok[None]  # (1, N, W)
+                else:
+                    log_probs_t, in_next = lm_step(y_buf, state, t, W)
+                    log_probs_prev, log_probs_t = self.update_log_probs_for_step(
+                        log_probs, log_probs_t, y_buf, y_lens, eos_mask
+                    )
+                    log_probs_t = mask_eos(log_probs_t, eos_mask)
+                    cand = (log_probs_prev[..., None] + log_probs_t).reshape(N, W * V)
+                    lp_next, next_ind = exact_top_k(cand, W)
+                    next_src = next_ind // V
+                    y_t = (next_ind % V)[None]
+                y_next = torch.gather(y_buf, 2, next_src[None].expand(S, N, W))
+                lens_prefix = torch.gather(y_lens, 1, next_src)
+                y_next = _scatter_token_rows(y_next, lens_prefix, y_t)
+                lens_next = lens_prefix + 1
+                if eos is not None:
+                    lens_next = lens_next - torch.gather(eos_mask.long(), 1, next_src)
+                state_next = lm.extract_by_src(in_next, (flat_base + next_src).reshape(-1))
+                if use_sparse:
+                    ctx_src = torch.gather(ctx, 2, next_src[None].expand(Ng - 1, N, W))
+                    ctx_next = torch.cat([y_t, ctx_src[:-1]], 0)
+                    ctx = torch.where(done_mask[None], ctx, ctx_next)
+                # freeze finished batch elements
+                y_next = torch.where(done_mask[None], y_buf, y_next)
+                lens_next = torch.where(done_mask, y_lens, lens_next)
+                lp_next = torch.where(done_mask, log_probs, lp_next)
+                if eos is not None and not use_sparse:
+                    keep = done_mask[:, 0].repeat_interleave(W)
 
-                def freeze(new, old):
-                    if new.dim() and new.shape[0] == N * W:
-                        return torch.where(
-                            keep.reshape((N * W,) + (1,) * (new.dim() - 1)), old, new
-                        )
-                    return new
+                    def freeze(new, old):
+                        if new is not old and new.dim() and new.shape[0] == N * W:
+                            self.frozen_bytes += 3 * new.numel() * new.element_size()
+                            return torch.where(
+                                keep.reshape((N * W,) + (1,) * (new.dim() - 1)), old, new
+                            )
+                        return new
 
-                state_next = _pytree.tree_map(freeze, state_next, state)
-            if eos is not None:
-                eos_next = (y_t[0] == eos) & (lens_next > 0)
-                eos_mask = torch.where(done_mask, eos_mask, eos_next)
-            y_buf, y_lens, log_probs, state = y_next, lens_next, lp_next, state_next
+                    state_next = _pytree.tree_map(freeze, state_next, state)
+                if eos is not None:
+                    eos_next = (y_t[0] == eos) & (lens_next > 0)
+                    eos_mask = torch.where(done_mask, eos_mask, eos_next)
+                y_buf, y_lens, log_probs, state = y_next, lens_next, lp_next, state_next
         return out(y_buf, y_lens, log_probs)
 
 

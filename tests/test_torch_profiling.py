@@ -389,3 +389,65 @@ def test_exported_recognizer_holds_no_profiler_operator(models, tmp_path, monkey
     assert len(plain) == 2  # the main graph and the search's scan body
     ops = [op for b in traced.values() for op in b["ops"]]
     assert ops and not any("record_function" in op or "profiler" in op for op in ops)
+
+
+@pytest.mark.parametrize(
+    "lm_kind, route, eos, max_iters",
+    [("seq2seq", "dense", 0, 6), ("seq2seq", "dense", None, 5), ("ngram", "sparse", 3, 9),
+     ("ngram", "dense", 3, 9)],
+)
+def test_beam_search_span_holds_every_trip_and_changes_nothing(lm_kind, route, eos, max_iters,
+                                                               monkeypatch):
+    """``BeamSearch`` is one ``pydt.search/beam`` around every trip of its
+    step loop (``pydt.loop/beam_search``, one a step after the first until
+    every element is done); with eos each trip opens with the host's read
+    of ``done`` (``pydt.sync/beam_done``) inside it. Traced results are
+    bit-equal to untraced ones, and the freeze of finished elements gives
+    what it gave before it learned to skip unchanged leaves."""
+    from test_torch_search import lookup_pair, s2s_pair
+
+    if lm_kind == "seq2seq":
+        _, plm, feats, lens = s2s_pair()
+        with torch.no_grad():
+            state = plm.initial_state(torch.from_numpy(feats), torch.from_numpy(lens))
+        N = feats.shape[0]
+    else:
+        _, plm = lookup_pair(12, 3, 0)
+        state, N = None, 2
+        if route == "dense":
+            monkeypatch.setattr(pconfig, "SPARSE_FUSION_MAX_CORRECTIONS", 0)
+    search = pdec.BeamSearch(plm, 4, eos=eos)
+    assert search.takes_sparse_route() == (route == "sparse")
+    calls = []
+    step = plm.calc_idx_log_probs
+
+    def counted(*args):
+        calls.append(1)
+        return step(*args)
+
+    monkeypatch.setattr(plm, "calc_idx_log_probs", counted)
+
+    def call():
+        with torch.no_grad():
+            return search(state, batch_size=N, max_iters=max_iters)
+
+    plain = call()
+    made = len(calls)
+    traced, ranges = _profiled(call)
+    for a, b in zip(plain, traced):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    names = [n for n, _ in ranges]
+    assert names.count("pydt.search/beam") == 1
+    trips = [outer for n, outer in ranges if n == "pydt.loop/beam_search"]
+    syncs = [outer for n, outer in ranges if n == "pydt.sync/beam_done"]
+    assert all("pydt.search/beam" in outer for outer in trips + syncs)
+    assert all("pydt.loop/beam_search" in outer for outer in syncs)
+    if eos is None:
+        assert len(trips) == max_iters - 1 and not syncs
+    else:
+        assert len(syncs) == len(trips) and 1 <= len(trips) <= max_iters - 1
+    if route == "dense":  # the dense route asks the LM once a trip that runs
+        assert made in (len(trips), len(trips) + 1)
+    # the seq2seq state is every leaf gathered anew: each trip freezes them
+    if lm_kind == "seq2seq" and eos is not None:
+        assert search.frozen_bytes > 0
