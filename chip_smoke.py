@@ -2863,9 +2863,9 @@ def phase_rnnt_stream(pkg, Recognizer):
     launches and syncs of one push), then finish. A float32 copy's greedy
     session over the same pushes must finish equal to its one-shot greedy
     decode on the card, and its beam session (W=4) equal to its one-shot
-    beam search (scores within rtol 1e-5): the window and the one-shot
-    encoders sum in other orders, which the bfloat16 encoder would round
-    apart. The joint's output layer is made decisive as in rnnt_greedy."""
+    beam search (scores within rtol 1e-5): the session's state-cached
+    chunk encoder and the one-shot encoder sum in other orders, which the
+    bfloat16 encoder would round apart. The joint's output layer is made decisive as in rnnt_greedy."""
     cfg = rnnt_cfg(pkg, causal=True, dropout=0.0)
     model = rnnt_model(pkg, cfg, "cuda", decisive=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
@@ -2907,7 +2907,7 @@ def phase_rnnt_stream(pkg, Recognizer):
         "model": "ConformerTransducer d256 L4 H4 V1024 bf16 encoder, causal, seeded",
         "joint_out": {"scale": RNNT_JOINT_SCALE, "blank_bias": RNNT_BLANK_BIAS},
         "attention_context": list(STREAM_CONTEXT), "causal_conv": True, "R": rec.R,
-        "window_raw_frames": rec.Lw, "streams": B, "chunk": RNNT_CHUNK,
+        "cached_encoder": rec.cached, "streams": B, "chunk": RNNT_CHUNK,
         "push_raw_frames": raw, "warm_pushes": RNNT_WARM, "timed_pushes": RNNT_TIMED,
         "push_ms_median": statistics.median(times), "push_ms_max": max(times),
         "push_runs_ms": times, "push_syncs": push_syncs,

@@ -32,6 +32,10 @@ and :func:`make_train_step` adds ``moe_aux_weight`` times their sum
 activations in the backward pass (:func:`_remat_block`), replaying the
 step generator's dropout bits. Sequence sharding is not ported.
 
+:func:`encoder_stream_step` runs a causal, dense encoder one chunk at a
+time from a per-layer state cache (:class:`EncoderStreamState`), as the
+streaming transducer sessions of :mod:`pydrobert_tpu_torch.serving` do.
+
 :func:`conformer_partition_rules` gives the tensor-parallel layout of the
 state dict for :func:`pydrobert_tpu_torch.parallel.shard_params`;
 :func:`stack_block_params`, :func:`make_pipelined_forward` and
@@ -41,7 +45,7 @@ state dict for :func:`pydrobert_tpu_torch.parallel.shard_params`;
 import dataclasses
 import functools
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,9 +58,12 @@ from ..ops.topk import exact_top_k
 __all__ = [
     "ConformerCTC",
     "ConformerConfig",
+    "EncoderStreamState",
     "adamw",
     "conformer_partition_rules",
     "ctc_loss",
+    "encoder_stream_state",
+    "encoder_stream_step",
     "make_pipeline_train_step",
     "make_pipelined_forward",
     "make_train_step",
@@ -680,6 +687,144 @@ def streaming_logits(
     logits = torch.cat(outs, 1)
     out_lens = (((lens.to(logits.device).long() + 1) // 2) + 1) // 2
     return logits, out_lens
+
+
+# ---------------------------------------------------------------------------
+# The encoder one chunk at a time from a per-layer state cache: each chunk's
+# frames encoded once, attending to the cached keys and values and
+# convolving over the cached GLU outputs, in place of re-encoding the
+# receptive-field margin.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class EncoderStreamState:
+    """What :func:`encoder_stream_step` carries from one chunk to the next
+    for ``N`` streams, the next chunk starting at post-subsampling frame
+    ``o0``: the subsampler's raw context, and per block the keys and values
+    of the last ``L`` frames and the last ``conv_kernel - 1`` GLU outputs
+    (after the pad mask), in the compute dtype. Frames before the stream's
+    start are zeros, as the one-shot forward pads them."""
+
+    raw: torch.Tensor  # (N, 4, num_filts) float32: raw frames [4 o0 - 4, 4 o0), masked
+    keys: List[torch.Tensor]  # per block (N, L, d_model): frames [o0 - L, o0)
+    values: List[torch.Tensor]
+    conv: List[torch.Tensor]  # per block (N, conv_kernel - 1, d_model)
+
+
+def encoder_stream_state(
+    module: nn.Module, cfg: ConformerConfig, batch_size: int
+) -> EncoderStreamState:
+    """The state of ``batch_size`` streams before their first chunk, for
+    :func:`encoder_stream_step` over the submodules :func:`_add_encoder`
+    gave ``module``. The config must be causal (:func:`streaming_margin`)
+    and dense: a mixture of experts routes by the tokens of the batch, so a
+    chunk would route otherwise than the one-shot forward."""
+    streaming_margin(cfg, "the encoder's stream step")
+    if cfg.num_experts > 1:
+        raise ValueError("the encoder's stream step requires a dense config (num_experts=1)")
+    N, d, L, K = int(batch_size), cfg.d_model, int(cfg.attention_context[0]), cfg.conv_kernel
+    dev = module.subsample.proj.weight.device
+
+    def zeros(T):
+        return [torch.zeros((N, T, d), dtype=cfg.dtype, device=dev) for _ in range(cfg.num_layers)]
+
+    raw = torch.zeros((N, 4, cfg.num_filts), device=dev)
+    return EncoderStreamState(raw, zeros(L), zeros(L), zeros(K - 1))
+
+
+def _attention_step(attn: _Attention, y, keys, values, masked):
+    """``attn`` over a chunk's normalized frames ``y (N, C, d)``, its
+    queries against ``[cached ‖ new]`` keys; ``masked (N, 1, C, L + C)``
+    marks the keys a query may not see. Returns the output and the last
+    ``L`` keys and values."""
+    N, C, d = y.shape
+    H = attn.num_heads
+    hd = d // H
+
+    def heads(x):  # (N, T, d) -> (N, H, T, hd)
+        return x.view(N, x.shape[1], H, hd).transpose(1, 2)
+
+    q = heads(attn.query(y)) / _in_dtype(_in_dtype(math.sqrt(hd), torch.float32), attn.dtype)
+    keys = torch.cat([keys, attn.key(y)], 1)
+    values = torch.cat([values, attn.value(y)], 1)
+    scores = torch.matmul(q, heads(keys).transpose(-1, -2))  # (N, H, C, L + C)
+    scores = scores.masked_fill(masked, torch.finfo(scores.dtype).min)
+    w = torch.softmax(scores, -1).to(attn.dtype)
+    o = torch.matmul(w, heads(values)).transpose(1, 2).reshape(N, C, d)
+    return attn.out(o), keys[:, C:], values[:, C:]
+
+
+def _block_step(block: _ConformerBlock, x, pad, masked, keys, values, conv):
+    """:class:`_ConformerBlock` over a chunk ``x (N, C, d)`` (``pad (N, C)``
+    its valid frames) from its cache; the output and the new cache."""
+    x = x + 0.5 * block.ffn1(x)
+    y, keys, values = _attention_step(block.mhsa.attn, block.mhsa.ln(x), keys, values, masked)
+    x = x + y
+    cm = block.conv
+    g = F.glu(cm.pw1(cm.ln(x)), -1)
+    g = torch.cat([conv, g * pad[..., None].to(g.dtype)], 1)
+    # the causal conv over [cached ‖ new]: its last C rows read no padding
+    C = x.shape[1]
+    x = x + cm.pw2(F.silu(cm.norm(cm.dw(g)[:, g.shape[1] - C :])))
+    x = block.ln_out(x + 0.5 * block.ffn2(x))
+    return x, keys, values, g[:, C:]
+
+
+@torch.no_grad()
+def encoder_stream_step(
+    module: nn.Module,
+    cfg: ConformerConfig,
+    state: EncoderStreamState,
+    feats: torch.Tensor,
+    lens: torch.Tensor,
+    pos_offset: int,
+) -> Tuple[torch.Tensor, EncoderStreamState]:
+    """One chunk of a causal, dense encoder (deterministic) from the state
+    the chunks before it left: ``(x (N, C, d_model) in cfg.dtype, state)``,
+    the rows of post-subsampling frames ``[o0, o0 + C)``, ``o0 =
+    pos_offset``, and the state for the chunk at ``o0 + C``.
+
+    ``feats (N, 4 C, num_filts)`` are the raw frames ``[4 o0, 4 o0 + 4 C)``
+    and ``lens (N,)`` each stream's raw length counted from raw frame ``4
+    o0`` (zero or negative for a stream that ended before it). Lengths must
+    be final up to the chunk's end. Within each stream's
+    ``ceil(length / 4)`` frames the rows match :func:`_encoder_body`'s
+    over the whole stream, padded past its end, up to the order of
+    reductions; rows past them are unspecified, and no later valid row
+    reads them. Chunks follow one another from ``o0 = 0``; chunks of one
+    size keep every shape after the first fixed."""
+    dt, dev = cfg.dtype, module.subsample.proj.weight.device
+    N, T, _ = feats.shape
+    C, L = T // 4, int(cfg.attention_context[0])
+    lens = lens.to(dev, torch.long)
+    feats = feats.to(dev) * (torch.arange(T, device=dev)[None] < lens[:, None])[..., None].to(
+        feats.dtype
+    )
+    if pos_offset == 0:
+        x = module.subsample(feats.to(dt))
+    else:
+        # row 0 of [context ‖ chunk] reads the subsampler's padding; rows
+        # 1.. read only real frames, as the one-shot forward's do
+        x = module.subsample(torch.cat([state.raw, feats], 1).to(dt))[:, 1:]
+    x = x + _sinusoidal_pos_emb(C, cfg.d_model, dt, dev, pos_offset)[None]
+    out_lens = -torch.div(-lens, 4, rounding_mode="floor")  # valid rows of the chunk
+    pad = torch.arange(C, device=dev)[None] < out_lens[:, None]
+    # key i of [cached ‖ new] sits at frame o0 - L + i; query j at o0 + j
+    rel = torch.arange(-L, C, device=dev)
+    q = torch.arange(C, device=dev)[:, None]
+    band = (rel >= q - L) & (rel <= q) & (rel >= -int(pos_offset))
+    masked = ~(band & (rel < out_lens[:, None, None])[:, None])  # (N, 1, C, L + C)
+    keys, values, conv = [], [], []
+    for i in range(cfg.num_layers):
+        x, k, v, c = _block_step(
+            getattr(module, f"block_{i}"), x, pad, masked,
+            state.keys[i], state.values[i], state.conv[i],
+        )
+        keys.append(k)
+        values.append(v)
+        conv.append(c)
+    return x, EncoderStreamState(feats[:, T - 4 :], keys, values, conv)
 
 
 def _linear(kernel, bias) -> Dict[str, np.ndarray]:

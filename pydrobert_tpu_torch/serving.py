@@ -3,17 +3,19 @@
 
 A serving frontend receives feature frames incrementally: arbitrary push
 sizes, many concurrent streams, streams ending at different times. Both
-recognizers encode what each push determines with a causal encoder,
-re-encoding only the receptive-field margin ``R`` over a fixed window of
-``4 * (chunk + R + 1)`` raw frames.
-:class:`StreamingCTCRecognizer` re-decodes the accumulated logits of a
-:class:`~pydrobert_tpu_torch.models.ConformerCTC` with
-:class:`~pydrobert_tpu_torch.ops.decoding.CTCPrefixSearch` when results are
-asked for (``push(..., partials=True)`` and ``finish``).
-:class:`StreamingTransducerRecognizer` threads the greedy or beam carry of
-a :class:`~pydrobert_tpu_torch.models.ConformerTransducer` through each
-chunk as it is encoded, and defers each stream's last partial-block frame
-to ``finish``.
+recognizers encode what each push determines with a causal encoder.
+:class:`StreamingCTCRecognizer` re-encodes the receptive-field margin ``R``
+over a fixed window of ``4 * (chunk + R + 1)`` raw frames and re-decodes the
+accumulated logits of a :class:`~pydrobert_tpu_torch.models.ConformerCTC`
+with :class:`~pydrobert_tpu_torch.ops.decoding.CTCPrefixSearch` when results
+are asked for (``push(..., partials=True)`` and ``finish``).
+:class:`StreamingTransducerRecognizer` encodes each chunk once from a
+per-layer state cache (:func:`~pydrobert_tpu_torch.models.conformer.
+encoder_stream_step`; a mixture-of-experts encoder takes the window
+instead), threads the greedy or beam carry of a
+:class:`~pydrobert_tpu_torch.models.ConformerTransducer` through each chunk
+as it is encoded, and defers each stream's last partial-block frame to
+``finish``.
 
 All streams of a session share one frame timeline (push ``(N, T_new, F)``
 slabs); per-stream ``new_lens`` marks how many of the new frames are real.
@@ -31,7 +33,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .models.conformer import streaming_margin
+from .models.conformer import encoder_stream_state, encoder_stream_step, streaming_margin
 from .ops import transducer as _rnnt
 from .ops.decoding import CTCPrefixSearch
 from .utils.profiling import span
@@ -219,6 +221,10 @@ class StreamingSession:
     consumed: np.ndarray  # (N,) post-subsample frames decoded per stream
     o0: int  # next global post-subsample frame to decode
     done: bool = False
+    # the cached route: the encoder's state cache, and each stream's last
+    # partial-block frame (N, d_model), kept when its chunk is encoded
+    enc_state: Any = None
+    tail: Optional[torch.Tensor] = None
 
 
 class StreamingTransducerRecognizer:
@@ -240,7 +246,13 @@ class StreamingTransducerRecognizer:
     post-subsample length and sizes the hypothesis buffer, ``U_max =
     max_symbols_per_frame * max_frames``. The model's encoder config must
     be causal: ``attention_context=(L, 0)`` with finite ``L`` and
-    ``causal_conv=True``. Work runs on the model's device."""
+    ``causal_conv=True``. Work runs on the model's device.
+
+    A dense encoder encodes each chunk once, from the session's per-layer
+    state cache (:attr:`cached`). A mixture-of-experts encoder routes by the
+    tokens of its batch, so it re-encodes a fixed window of ``4 * (chunk +
+    R + 1)`` raw frames for each chunk instead, ``R`` the receptive-field
+    margin, and routes as that window does."""
 
     def __init__(
         self,
@@ -271,6 +283,12 @@ class StreamingTransducerRecognizer:
         # a fixed window: warm-up and steady state encode the same shape
         self.Lw = 4 * (self.chunk + self.R + 1)
 
+    @property
+    def cached(self) -> bool:
+        """Whether sessions encode each chunk from the state cache (a dense
+        encoder) rather than re-encode a window (a mixture of experts)."""
+        return self.cfg.encoder.num_experts <= 1
+
     def start(self, batch_size: int) -> StreamingSession:
         """Open a session of ``batch_size`` concurrent streams."""
         from .models.transducer import _fusion
@@ -291,7 +309,7 @@ class StreamingTransducerRecognizer:
                     N, self.width, u_max, model.predictor.stepper(), init_state, self.blank,
                     lm,
                 )
-        return StreamingSession(
+        sess = StreamingSession(
             carry=carry,
             buf=torch.zeros((N, 0, self.cfg.encoder.num_filts), device=self.device),
             base=0,
@@ -300,6 +318,10 @@ class StreamingTransducerRecognizer:
             consumed=np.zeros((N,), np.int64),
             o0=0,
         )
+        if self.cached:
+            sess.enc_state = encoder_stream_state(model.encoder, self.cfg.encoder, N)
+            sess.tail = torch.zeros((N, self.cfg.encoder.d_model), device=self.device)
+        return sess
 
     def push(self, sess: StreamingSession, feats, new_lens: Optional[np.ndarray] = None):
         """Feed ``(N, T_new, F)`` new frames; decode what they determine.
@@ -349,26 +371,36 @@ class StreamingTransducerRecognizer:
             while sess.o0 < o1:
                 self._decode_window(sess, min(sess.o0 + self.chunk, o1), out_lens)
             # deferred tails: streams whose last partial-block frame fell
-            # behind the frontier before it was determined. One encode; each
-            # stream gets its own tail frame as a chunk of one
+            # behind the frontier before it was determined. Each stream gets
+            # its own tail frame as a chunk of one: kept when its chunk was
+            # encoded on the cached route, from one encode on the window's
             pending = out_lens - sess.consumed
             assert (pending >= 0).all() and (pending <= 1).all(), pending
             if pending.any():
-                tail_o = np.where(pending > 0, out_lens - 1, 0)
-                m0 = max(int(tail_o[pending > 0].min()) - self.R - 1, 0)
-                i0 = 4 * m0
-                with span("stream/encode"), torch.no_grad():
-                    f = sess.buf[:, i0 - sess.base :]
-                    l = self._on_device(np.clip(sess.total - i0, 0, f.shape[1]), "stream_window")
-                    enc, _ = self.model.encode(f, l, pos_offset=m0)
-                pick = self._on_device(np.clip(tail_o - m0, 0, enc.shape[1] - 1), "stream_tail")
-                enc_tail = enc[torch.arange(enc.shape[0], device=self.device), pick][:, None]
+                if self.cached:
+                    enc_tail = sess.tail[:, None]
+                else:
+                    enc_tail = self._window_tails(sess, np.where(pending > 0, out_lens - 1, 0),
+                                                  pending)
                 self._advance(sess, enc_tail, pending)
             sess.done = True
             if self.mode == "greedy":
                 _, u, hyps, _, _ = sess.carry
                 return hyps, u
             return _rnnt.transducer_beam_finalize(sess.carry)
+
+    @torch.no_grad()
+    def _window_tails(self, sess: StreamingSession, tail_o: np.ndarray, pending: np.ndarray):
+        """Frame ``tail_o`` of each stream with ``pending`` set, from one
+        window encode: ``(N, 1, d_model)``."""
+        m0 = max(int(tail_o[pending > 0].min()) - self.R - 1, 0)
+        i0 = 4 * m0
+        with span("stream/encode"):
+            f = sess.buf[:, i0 - sess.base :]
+            l = self._on_device(np.clip(sess.total - i0, 0, f.shape[1]), "stream_window")
+            enc, _ = self.model.encode(f, l, pos_offset=m0)
+        pick = self._on_device(np.clip(tail_o - m0, 0, enc.shape[1] - 1), "stream_tail")
+        return enc[torch.arange(enc.shape[0], device=self.device), pick][:, None]
 
     def _on_device(self, a: np.ndarray, site: str) -> torch.Tensor:
         """Host lengths on the model's device: a copy from pageable memory,
@@ -394,33 +426,69 @@ class StreamingTransducerRecognizer:
     @torch.no_grad()
     def _decode_window(self, sess: StreamingSession, o1: int, out_lens: np.ndarray):
         """Advance the decode over global frames ``[sess.o0, o1)``."""
-        m0 = max(sess.o0 - self.R - 1, 0)
-        i0, i1 = 4 * m0, min(4 * o1, sess.pushed)
         with span("stream/encode"):
-            f = sess.buf[:, i0 - sess.base : i1 - sess.base]
-            N, Tf, F = f.shape
-            if Tf < self.Lw:
-                # pad to the fixed window; padded frames sit beyond every
-                # stream's valid length, so the encoder masks them out
-                f = torch.cat([f, f.new_zeros((N, self.Lw - Tf, F))], 1)
-            l = self._on_device(np.clip(sess.total - i0, 0, i1 - i0), "stream_window")
-            enc, _ = self.model.encode(f, l, pos_offset=m0)
-        sl0 = sess.o0 - m0
-        enc_chunk = enc[:, sl0 : sl0 + self.chunk]
-        # only streams on the frontier read this window; a drained stream's
+            if self.cached:
+                enc_chunk = self._encode_cached(sess)
+            else:
+                enc_chunk = self._encode_window(sess, o1)
+        # only streams on the frontier read this chunk; a drained stream's
         # deferred tail frame waits for finish()
         on_frontier = sess.consumed == sess.o0
         chunk_lens = np.where(on_frontier, np.clip(out_lens - sess.o0, 0, o1 - sess.o0), 0)
         self._advance(sess, enc_chunk, chunk_lens)
         sess.o0 = o1
-        # drop raw frames behind the margin of the frontier and of the
-        # earliest deferred tail
-        tails = sess.consumed[sess.consumed < sess.o0]
-        horizon = min([sess.o0] + tails.tolist())
-        keep_from = 4 * max(horizon - self.R - 1, 0)
+        if self.cached:
+            # the state holds the subsampler's context: drop the chunk's frames
+            keep_from = 4 * sess.o0
+        else:
+            # drop raw frames behind the margin of the frontier and of the
+            # earliest deferred tail
+            tails = sess.consumed[sess.consumed < sess.o0]
+            horizon = min([sess.o0] + tails.tolist())
+            keep_from = 4 * max(horizon - self.R - 1, 0)
         if keep_from > sess.base:
             sess.buf = sess.buf[:, keep_from - sess.base :]
             sess.base = keep_from
+
+    def _encode_cached(self, sess: StreamingSession) -> torch.Tensor:
+        """The encoder's rows of frames ``[o0, o0 + chunk)`` from the
+        session's state cache (past the raw frames pushed, zeros: finish's
+        last chunk), kept in ``sess.tail`` for each stream whose last
+        partial-block frame they hold."""
+        C, o0 = self.chunk, sess.o0
+        with span("stream/encode_cached"):
+            f = sess.buf[:, 4 * o0 - sess.base : 4 * (o0 + C) - sess.base]
+            N, Tf, F = f.shape
+            if Tf < 4 * C:
+                f = torch.cat([f, f.new_zeros((N, 4 * C - Tf, F))], 1)
+            l = self._on_device(sess.total - 4 * o0, "stream_window")
+            rows, sess.enc_state = encoder_stream_step(
+                self.model.encoder, self.cfg.encoder, sess.enc_state, f, l, o0
+            )
+            rows = rows.float()
+            # a stream's frame o_n = ceil4(total) - 1 of a partial block is
+            # final here: its chunk is encoded only once pushed > total
+            j = torch.div(l, 4, rounding_mode="floor")
+            has = (l % 4 != 0) & (j >= 0) & (j < C)
+            picked = rows[torch.arange(N, device=self.device), j.clamp(0, C - 1)]
+            sess.tail = torch.where(has[:, None], picked, sess.tail)
+        return rows
+
+    def _encode_window(self, sess: StreamingSession, o1: int) -> torch.Tensor:
+        """The encoder's rows of frames ``[o0, o0 + chunk)`` from a fixed
+        window that re-encodes the receptive-field margin."""
+        m0 = max(sess.o0 - self.R - 1, 0)
+        i0, i1 = 4 * m0, min(4 * o1, sess.pushed)
+        f = sess.buf[:, i0 - sess.base : i1 - sess.base]
+        N, Tf, F = f.shape
+        if Tf < self.Lw:
+            # pad to the fixed window; padded frames sit beyond every
+            # stream's valid length, so the encoder masks them out
+            f = torch.cat([f, f.new_zeros((N, self.Lw - Tf, F))], 1)
+        l = self._on_device(np.clip(sess.total - i0, 0, i1 - i0), "stream_window")
+        enc, _ = self.model.encode(f, l, pos_offset=m0)
+        sl0 = sess.o0 - m0
+        return enc[:, sl0 : sl0 + self.chunk]
 
     def _partial(self, sess: StreamingSession):
         if self.mode == "greedy":

@@ -8,6 +8,7 @@ PyTorch is installed; there, skip the repository's conftest:
 """
 
 import copy
+import dataclasses
 import importlib.util
 import os
 
@@ -976,14 +977,16 @@ def test_ngram_beam_search_on_card_matches_cpu(dev):
         torch.testing.assert_close(gp, cp, rtol=1e-5, atol=0)
 
 
-def _rnnt_pair(dev, causal=False):
+def _rnnt_pair(dev, causal=False, num_experts=1):
     """The JAX tests' small transducer (V=16, d=16, 2 layers, float32,
-    ``pred_dim = joint_dim = 12``), seeded on the card, and a CPU copy."""
+    ``pred_dim = joint_dim = 12``; with ``num_experts`` > 1 a mixture of
+    experts, top 2), seeded on the card, and a CPU copy."""
     from pydrobert_tpu_torch.models import transducer as prnnt
 
     enc = pconf.ConformerConfig(
         vocab_size=16, num_filts=8, d_model=16, num_layers=2, num_heads=2,
         subsample_channels=4, conv_kernel=5, dropout=0.0, dtype=torch.float32,
+        num_experts=num_experts, expert_top_k=2,
         **(dict(attention_context=(4, 0), causal_conv=True) if causal else {}),
     )
     cfg = prnnt.TransducerConfig(encoder=enc, pred_dim=12, joint_dim=12)
@@ -1024,12 +1027,12 @@ def test_transducer_beam_on_card_matches_cpu(dev, W, E):
             _rnnt_equal(got, cpu.beam(feats, lens, W, E, lm=lms[1], lm_weight=0.4))
 
 
-@pytest.mark.parametrize("mode", ["greedy", "beam"])
-def test_transducer_streaming_session_on_card_matches_cpu(dev, mode):
+def _card_sessions_match_cpu(dev, mode, num_experts=1):
     """A session (pushes of 9, 1, 25 and 10 frames) on the card: every
     partial and the finish equal the same session on the CPU, and the
-    finish equals the card's one-shot decode."""
-    _, cpu, card, feats, lens = _rnnt_pair(dev, causal=True)
+    finish equals the card's one-shot decode. Returns the card's
+    recognizer."""
+    _, cpu, card, feats, lens = _rnnt_pair(dev, causal=True, num_experts=num_experts)
     kw = dict(chunk=5, mode=mode, width=3, max_symbols_per_frame=2, max_frames=32)
     recs = [pserving.StreamingTransducerRecognizer(m, **kw) for m in (card, cpu)]
     sessions = [r.start(3) for r in recs]
@@ -1048,6 +1051,104 @@ def test_transducer_streaming_session_on_card_matches_cpu(dev, mode):
             one_shot = card.beam(feats.to(dev), lens.to(dev), 3, 2)
     U = one_shot[0].shape[-1]
     assert torch.equal(got[1], one_shot[1]) and torch.equal(got[0][..., :U], one_shot[0])
+    return recs[0]
+
+
+@pytest.mark.parametrize("mode", ["greedy", "beam"])
+def test_transducer_streaming_session_on_card_matches_cpu(dev, mode):
+    """A dense encoder's sessions (the cached route) on the card against
+    the CPU's and the card's one-shot decode."""
+    assert _card_sessions_match_cpu(dev, mode).cached
+
+
+@pytest.mark.parametrize("mode", ["greedy", "beam"])
+def test_transducer_window_session_on_card_matches_cpu(dev, mode):
+    """A mixture-of-experts encoder's sessions (4 experts, top 2), which
+    re-encode a window for each chunk and for the deferred tails at
+    finish, on the card against the CPU's and the card's one-shot
+    decode."""
+    assert not _card_sessions_match_cpu(dev, mode, num_experts=4).cached
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_transducer_cached_session_on_card_matches_one_shot(dev, dtype):
+    """A greedy session at Conformer-M widths (16 x d256, 4 heads, left
+    context 16, kernel 32) on the cached route: 8 streams of 3 to 1,280 raw
+    frames in 40 pushes of 32, the blank's bias set so that a fresh
+    predictor emits on about 30% of frames. The encoder's rows chunk by
+    chunk from the state cache lie near the one-shot ``encode`` at every
+    valid frame: in float32 without TF32 within atol 2e-4, the window
+    route's; in bf16 no further from a float32 copy's rows than twice the
+    one-shot bf16 rows' own distance from them. The finish equals the
+    greedy search of those rows and every partial is a prefix of it
+    (greedy decoding is frame-synchronous); in float32 it also equals the
+    one-shot ``greedy`` (bf16's rounding apart flips near-tied decisions of
+    seeded weights)."""
+    from pydrobert_tpu_torch.models import transducer as prnnt
+    from pydrobert_tpu_torch.ops.transducer import transducer_greedy_search
+
+    enc = pconf.ConformerConfig(
+        vocab_size=256, num_filts=80, d_model=256, num_layers=16, num_heads=4,
+        conv_kernel=32, subsample_channels=256, dropout=0.0, dtype=dtype,
+        attention_context=(16, 0), causal_conv=True,
+    )
+    cfg = prnnt.TransducerConfig(encoder=enc, pred_dim=320, joint_dim=320)
+    model = prnnt.ConformerTransducer(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    lens = np.asarray([1280, 1100, 777, 500, 253, 130, 35, 3], np.int64)
+    N, P, pushes, C = len(lens), 32, 40, 8
+    feats = torch.from_numpy(np.random.RandomState(7).randn(N, P * pushes, 80).astype(np.float32))
+    feats, dlens = feats.to(dev), torch.from_numpy(lens).to(dev)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        exp, out_lens = model.encode(feats, dlens)
+        valid = torch.arange(exp.shape[1], device=dev)[None] < out_lens[:, None]
+        start = torch.full((N,), cfg.vocab_size, dtype=torch.long, device=dev)
+        pred, _ = model.predictor.stepper()(start, model.predictor.init_carry(N))
+        lg = model.joint(exp, pred[:, None])
+        need = (lg[..., :-1].max(-1).values - lg[..., -1])[valid]
+        model.joint.out.bias[-1] += torch.quantile(need.double(), 0.7).float()
+        one_shot = [t.cpu() for t in model.greedy(feats, dlens, 4)]
+        state = pconf.encoder_stream_state(model.encoder, enc, N)
+        rows = []
+        for o0 in range(0, exp.shape[1], C):
+            f = feats[:, 4 * o0 : 4 * (o0 + C)]
+            f = torch.cat([f, f.new_zeros((N, 4 * C - f.shape[1], 80))], 1)
+            x, state = pconf.encoder_stream_step(model.encoder, enc, state, f, dlens - 4 * o0, o0)
+            rows.append(x.float())
+        got = torch.cat(rows, 1)[:, : exp.shape[1]]
+        gap = float((got - exp).abs()[valid].max())
+        if dtype == torch.float32:
+            assert gap <= 2e-4, gap
+        else:
+            m32 = prnnt.ConformerTransducer(
+                prnnt.TransducerConfig(dataclasses.replace(enc, dtype=torch.float32), 320, 320),
+                device=dev,
+            )
+            m32.load_state_dict(model.state_dict())
+            ref = m32.encode(feats, dlens)[0]
+            own = float((exp - ref).abs()[valid].max())
+            cached = float((got - ref).abs()[valid].max())
+            assert cached <= 2 * own, (cached, own, gap)
+        exp_h, exp_u = (t.cpu() for t in transducer_greedy_search(
+            got, out_lens, model.predictor.stepper(), model.joint,
+            model.predictor.init_carry(N), cfg.vocab_size, 4,
+        ))
+    frames = int(out_lens.sum())
+    assert 0.1 * frames < int(exp_u.sum()) < 2 * frames  # neither silent nor stuck emitting
+    rec = pserving.StreamingTransducerRecognizer(model, chunk=C, max_frames=1024)
+    assert rec.cached
+    sess = rec.start(N)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for p in range(pushes):
+            hyps, u = (t.cpu() for t in rec.push(sess, feats[:, p * P : (p + 1) * P],
+                                                 np.clip(lens - p * P, 0, P)))
+            assert (u <= exp_u).all(), p
+            for n in range(N):
+                assert torch.equal(hyps[n, : u[n]], exp_h[n, : u[n]]), (p, n)
+        hyps, u = (t.cpu() for t in rec.finish(sess))
+    U = exp_h.shape[1]
+    assert torch.equal(u, exp_u) and torch.equal(hyps[:, :U], exp_h)
+    if dtype == torch.float32:
+        assert torch.equal(u, one_shot[1]) and torch.equal(hyps[:, :U], one_shot[0])
 
 
 # The rest of the ops layer on the card: the mistake-counting scan's tie

@@ -20,6 +20,8 @@ from pydrobert_tpu.utils import hlostats as jstats
 from pydrobert_tpu.utils import profiling as jprof
 from pydrobert_tpu_torch import config as pconfig
 from pydrobert_tpu_torch import serving as pserving
+from pydrobert_tpu_torch.models import conformer as pconf
+from pydrobert_tpu_torch.models import transducer as prnnt
 from pydrobert_tpu_torch.ops import decoding as pdec
 from pydrobert_tpu_torch.ops import transducer as ptrans
 from pydrobert_tpu_torch.ops._loops import frame_loop
@@ -31,7 +33,7 @@ from pydrobert_tpu_torch.utils import profiling as pprof
 # models: tests/conftest.py only registers markers, so a fixture that two
 # modules share is imported from the one that defines it (a third module
 # needing them would move them to a helper module, as tests/_lm_dicts.py)
-from test_torch_serving import models, rnnt  # noqa: F401
+from test_torch_serving import RNNT_ENC, models, rnnt  # noqa: F401
 
 
 def test_host_keyed_compile_cache(tmp_path, monkeypatch):
@@ -205,8 +207,9 @@ def _greedy_session(pmodel):
 
 @pytest.mark.parametrize("size, windows", [(3, 0), (16, 1), (45, 2)])
 def test_push_span_holds_its_encodes_advances_and_syncs(rnnt, size, windows, monkeypatch):
-    """One push is one ``pydt.stream/push``. Inside it: a window encode and
-    a greedy advance for each chunk it decodes (``size // 4 // 4`` at chunk
+    """One push is one ``pydt.stream/push``. Inside it: an encode (one
+    ``pydt.stream/encode`` holding one ``pydt.stream/encode_cached``) and a
+    greedy advance for each chunk it decodes (``size // 4 // 4`` at chunk
     4), the two length copies of each, and one ``pydt.sync/transducer_greedy``
     for each check the loop made (counted here: one before each run of
     trips, and the last, which finds nothing left)."""
@@ -235,6 +238,7 @@ def test_push_span_holds_its_encodes_advances_and_syncs(rnnt, size, windows, mon
     assert names.count("pydt.stream/push") == 1
     want = {
         "pydt.stream/encode": windows,
+        "pydt.stream/encode_cached": windows,
         "pydt.search/transducer_greedy": windows,
         "pydt.sync/stream_window": windows,
         "pydt.sync/stream_advance": windows,
@@ -249,21 +253,17 @@ def test_push_span_holds_its_encodes_advances_and_syncs(rnnt, size, windows, mon
             assert "pydt.search/transducer_greedy" in outer
             assert not any(o.startswith("pydt.loop/") for o in outer)
         if name == "pydt.sync/stream_window":
-            assert "pydt.stream/encode" in outer
+            assert "pydt.stream/encode_cached" in outer
+        if name == "pydt.stream/encode_cached":
+            assert outer[0] == "pydt.stream/encode"
 
 
-@pytest.mark.parametrize("size, windows, tail", [(16, 0, 0), (21, 1, 0), (45, 1, 1)])
-def test_finish_span_holds_its_encodes_advances_and_syncs(rnnt, size, windows, tail,
-                                                          monkeypatch):
-    """A finish after a push of ``size`` frames is one
-    ``pydt.stream/finish``. Inside it: an encode, its length copy, an
-    advance and its length copy for each window still on the frontier;
-    for the deferred tails one more encode and advance, and the tail
-    pick's copy (``pydt.sync/stream_tail``); and one
-    ``pydt.sync/transducer_greedy`` for each check the loops made."""
-    _, _, pmodel, feats, lens = rnnt
+def _finish_ranges(pmodel, feats, lens, size, monkeypatch, owner, encoder):
+    """A greedy session's finish after a push of ``size`` frames, profiled:
+    the calls it made of ``owner.encoder``, of the greedy advance and of
+    the frame loops, and its ``pydt.`` ranges, each checked to lie inside
+    the one ``pydt.stream/finish``."""
     made = {"encodes": 0, "advances": 0, "runs": 0}
-    encode, advance, loop = pmodel.encode, ptrans.transducer_greedy_advance, ptrans.frame_loop
 
     def counted(key, fn):
         def call(*args, **kwargs):
@@ -275,15 +275,67 @@ def test_finish_span_holds_its_encodes_advances_and_syncs(rnnt, size, windows, t
     rec = _greedy_session(pmodel)
     sess = rec.start(feats.shape[0])
     rec.push(sess, torch.from_numpy(feats[:, :size]), np.clip(lens, 0, size))
-    monkeypatch.setattr(pmodel, "encode", counted("encodes", encode))
-    monkeypatch.setattr(ptrans, "transducer_greedy_advance", counted("advances", advance))
-    monkeypatch.setattr(ptrans, "frame_loop", counted("runs", loop))
+    monkeypatch.setattr(owner, encoder, counted("encodes", getattr(owner, encoder)))
+    monkeypatch.setattr(ptrans, "transducer_greedy_advance",
+                        counted("advances", ptrans.transducer_greedy_advance))
+    monkeypatch.setattr(ptrans, "frame_loop", counted("runs", ptrans.frame_loop))
     _, ranges = _profiled(lambda: rec.finish(sess))
-    assert made["encodes"] == made["advances"] == windows + tail
     names = [n for n, _ in ranges]
     assert names.count("pydt.stream/finish") == 1
+    for name, outer in ranges:
+        if name != "pydt.stream/finish":
+            assert "pydt.stream/finish" in outer, name
+        if name == "pydt.stream/encode_cached":
+            assert outer[0] == "pydt.stream/encode"
+    return made, names
+
+
+@pytest.mark.parametrize("size, windows, tail", [(16, 0, 0), (21, 1, 0), (45, 1, 1)])
+def test_finish_span_holds_its_encodes_advances_and_syncs(rnnt, size, windows, tail,
+                                                          monkeypatch):
+    """A finish after a push of ``size`` frames is one
+    ``pydt.stream/finish``. Inside it: an encode (one
+    ``pydt.stream/encode_cached`` in one ``pydt.stream/encode``), its
+    length copy, an advance and its length copy for each chunk still on
+    the frontier; for the deferred tails, whose frames were kept when their
+    chunks were encoded, one more advance and its length copy, and no
+    encode; and one ``pydt.sync/transducer_greedy`` for each check the
+    loops made."""
+    _, _, pmodel, feats, lens = rnnt
+    made, names = _finish_ranges(pmodel, feats, lens, size, monkeypatch, pserving,
+                                 "encoder_stream_step")
+    assert made["encodes"] == windows and made["advances"] == windows + tail
+    want = {
+        "pydt.stream/encode": windows,
+        "pydt.stream/encode_cached": windows,
+        "pydt.search/transducer_greedy": windows + tail,
+        "pydt.sync/stream_window": windows,
+        "pydt.sync/stream_advance": windows + tail,
+        "pydt.sync/stream_tail": 0,
+        "pydt.sync/transducer_greedy": made["advances"] + made["runs"],
+    }
+    assert {n: names.count(n) for n in want} == want
+
+
+@pytest.mark.parametrize("size, windows, tail", [(16, 0, 0), (21, 1, 0), (45, 1, 1)])
+def test_window_route_finish_span_encodes_the_deferred_tails(rnnt, size, windows, tail,
+                                                             monkeypatch):
+    """A mixture-of-experts session keeps the window route: its finish
+    holds an encode (no ``pydt.stream/encode_cached``), its length copy,
+    an advance and its length copy for each window still on the frontier;
+    for the deferred tails one more encode and advance, their length
+    copies, and the tail pick's copy (``pydt.sync/stream_tail``)."""
+    _, _, _, feats, lens = rnnt
+    enc = pconf.ConformerConfig(dtype=torch.float32, **dict(RNNT_ENC, num_experts=4))
+    pmodel = prnnt.ConformerTransducer(
+        prnnt.TransducerConfig(encoder=enc, pred_dim=12, joint_dim=12), device="cpu",
+        generator=torch.Generator().manual_seed(0),
+    )
+    made, names = _finish_ranges(pmodel, feats, lens, size, monkeypatch, pmodel, "encode")
+    assert made["encodes"] == made["advances"] == windows + tail
     want = {
         "pydt.stream/encode": windows + tail,
+        "pydt.stream/encode_cached": 0,
         "pydt.search/transducer_greedy": windows + tail,
         "pydt.sync/stream_window": windows + tail,
         "pydt.sync/stream_advance": windows + tail,
@@ -291,9 +343,6 @@ def test_finish_span_holds_its_encodes_advances_and_syncs(rnnt, size, windows, t
         "pydt.sync/transducer_greedy": made["advances"] + made["runs"],
     }
     assert {n: names.count(n) for n in want} == want
-    for name, outer in ranges:
-        if name != "pydt.stream/finish":
-            assert "pydt.stream/finish" in outer, name
 
 
 @pytest.mark.parametrize("route", ["scan", "beam"])

@@ -278,7 +278,9 @@ def _rnnt_sessions(jrec, prec, feats, lens, pieces):
     return got
 
 
-@pytest.mark.parametrize("pieces", [[45], [7, 20, 18], [1] * 45, [44, 1]])
+@pytest.mark.parametrize(
+    "pieces", [[45], [7, 20, 18], [1] * 45, [44, 1], [3, 5, 4, 33], [4] * 11 + [1]]
+)
 def test_transducer_session_greedy_matches_jax_and_one_shot(rnnt, pieces):
     jmodel, params, pmodel, feats, lens = rnnt
     kw = dict(chunk=4, mode="greedy", max_symbols_per_frame=3, max_frames=32)
@@ -312,6 +314,103 @@ def test_transducer_session_beam_matches_jax_and_one_shot(rnnt, fused):
                              lm_weight=0.4)
     assert torch.equal(got[1], bl) and torch.equal(got[0][..., : bh.shape[2]], bh)
     np.testing.assert_allclose(got[2].numpy(), bs.numpy(), rtol=1e-6, atol=1e-5)
+
+
+# (lengths, chunk, pushes): streams that end mid-chunk, one shorter than a
+# subsampling block, all ending before finish, and chunks of 1 and past L
+EDGE_SESSIONS = {
+    "short_stream": ([45, 3, 23], 4, [9, 1, 25, 10]),
+    "all_end_early": ([41, 30, 2], 4, [16, 16, 13]),
+    "chunk_1": ([45, 35, 23], 1, [7, 20, 18]),
+    "chunk_past_L": ([45, 35, 22], 6, [9, 1, 25, 10]),
+}
+
+
+@pytest.mark.parametrize("mode", ["greedy", "beam"])
+@pytest.mark.parametrize("case", sorted(EDGE_SESSIONS))
+def test_transducer_session_edge_streams_match_jax_and_one_shot(rnnt, case, mode):
+    """The cached route through streams that end mid-chunk or inside the
+    first subsampling block, sessions whose streams all end before
+    ``finish`` (their last frames kept when their chunks were encoded),
+    and chunks of one frame and of more than the attention's left
+    context: every partial and the finish equal the JAX package's window
+    session, the finish the port's one-shot decode."""
+    jmodel, params, pmodel, feats, _ = rnnt
+    lens, chunk, pieces = EDGE_SESSIONS[case]
+    lens = np.asarray(lens, np.int64)
+    kw = dict(chunk=chunk, mode=mode, width=3, max_symbols_per_frame=2, max_frames=32)
+    prec = pserving.StreamingTransducerRecognizer(pmodel, **kw)
+    assert prec.cached
+    got = _rnnt_sessions(JaxRnntRecognizer(jmodel, params, **kw), prec, feats, lens, pieces)
+    args = [torch.from_numpy(a) for a in (feats, lens)]
+    if mode == "greedy":
+        exp = pmodel.greedy(*args, 2)
+    else:
+        exp = pmodel.beam(*args, 3, 2)
+        np.testing.assert_allclose(got[2].numpy(), exp[2].numpy(), rtol=1e-6, atol=1e-5)
+    U = exp[0].shape[-1]
+    assert torch.equal(got[1], exp[1]) and torch.equal(got[0][..., :U], exp[0])
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 6])
+def test_encoder_stream_step_matches_one_shot(rnnt, chunk):
+    """The encoder chunk by chunk from its state cache (chunks of one frame,
+    four, and more than the left context of four) against the one-shot
+    ``model.encode`` at every valid frame, within the window route's atol
+    2e-4; lengths as the session sends them, raw frames past the pushes
+    zero."""
+    _, _, pmodel, feats, lens = rnnt
+    cfg = pmodel.cfg.encoder
+    with torch.no_grad():
+        exp, out_lens = pmodel.encode(torch.from_numpy(feats), torch.from_numpy(lens))
+    T4 = exp.shape[1]
+    n = -(-T4 // chunk)
+    f = torch.zeros((feats.shape[0], 4 * chunk * n, feats.shape[2]))
+    f[:, : feats.shape[1]] = torch.from_numpy(feats)
+    state = pconf.encoder_stream_state(pmodel.encoder, cfg, feats.shape[0])
+    rows = []
+    for o0 in range(0, n * chunk, chunk):
+        x, state = pconf.encoder_stream_step(
+            pmodel.encoder, cfg, state, f[:, 4 * o0 : 4 * (o0 + chunk)],
+            torch.from_numpy(lens - 4 * o0), o0,
+        )
+        assert x.shape == (feats.shape[0], chunk, cfg.d_model) and x.dtype == cfg.dtype
+        rows.append(x.float())
+    got = torch.cat(rows, 1)[:, :T4]
+    valid = torch.arange(T4)[None] < out_lens[:, None]
+    assert int(valid.sum()) == int(out_lens.sum())
+    np.testing.assert_allclose(got[valid].numpy(), exp[valid].numpy(), atol=2e-4, rtol=0)
+
+
+def test_transducer_session_moe_takes_the_window_route(rnnt):
+    """A mixture-of-experts causal encoder routes by the tokens of its
+    batch, so its session re-encodes windows (the step refuses it) and still
+    equals the JAX package's window session, every partial and the
+    finish."""
+    _, _, _, feats, lens = rnnt
+    enc = dict(RNNT_ENC, num_experts=4, expert_top_k=2)
+    kw = dict(pred_dim=12, joint_dim=12)
+    jmodel = jrnnt.ConformerTransducer(
+        jrnnt.TransducerConfig(encoder=jconf.ConformerConfig(dtype=jnp.float32, **enc), **kw)
+    )
+    refs = np.zeros((feats.shape[0], 4), np.int32)
+    params = jax.jit(jmodel.init)(
+        jax.random.PRNGKey(1), feats, lens.astype(np.int32), refs,
+        np.full((feats.shape[0],), 4, np.int32),
+    )["params"]
+    params = jax.tree.map(np.asarray, params)
+    pmodel = prnnt.ConformerTransducer(
+        prnnt.TransducerConfig(encoder=pconf.ConformerConfig(dtype=torch.float32, **enc), **kw),
+        device="cpu",
+    )
+    pmodel.load_state_dict(prnnt.state_dict_from_jax(params), strict=True)
+    kw = dict(chunk=4, mode="greedy", max_symbols_per_frame=3, max_frames=32)
+    prec = pserving.StreamingTransducerRecognizer(pmodel, **kw)
+    assert not prec.cached and prec.start(3).enc_state is None
+    with pytest.raises(ValueError, match="dense"):
+        pconf.encoder_stream_state(pmodel.encoder, pmodel.cfg.encoder, 3)
+    got = _rnnt_sessions(JaxRnntRecognizer(jmodel, params, **kw), prec, feats, lens, [7, 20, 18])
+    assert int(got[1].min()) > 0
 
 
 def test_transducer_session_rejects_resume_noncausal_and_reuse(rnnt):
