@@ -33,8 +33,9 @@ activations in the backward pass (:func:`_remat_block`), replaying the
 step generator's dropout bits. Sequence sharding is not ported.
 
 :func:`encoder_stream_step` runs a causal, dense encoder one chunk at a
-time from a per-layer state cache (:class:`EncoderStreamState`), as the
-streaming transducer sessions of :mod:`pydrobert_tpu_torch.serving` do.
+time through the blocks' own modules, each handed its part of a per-layer
+state cache (:class:`EncoderStreamState`); :func:`margin_window` re-encodes
+a chunk with its receptive-field margin. Every streaming route takes one.
 
 :func:`conformer_partition_rules` gives the tensor-parallel layout of the
 state dict for :func:`pydrobert_tpu_torch.parallel.shard_params`;
@@ -296,7 +297,8 @@ class _Attention(nn.Module):
 
     Attention-weight dropout is flax's: one Bernoulli keep mask of shape
     ``(T, T)`` shared by every utterance and head, kept weights divided by
-    the keep probability rounded to the compute dtype."""
+    the keep probability rounded to the compute dtype. Given ``cache``,
+    queries attend over ``[cached ‖ new]`` keys, masked by ``cache.masked``."""
 
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
@@ -309,13 +311,13 @@ class _Attention(nn.Module):
         self.value = _Dense(d, d, cfg.dtype)
         self.out = _Dense(d, d, cfg.dtype)
 
-    def forward(self, y, mask, deterministic=True, generator=None):
+    def forward(self, y, mask, deterministic=True, generator=None, cache=None):
         N, T, d = y.shape
         H = self.num_heads
         hd = d // H
 
-        def heads(x):  # (N, T, d) -> (N, H, T, hd)
-            return x.view(N, T, H, hd).transpose(1, 2)
+        def heads(x):  # (N, S, d) -> (N, H, S, hd)
+            return x.view(N, x.shape[1], H, hd).transpose(1, 2)
 
         # flax divides the query by sqrt(depth) cast to the compute dtype; a
         # Python float, so an exported program holds no host tensor that a
@@ -324,9 +326,14 @@ class _Attention(nn.Module):
         q = heads(self.query(y)) / _in_dtype(
             _in_dtype(math.sqrt(hd), torch.float32), self.dtype
         )
-        k, v = heads(self.key(y)), heads(self.value(y))
-        scores = torch.matmul(q, k.transpose(-1, -2))  # (N, H, T, T)
-        scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+        k, v = self.key(y), self.value(y)
+        if cache is None:
+            masked = ~mask
+        else:
+            k, v = torch.cat([cache.keys, k], 1), torch.cat([cache.values, v], 1)
+            cache.keys, cache.values, masked = k[:, T:], v[:, T:], cache.masked
+        scores = torch.matmul(q, heads(k).transpose(-1, -2))  # (N, H, T, S)
+        scores = scores.masked_fill(masked, torch.finfo(scores.dtype).min)
         w = torch.softmax(scores, -1).to(self.dtype)
         if not deterministic and self.dropout_rate > 0.0:
             keep_prob = 1.0 - self.dropout_rate
@@ -334,7 +341,7 @@ class _Attention(nn.Module):
                 torch.rand((T, T), generator=generator, device=y.device) < keep_prob
             )
             w = w * (keep.to(self.dtype) / _in_dtype(keep_prob, self.dtype))
-        o = torch.matmul(w, v).transpose(1, 2).reshape(N, T, d)
+        o = torch.matmul(w, heads(v)).transpose(1, 2).reshape(N, T, d)
         return self.out(o)
 
 
@@ -346,20 +353,22 @@ class _MHSA(nn.Module):
         self.attn = _Attention(cfg)
         self.drop = _FastDropout(cfg.dropout)
 
-    def forward(self, x, pad_mask, deterministic=True, generator=None):
-        T = x.shape[1]
-        mask = pad_mask[:, None, None, :]  # (N, 1, 1, T): any unpadded key
-        left, right = self.cfg.attention_context
-        if left is not None or right is not None:
-            q = torch.arange(T, device=x.device)[:, None]
-            k = torch.arange(T, device=x.device)[None]
-            band = torch.ones((T, T), dtype=torch.bool, device=x.device)
-            if left is not None:
-                band = band & (k >= q - int(left))
-            if right is not None:
-                band = band & (k <= q + int(right))
-            mask = mask & band
-        y = self.attn(self.ln(x), mask, deterministic, generator)
+    def forward(self, x, pad_mask, deterministic=True, generator=None, cache=None):
+        mask = None  # a stream chunk's is in its cache
+        if cache is None:
+            T = x.shape[1]
+            mask = pad_mask[:, None, None, :]  # (N, 1, 1, T): any unpadded key
+            left, right = self.cfg.attention_context
+            if left is not None or right is not None:
+                q = torch.arange(T, device=x.device)[:, None]
+                k = torch.arange(T, device=x.device)[None]
+                band = torch.ones((T, T), dtype=torch.bool, device=x.device)
+                if left is not None:
+                    band = band & (k >= q - int(left))
+                if right is not None:
+                    band = band & (k <= q + int(right))
+                mask = mask & band
+        y = self.attn(self.ln(x), mask, deterministic, generator, cache)
         return self.drop(y, deterministic, generator)
 
 
@@ -397,11 +406,18 @@ class _ConvModule(nn.Module):
         self.pw2 = _Dense(d, d, cfg.dtype)
         self.drop = _FastDropout(cfg.dropout)
 
-    def forward(self, x, pad_mask, deterministic=True, generator=None):
+    def forward(self, x, pad_mask, deterministic=True, generator=None, cache=None):
         y = F.glu(self.pw1(self.ln(x)), -1)
         # zero padded frames so the depthwise conv cannot leak across lengths
         y = y * pad_mask[..., None].to(y.dtype)
-        y = self.pw2(F.silu(self.norm(self.dw(y))))
+        if cache is None:
+            y = self.dw(y)
+        else:
+            T = y.shape[1]
+            y = torch.cat([cache.conv, y], 1)
+            cache.conv = y[:, T:]
+            y = self.dw(y)[:, -T:]  # the causal conv's rows that read no padding
+        y = self.pw2(F.silu(self.norm(y)))
         return self.drop(y, deterministic, generator)
 
 
@@ -417,12 +433,16 @@ class _ConformerBlock(nn.Module):
             self.ffn2 = _FeedForward(cfg)
         self.ln_out = _LayerNorm(cfg.d_model, cfg.dtype)
 
-    def forward(self, x, pad_mask, deterministic=True, generator=None):
+    def forward(self, x, pad_mask, deterministic=True, generator=None, cache=None):
         """``(x, aux)``: the block's output and the mixture of experts'
-        load-balance loss (None for a dense block)."""
+        load-balance loss (None for a dense block). Given ``cache`` (a
+        :class:`_BlockCache`), ``x`` is the chunk of a stream that follows
+        the cached frames, and the cache moves on past it in place."""
+        if cache is not None and hasattr(self, "moe"):
+            raise ValueError("a stream chunk requires a dense block (num_experts=1)")
         x = x + 0.5 * self.ffn1(x, deterministic, generator)
-        x = x + self.mhsa(x, pad_mask, deterministic, generator)
-        x = x + self.conv(x, pad_mask, deterministic, generator)
+        x = x + self.mhsa(x, pad_mask, deterministic, generator, cache)
+        x = x + self.conv(x, pad_mask, deterministic, generator, cache)
         aux = None
         if hasattr(self, "moe"):
             y, aux = self.moe(x, pad_mask, deterministic, generator)
@@ -667,33 +687,59 @@ def streaming_logits(
     the order of reductions; frames past ``out_lens`` are unspecified in
     both.
     """
-    R = streaming_margin(model.cfg, "streaming_logits")
+    _, chunks = margin_chunks(model, model.cfg, feats, lens, chunk, "streaming_logits")
+    logits = torch.cat([rows for rows, _ in chunks], 1)
+    out_lens = (((torch.as_tensor(lens).to(logits.device).long() + 1) // 2) + 1) // 2
+    return logits, out_lens
+
+
+def margin_start(o: int, R: int) -> int:
+    """The first frame that re-encoding frames ``o...`` reads: ``R`` back,
+    and one more, as subsampled row ``m`` reads raw frames left of ``4 m``."""
+    return max(o - R - 1, 0)
+
+
+def margin_window(encode, feats, start, lens, R, o0, o1, length=None) -> torch.Tensor:
+    """Rows ``[o0, o1)`` of a causal encoder from one encode of raw frames
+    ``[4 margin_start(o0, R), min(4 o1, start + T))``, zero-padded to
+    ``length`` frames when given: ``encode(f, l, pos_offset=m0)[0]`` with
+    ``feats (N, T, F)`` raw frames from ``start`` on and ``lens`` (a tensor
+    or an array) the raw lengths from 0, clipped to the window."""
+    m0 = margin_start(o0, R)
+    i0, i1 = 4 * m0, min(4 * o1, start + feats.shape[1])
+    f = feats[:, i0 - start : i1 - start]
+    if length is not None and f.shape[1] < length:
+        f = torch.cat([f, f.new_zeros((f.shape[0], length - f.shape[1], f.shape[2]))], 1)
+    rows = encode(f, (lens - i0).clip(0, i1 - i0), pos_offset=m0)[0]
+    return rows[:, o0 - m0 : o1 - m0]
+
+
+def margin_chunks(encode, cfg: ConformerConfig, feats, lens, chunk: int, what: str):
+    """The causal encoder ``encode`` of config ``cfg`` over ``feats`` in
+    chunks of ``chunk`` post-subsampling frames, each from its
+    :func:`margin_window`: ``(T', [(rows, chunk_lens), ...])``, the chunks
+    lazily, ``chunk_lens`` each stream's valid rows; ``what`` names the
+    caller."""
+    R = streaming_margin(cfg, what)
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    T = feats.shape[1]
-    T4 = -(-T // 4)  # the subsampler's ceil-div by 2, twice
+    T4 = -(-feats.shape[1] // 4)  # the subsampler's ceil-div by 2, twice
     lens = torch.as_tensor(lens)
-    outs = []
-    for o0 in range(0, T4, chunk):
-        o1 = min(o0 + chunk, T4)
-        # +1 margin row: subsample row m0 reads up to 3 input frames left
-        # of the chunk (zero-padded here, real data in the full forward)
-        m0 = max(o0 - R - 1, 0)
-        i0, i1 = 4 * m0, min(4 * o1, T)
-        logits, _ = model(
-            feats[:, i0:i1], (lens - i0).clamp(0, i1 - i0), pos_offset=m0
+    out_lens = ((lens.long() + 1) // 2 + 1) // 2
+    return T4, (
+        (
+            margin_window(encode, feats, 0, lens, R, o0, min(o0 + chunk, T4)),
+            (out_lens - o0).clamp(0, min(chunk, T4 - o0)),
         )
-        outs.append(logits[:, o0 - m0 : o1 - m0])
-    logits = torch.cat(outs, 1)
-    out_lens = (((lens.to(logits.device).long() + 1) // 2) + 1) // 2
-    return logits, out_lens
+        for o0 in range(0, T4, chunk)
+    )
 
 
 # ---------------------------------------------------------------------------
 # The encoder one chunk at a time from a per-layer state cache: each chunk's
-# frames encoded once, attending to the cached keys and values and
-# convolving over the cached GLU outputs, in place of re-encoding the
-# receptive-field margin.
+# frames encoded once by the blocks' own modules, attending to the cached
+# keys and values and convolving over the cached GLU outputs, in place of
+# re-encoding the receptive-field margin.
 # ---------------------------------------------------------------------------
 
 
@@ -733,42 +779,15 @@ def encoder_stream_state(
     return EncoderStreamState(raw, zeros(L), zeros(L), zeros(K - 1))
 
 
-def _attention_step(attn: _Attention, y, keys, values, masked):
-    """``attn`` over a chunk's normalized frames ``y (N, C, d)``, its
-    queries against ``[cached ‖ new]`` keys; ``masked (N, 1, C, L + C)``
-    marks the keys a query may not see. Returns the output and the last
-    ``L`` keys and values."""
-    N, C, d = y.shape
-    H = attn.num_heads
-    hd = d // H
+@dataclasses.dataclass
+class _BlockCache:
+    """A block's part of :class:`EncoderStreamState`, and ``masked (N, 1,
+    C, L + C)`` the ``[cached ‖ new]`` keys each query may not see."""
 
-    def heads(x):  # (N, T, d) -> (N, H, T, hd)
-        return x.view(N, x.shape[1], H, hd).transpose(1, 2)
-
-    q = heads(attn.query(y)) / _in_dtype(_in_dtype(math.sqrt(hd), torch.float32), attn.dtype)
-    keys = torch.cat([keys, attn.key(y)], 1)
-    values = torch.cat([values, attn.value(y)], 1)
-    scores = torch.matmul(q, heads(keys).transpose(-1, -2))  # (N, H, C, L + C)
-    scores = scores.masked_fill(masked, torch.finfo(scores.dtype).min)
-    w = torch.softmax(scores, -1).to(attn.dtype)
-    o = torch.matmul(w, heads(values)).transpose(1, 2).reshape(N, C, d)
-    return attn.out(o), keys[:, C:], values[:, C:]
-
-
-def _block_step(block: _ConformerBlock, x, pad, masked, keys, values, conv):
-    """:class:`_ConformerBlock` over a chunk ``x (N, C, d)`` (``pad (N, C)``
-    its valid frames) from its cache; the output and the new cache."""
-    x = x + 0.5 * block.ffn1(x)
-    y, keys, values = _attention_step(block.mhsa.attn, block.mhsa.ln(x), keys, values, masked)
-    x = x + y
-    cm = block.conv
-    g = F.glu(cm.pw1(cm.ln(x)), -1)
-    g = torch.cat([conv, g * pad[..., None].to(g.dtype)], 1)
-    # the causal conv over [cached ‖ new]: its last C rows read no padding
-    C = x.shape[1]
-    x = x + cm.pw2(F.silu(cm.norm(cm.dw(g)[:, g.shape[1] - C :])))
-    x = block.ln_out(x + 0.5 * block.ffn2(x))
-    return x, keys, values, g[:, C:]
+    masked: torch.Tensor
+    keys: torch.Tensor
+    values: torch.Tensor
+    conv: torch.Tensor
 
 
 @torch.no_grad()
@@ -816,14 +835,12 @@ def encoder_stream_step(
     band = (rel >= q - L) & (rel <= q) & (rel >= -int(pos_offset))
     masked = ~(band & (rel < out_lens[:, None, None])[:, None])  # (N, 1, C, L + C)
     keys, values, conv = [], [], []
-    for i in range(cfg.num_layers):
-        x, k, v, c = _block_step(
-            getattr(module, f"block_{i}"), x, pad, masked,
-            state.keys[i], state.values[i], state.conv[i],
-        )
-        keys.append(k)
-        values.append(v)
-        conv.append(c)
+    for i, kvc in enumerate(zip(state.keys, state.values, state.conv)):
+        cache = _BlockCache(masked, *kvc)
+        x, _ = getattr(module, f"block_{i}")(x, pad, cache=cache)
+        keys.append(cache.keys)
+        values.append(cache.values)
+        conv.append(cache.conv)
     return x, EncoderStreamState(feats[:, T - 4 :], keys, values, conv)
 
 

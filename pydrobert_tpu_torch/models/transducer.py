@@ -54,8 +54,8 @@ from .conformer import (
     _encoder_state_dict,
     _init_params,
     _linear,
+    margin_chunks,
     moe_aux_loss,
-    streaming_margin,
 )
 
 __all__ = [
@@ -371,32 +371,6 @@ def streamed_node_log_probs(
     return torch.cat(blanks, 1), torch.cat(emits, 1)
 
 
-def _stream_chunks(model: ConformerTransducer, feats, lens, chunk: int, what: str):
-    """The causal encoder over ``feats`` in post-subsampling chunks of
-    ``chunk`` frames, each re-encoding its receptive-field margin (as
-    :func:`~pydrobert_tpu_torch.models.conformer.streaming_logits`):
-    ``(T', out_lens, [(enc_chunk, chunk_lens), ...])`` lazily."""
-    R = streaming_margin(model.cfg.encoder, what)
-    if chunk < 1:
-        raise ValueError(f"chunk must be positive, got {chunk}")
-    T = feats.shape[1]
-    T4 = -(-T // 4)
-    lens = torch.as_tensor(lens)
-    out_lens = ((lens.long() + 1) // 2 + 1) // 2
-
-    def chunks():
-        for o0 in range(0, T4, chunk):
-            o1 = min(o0 + chunk, T4)
-            # +1 margin row: subsample row m0 reads up to 3 input frames
-            # left of the chunk
-            m0 = max(o0 - R - 1, 0)
-            i0, i1 = 4 * m0, min(4 * o1, T)
-            enc, _ = model.encode(feats[:, i0:i1], (lens - i0).clamp(0, i1 - i0), pos_offset=m0)
-            yield enc[:, o0 - m0 : o1 - m0], (out_lens - o0).clamp(0, o1 - o0)
-
-    return T4, chunks()
-
-
 @torch.no_grad()
 def streaming_transducer_greedy(
     model: ConformerTransducer,
@@ -411,7 +385,9 @@ def streaming_transducer_greedy(
     threaded across chunks, so the hypotheses equal :meth:`ConformerTransducer.
     greedy`'s. ``(hyps (N, U_max), hyp_lens (N,))``, ``U_max =
     max_symbols_per_frame * ceil(T / 4)``."""
-    T4, chunks = _stream_chunks(model, feats, lens, chunk, "streaming_transducer_greedy")
+    T4, chunks = margin_chunks(
+        model.encode, model.cfg.encoder, feats, lens, chunk, "streaming_transducer_greedy"
+    )
     N = feats.shape[0]
     pred_step = model.predictor.stepper()
     carry = transducer_greedy_init(
@@ -442,7 +418,9 @@ def streaming_transducer_beam(
     to :meth:`ConformerTransducer.beam`: the beam carry (scores, buffers,
     predictor and LM states) threads across chunks. ``(hyps (N, W,
     U_max), hyp_lens (N, W), scores (N, W))`` best-first."""
-    T4, chunks = _stream_chunks(model, feats, lens, chunk, "streaming_transducer_beam")
+    T4, chunks = margin_chunks(
+        model.encode, model.cfg.encoder, feats, lens, chunk, "streaming_transducer_beam"
+    )
     N = feats.shape[0]
     lm = _fusion(lm, model.cfg, N)
     pred_step = model.predictor.stepper()

@@ -3,7 +3,9 @@
 
 A serving frontend receives feature frames incrementally: arbitrary push
 sizes, many concurrent streams, streams ending at different times. Both
-recognizers encode what each push determines with a causal encoder.
+recognizers encode what each push determines with a causal encoder, through
+one front end (:class:`_Frontier`) and the encode routes of
+:mod:`pydrobert_tpu_torch.models.conformer`.
 :class:`StreamingCTCRecognizer` re-encodes the receptive-field margin ``R``
 over a fixed window of ``4 * (chunk + R + 1)`` raw frames and re-decodes the
 accumulated logits of a :class:`~pydrobert_tpu_torch.models.ConformerCTC`
@@ -33,7 +35,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .models.conformer import encoder_stream_state, encoder_stream_step, streaming_margin
+from .models.conformer import (
+    encoder_stream_state, encoder_stream_step, margin_start, margin_window, streaming_margin,
+)
 from .ops import transducer as _rnnt
 from .ops.decoding import CTCPrefixSearch
 from .utils.profiling import span
@@ -50,6 +54,96 @@ def _ceil4(x):
     return -(-np.asarray(x) // 4)
 
 
+class _Frontier:
+    """Both recognizers' sessions: a raw-frame timeline whose frontier
+    ``sess.o0`` moves on in chunks as far as the pushes determine (at
+    ``finish``, to the end) through the recognizer's ``_chunk(sess, o1,
+    out_lens)``, which consumes frames ``[sess.o0, o1)``."""
+
+    def __init__(self, model, enc_cfg, chunk: int, device):
+        self.R = streaming_margin(enc_cfg, "streaming recognition")
+        if chunk < 1:
+            raise ValueError(f"chunk must be positive, got {chunk}")
+        self.model, self.cfg = model, model.cfg
+        self.device = device
+        self.chunk = int(chunk)
+        # a fixed window: warm-up and steady state encode the same shape
+        self.Lw = 4 * (self.chunk + self.R + 1)
+
+    def _timeline(self, N: int, num_filts: int) -> dict:
+        return dict(
+            buf=torch.zeros((N, 0, num_filts), device=self.device), base=0, pushed=0,
+            total=np.zeros((N,), np.int64), o0=0,
+        )
+
+    def _feed(self, sess, feats, new_lens, max_frames: Optional[int] = None):
+        """Check a push, buffer it and encode the chunks it completes."""
+        if sess.done:
+            raise RuntimeError("session already finished")
+        feats = torch.as_tensor(feats, dtype=torch.float32, device=self.device)
+        N, T_new = feats.shape[:2]
+        if N != sess.total.shape[0]:
+            raise ValueError(f"batch size {N} != session batch {sess.total.shape[0]}")
+        new_lens = (
+            np.full((N,), T_new, np.int64)
+            if new_lens is None
+            else np.asarray(new_lens, np.int64)  # an array or a CPU tensor
+        )
+        if (new_lens < 0).any() or (new_lens > T_new).any():
+            raise ValueError("new_lens must lie in [0, T_new]")
+        resumed = (sess.total < sess.pushed) & (new_lens > 0)
+        if resumed.any():
+            raise RuntimeError(
+                f"streams {np.nonzero(resumed)[0].tolist()} ended (fell "
+                "behind the shared timeline) and cannot resume"
+            )
+        with span("stream/push"):
+            sess.buf = torch.cat([sess.buf, feats], 1)
+            sess.total = sess.total + new_lens
+            sess.pushed += T_new
+            if max_frames is not None and _ceil4(sess.pushed) > max_frames:
+                raise RuntimeError(
+                    f"stream exceeds max_frames={max_frames} post-subsample frames"
+                )
+            # fully determined frames, in chunks of a fixed size
+            while sess.pushed // 4 - sess.o0 >= self.chunk:
+                self._chunk(sess, sess.o0 + self.chunk, sess.total // 4)
+
+    def finish(self, sess):
+        """Encode and decode everything outstanding; the final result."""
+        if sess.done:
+            raise RuntimeError("session already finished")
+        with span("stream/finish"):
+            out_lens = _ceil4(sess.total)
+            o1 = int(out_lens.max(initial=0))
+            # the frames still on the shared frontier
+            while sess.o0 < o1:
+                self._chunk(sess, min(sess.o0 + self.chunk, o1), out_lens)
+            out = self._final(sess, out_lens)
+            sess.done = True
+            return out
+
+    def _trim(self, sess, keep_from: int):
+        """Drop the raw frames before ``keep_from``, which no encode reads."""
+        if keep_from > sess.base:
+            sess.buf = sess.buf[:, keep_from - sess.base :]
+            sess.base = keep_from
+
+    def _window(self, sess, encode, o0: int, o1: int, length: Optional[int]) -> torch.Tensor:
+        """Rows ``[o0, o1)`` of ``encode`` from a margin window of the buffer."""
+        return margin_window(
+            lambda f, l, pos_offset: encode(f, self._on_device(l, "stream_window"),
+                                            pos_offset=pos_offset),
+            sess.buf, sess.base, sess.total, self.R, o0, o1, length,
+        )
+
+    def _on_device(self, a: np.ndarray, site: str) -> torch.Tensor:
+        """Host lengths on the model's device: a copy from pageable memory,
+        which waits for the card's queue to drain."""
+        with span("sync/" + site):
+            return torch.from_numpy(a).to(self.device)
+
+
 @dataclasses.dataclass
 class StreamingCTCSession:
     """State of one batch of concurrent CTC streams."""
@@ -63,7 +157,7 @@ class StreamingCTCSession:
     done: bool = False
 
 
-class StreamingCTCRecognizer:
+class StreamingCTCRecognizer(_Frontier):
     """Streaming CTC recognition sessions over a fixed model.
 
     ``start(batch_size)`` opens a session; ``push(sess, feats, new_lens=None,
@@ -97,15 +191,9 @@ class StreamingCTCRecognizer:
         lm=None,
         decode_pad_multiple: int = 32,
     ):
-        self.R = streaming_margin(model.cfg, "streaming recognition")
-        if chunk < 1:
-            raise ValueError(f"chunk must be positive, got {chunk}")
-        self.model, self.cfg = model, model.cfg
-        self.device = next(model.parameters()).device
-        self.chunk = int(chunk)
+        super().__init__(model, model.cfg, chunk, next(model.parameters()).device)
         self.decode_pad_multiple = max(1, int(decode_pad_multiple))
         self.search = CTCPrefixSearch(width, beta=beta, lm=lm)
-        self.Lw = 4 * (self.chunk + self.R + 1)
 
     def start(self, batch_size: int) -> StreamingCTCSession:
         """Open a session of `batch_size` concurrent streams."""
@@ -114,11 +202,7 @@ class StreamingCTCRecognizer:
             logits=torch.zeros(
                 (N, 0, self.cfg.vocab_size + 1), dtype=torch.float32, device=self.device
             ),
-            buf=torch.zeros((N, 0, self.cfg.num_filts), device=self.device),
-            base=0,
-            pushed=0,
-            total=np.zeros((N,), np.int64),
-            o0=0,
+            **self._timeline(N, self.cfg.num_filts),
         )
 
     def push(
@@ -133,30 +217,7 @@ class StreamingCTCRecognizer:
         With ``partials=True`` the accumulated logits are re-decoded and
         ``(y (S, N, W), y_lens (N, W), y_probs (N, W))`` is returned
         (otherwise ``None``)."""
-        if sess.done:
-            raise RuntimeError("session already finished")
-        feats = torch.as_tensor(feats, dtype=torch.float32, device=self.device)
-        N, T_new = feats.shape[:2]
-        if N != sess.total.shape[0]:
-            raise ValueError(f"batch size {N} != session batch {sess.total.shape[0]}")
-        new_lens = (
-            np.full((N,), T_new, np.int64)
-            if new_lens is None
-            else np.asarray(new_lens, np.int64)  # an array or a CPU tensor
-        )
-        if (new_lens < 0).any() or (new_lens > T_new).any():
-            raise ValueError("new_lens must lie in [0, T_new]")
-        resumed = (sess.total < sess.pushed) & (new_lens > 0)
-        if resumed.any():
-            raise RuntimeError(
-                f"streams {np.nonzero(resumed)[0].tolist()} ended (fell "
-                "behind the shared timeline) and cannot resume"
-            )
-        sess.buf = torch.cat([sess.buf, feats], 1)
-        sess.total = sess.total + new_lens
-        sess.pushed += T_new
-        while sess.pushed // 4 - sess.o0 >= self.chunk:
-            self._encode_window(sess, sess.o0 + self.chunk)
+        self._feed(sess, feats, new_lens)
         if not partials:
             return None
         # a stream's frames < ceil4(total) are exact once encoded (the
@@ -164,38 +225,16 @@ class StreamingCTCRecognizer:
         lens = np.minimum(_ceil4(sess.total), sess.o0)
         return self._decode_padded(sess.logits, lens)
 
-    def finish(self, sess: StreamingCTCSession):
-        """Encode and decode everything outstanding; final hypotheses."""
-        if sess.done:
-            raise RuntimeError("session already finished")
-        out_lens = _ceil4(sess.total)
-        o1 = int(out_lens.max(initial=0))
-        while sess.o0 < o1:
-            self._encode_window(sess, min(sess.o0 + self.chunk, o1))
-        sess.done = True
+    def _final(self, sess: StreamingCTCSession, out_lens: np.ndarray):
         return self._decode_padded(sess.logits, out_lens)
 
     @torch.no_grad()
-    def _encode_window(self, sess: StreamingCTCSession, o1: int):
-        m0 = max(sess.o0 - self.R - 1, 0)
-        i0, i1 = 4 * m0, min(4 * o1, sess.pushed)
-        f = sess.buf[:, i0 - sess.base : i1 - sess.base]
-        N, Tf, F = f.shape
-        if Tf < self.Lw:
-            # pad to the fixed window; padded frames sit beyond every
-            # stream's valid length, so the encoder masks them out
-            f = torch.cat([f, f.new_zeros((N, self.Lw - Tf, F))], 1)
-        l = torch.from_numpy(np.clip(sess.total - i0, 0, i1 - i0))
-        logits = self.model(f, l, pos_offset=m0)[0]
-        sl0 = sess.o0 - m0
-        # final (finish-time) windows can be shorter than a full chunk
-        rows = logits[:, sl0 : sl0 + min(self.chunk, o1 - sess.o0)]
+    def _chunk(self, sess: StreamingCTCSession, o1: int, out_lens: np.ndarray):
+        with span("stream/encode"):
+            rows = self._window(sess, self.model, sess.o0, o1, self.Lw)
         sess.logits = torch.cat([sess.logits, rows], 1)
         sess.o0 = o1
-        keep_from = 4 * max(sess.o0 - self.R - 1, 0)
-        if keep_from > sess.base:
-            sess.buf = sess.buf[:, keep_from - sess.base :]
-            sess.base = keep_from
+        self._trim(sess, 4 * margin_start(sess.o0, self.R))
 
     @torch.no_grad()
     def _decode_padded(self, logits: torch.Tensor, lens: np.ndarray):
@@ -227,7 +266,7 @@ class StreamingSession:
     tail: Optional[torch.Tensor] = None
 
 
-class StreamingTransducerRecognizer:
+class StreamingTransducerRecognizer(_Frontier):
     """Streaming RNN-T recognition sessions over a fixed model.
 
     ``start(batch_size)`` opens a session; ``push(sess, feats,
@@ -267,12 +306,7 @@ class StreamingTransducerRecognizer:
     ):
         if mode not in ("greedy", "beam"):
             raise ValueError(f"mode must be 'greedy' or 'beam', got {mode!r}")
-        self.R = streaming_margin(model.cfg.encoder, "streaming recognition")
-        if chunk < 1:
-            raise ValueError(f"chunk must be positive, got {chunk}")
-        self.model, self.cfg = model, model.cfg
-        self.device = model.device
-        self.chunk = int(chunk)
+        super().__init__(model, model.cfg.encoder, chunk, model.device)
         self.mode = mode
         self.width = int(width)
         self.E = int(max_symbols_per_frame)
@@ -280,8 +314,6 @@ class StreamingTransducerRecognizer:
         self.blank = model.cfg.vocab_size
         self.lm, self.lm_weight = lm, float(lm_weight)
         self._lm_step = None
-        # a fixed window: warm-up and steady state encode the same shape
-        self.Lw = 4 * (self.chunk + self.R + 1)
 
     @property
     def cached(self) -> bool:
@@ -310,13 +342,8 @@ class StreamingTransducerRecognizer:
                     lm,
                 )
         sess = StreamingSession(
-            carry=carry,
-            buf=torch.zeros((N, 0, self.cfg.encoder.num_filts), device=self.device),
-            base=0,
-            pushed=0,
-            total=np.zeros((N,), np.int64),
-            consumed=np.zeros((N,), np.int64),
-            o0=0,
+            carry=carry, consumed=np.zeros((N,), np.int64),
+            **self._timeline(N, self.cfg.encoder.num_filts),
         )
         if self.cached:
             sess.enc_state = encoder_stream_state(model.encoder, self.cfg.encoder, N)
@@ -328,85 +355,31 @@ class StreamingTransducerRecognizer:
         ``new_lens`` (default: all ``T_new``) counts each stream's real
         frames; a stream that has ended pushes zero. Returns the partial
         result."""
-        if sess.done:
-            raise RuntimeError("session already finished")
-        feats = torch.as_tensor(feats, dtype=torch.float32, device=self.device)
-        N, T_new = feats.shape[:2]
-        if N != sess.total.shape[0]:
-            raise ValueError(f"batch size {N} != session batch {sess.total.shape[0]}")
-        new_lens = (
-            np.full((N,), T_new, np.int64)
-            if new_lens is None
-            else np.asarray(new_lens, np.int64)
-        )
-        if (new_lens < 0).any() or (new_lens > T_new).any():
-            raise ValueError("new_lens must lie in [0, T_new]")
-        resumed = (sess.total < sess.pushed) & (new_lens > 0)
-        if resumed.any():
-            raise RuntimeError(
-                f"streams {np.nonzero(resumed)[0].tolist()} ended (fell "
-                "behind the shared timeline) and cannot resume"
-            )
-        with span("stream/push"):
-            sess.buf = torch.cat([sess.buf, feats], 1)
-            sess.total = sess.total + new_lens
-            sess.pushed += T_new
-            if _ceil4(sess.pushed) > self.max_frames:
-                raise RuntimeError(
-                    f"stream exceeds max_frames={self.max_frames} post-subsample frames"
-                )
-            # decode fully determined frames in chunks of a fixed size
-            while sess.pushed // 4 - sess.o0 >= self.chunk:
-                self._decode_window(sess, sess.o0 + self.chunk, sess.total // 4)
-            return self._partial(sess)
-
-    def finish(self, sess: StreamingSession):
-        """Decode everything outstanding; the final hypotheses."""
-        if sess.done:
-            raise RuntimeError("session already finished")
-        with span("stream/finish"):
-            out_lens = _ceil4(sess.total)
-            o1 = int(out_lens.max(initial=0))
-            # the frames still on the shared frontier
-            while sess.o0 < o1:
-                self._decode_window(sess, min(sess.o0 + self.chunk, o1), out_lens)
-            # deferred tails: streams whose last partial-block frame fell
-            # behind the frontier before it was determined. Each stream gets
-            # its own tail frame as a chunk of one: kept when its chunk was
-            # encoded on the cached route, from one encode on the window's
-            pending = out_lens - sess.consumed
-            assert (pending >= 0).all() and (pending <= 1).all(), pending
-            if pending.any():
-                if self.cached:
-                    enc_tail = sess.tail[:, None]
-                else:
-                    enc_tail = self._window_tails(sess, np.where(pending > 0, out_lens - 1, 0),
-                                                  pending)
-                self._advance(sess, enc_tail, pending)
-            sess.done = True
-            if self.mode == "greedy":
-                _, u, hyps, _, _ = sess.carry
-                return hyps, u
-            return _rnnt.transducer_beam_finalize(sess.carry)
+        self._feed(sess, feats, new_lens, self.max_frames)
+        return self._partial(sess)
 
     @torch.no_grad()
-    def _window_tails(self, sess: StreamingSession, tail_o: np.ndarray, pending: np.ndarray):
-        """Frame ``tail_o`` of each stream with ``pending`` set, from one
-        window encode: ``(N, 1, d_model)``."""
-        m0 = max(int(tail_o[pending > 0].min()) - self.R - 1, 0)
-        i0 = 4 * m0
-        with span("stream/encode"):
-            f = sess.buf[:, i0 - sess.base :]
-            l = self._on_device(np.clip(sess.total - i0, 0, f.shape[1]), "stream_window")
-            enc, _ = self.model.encode(f, l, pos_offset=m0)
-        pick = self._on_device(np.clip(tail_o - m0, 0, enc.shape[1] - 1), "stream_tail")
-        return enc[torch.arange(enc.shape[0], device=self.device), pick][:, None]
-
-    def _on_device(self, a: np.ndarray, site: str) -> torch.Tensor:
-        """Host lengths on the model's device: a copy from pageable memory,
-        which waits for the card's queue to drain."""
-        with span("sync/" + site):
-            return torch.from_numpy(a).to(self.device)
+    def _final(self, sess: StreamingSession, out_lens: np.ndarray):
+        # deferred tails: streams whose last partial-block frame fell behind
+        # the frontier before it was determined. Each stream gets its own
+        # tail frame as a chunk of one: kept when its chunk was encoded on
+        # the cached route, from one encode on the window's
+        pending = out_lens - sess.consumed
+        assert (pending >= 0).all() and (pending <= 1).all(), pending
+        if pending.any():
+            if self.cached:
+                enc_tail = sess.tail[:, None]
+            else:
+                tail_o = np.where(pending > 0, out_lens - 1, 0)
+                o0 = int(tail_o[pending > 0].min())
+                with span("stream/encode"):
+                    enc = self._window(sess, self.model.encode, o0, int(_ceil4(sess.pushed)), None)
+                pick = self._on_device(np.clip(tail_o - o0, 0, enc.shape[1] - 1), "stream_tail")
+                enc_tail = enc[torch.arange(enc.shape[0], device=self.device), pick][:, None]
+            self._advance(sess, enc_tail, pending)
+        if self.mode == "greedy":
+            return self._partial(sess)
+        return _rnnt.transducer_beam_finalize(sess.carry)
 
     @torch.no_grad()
     def _advance(self, sess: StreamingSession, enc_chunk, chunk_lens: np.ndarray):
@@ -424,13 +397,16 @@ class StreamingTransducerRecognizer:
         sess.consumed = sess.consumed + chunk_lens
 
     @torch.no_grad()
-    def _decode_window(self, sess: StreamingSession, o1: int, out_lens: np.ndarray):
+    def _chunk(self, sess: StreamingSession, o1: int, out_lens: np.ndarray):
         """Advance the decode over global frames ``[sess.o0, o1)``."""
         with span("stream/encode"):
             if self.cached:
                 enc_chunk = self._encode_cached(sess)
             else:
-                enc_chunk = self._encode_window(sess, o1)
+                # rows past o1 lie past every stream's end
+                enc_chunk = self._window(
+                    sess, self.model.encode, sess.o0, sess.o0 + self.chunk, self.Lw
+                )
         # only streams on the frontier read this chunk; a drained stream's
         # deferred tail frame waits for finish()
         on_frontier = sess.consumed == sess.o0
@@ -439,16 +415,12 @@ class StreamingTransducerRecognizer:
         sess.o0 = o1
         if self.cached:
             # the state holds the subsampler's context: drop the chunk's frames
-            keep_from = 4 * sess.o0
+            self._trim(sess, 4 * sess.o0)
         else:
             # drop raw frames behind the margin of the frontier and of the
             # earliest deferred tail
             tails = sess.consumed[sess.consumed < sess.o0]
-            horizon = min([sess.o0] + tails.tolist())
-            keep_from = 4 * max(horizon - self.R - 1, 0)
-        if keep_from > sess.base:
-            sess.buf = sess.buf[:, keep_from - sess.base :]
-            sess.base = keep_from
+            self._trim(sess, 4 * margin_start(min([sess.o0] + tails.tolist()), self.R))
 
     def _encode_cached(self, sess: StreamingSession) -> torch.Tensor:
         """The encoder's rows of frames ``[o0, o0 + chunk)`` from the
@@ -473,22 +445,6 @@ class StreamingTransducerRecognizer:
             picked = rows[torch.arange(N, device=self.device), j.clamp(0, C - 1)]
             sess.tail = torch.where(has[:, None], picked, sess.tail)
         return rows
-
-    def _encode_window(self, sess: StreamingSession, o1: int) -> torch.Tensor:
-        """The encoder's rows of frames ``[o0, o0 + chunk)`` from a fixed
-        window that re-encodes the receptive-field margin."""
-        m0 = max(sess.o0 - self.R - 1, 0)
-        i0, i1 = 4 * m0, min(4 * o1, sess.pushed)
-        f = sess.buf[:, i0 - sess.base : i1 - sess.base]
-        N, Tf, F = f.shape
-        if Tf < self.Lw:
-            # pad to the fixed window; padded frames sit beyond every
-            # stream's valid length, so the encoder masks them out
-            f = torch.cat([f, f.new_zeros((N, self.Lw - Tf, F))], 1)
-        l = self._on_device(np.clip(sess.total - i0, 0, i1 - i0), "stream_window")
-        enc, _ = self.model.encode(f, l, pos_offset=m0)
-        sl0 = sess.o0 - m0
-        return enc[:, sl0 : sl0 + self.chunk]
 
     def _partial(self, sess: StreamingSession):
         if self.mode == "greedy":

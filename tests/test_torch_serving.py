@@ -382,6 +382,37 @@ def test_encoder_stream_step_matches_one_shot(rnnt, chunk):
     np.testing.assert_allclose(got[valid].numpy(), exp[valid].numpy(), atol=2e-4, rtol=0)
 
 
+def test_encoder_stream_step_runs_each_block_through_its_own_modules(rnnt):
+    """A chunk of the stream step calls the forward of every block's
+    attention, convolution module, both feed-forwards and output LayerNorm
+    once each, the modules of the one-shot forward, so that a change to
+    them reaches the stream."""
+    _, _, pmodel, feats, lens = rnnt
+    cfg = pmodel.cfg.encoder
+    names = ("mhsa.attn", "conv", "ffn1", "ffn2", "ln_out")
+    calls = {(i, n): 0 for i in range(cfg.num_layers) for n in names}
+
+    def counter(key):
+        def hook(module, args, out):
+            calls[key] += 1
+
+        return hook
+
+    hooks = [
+        getattr(pmodel.encoder, f"block_{i}").get_submodule(n).register_forward_hook(counter((i, n)))
+        for i, n in calls
+    ]
+    try:
+        state = pconf.encoder_stream_state(pmodel.encoder, cfg, feats.shape[0])
+        pconf.encoder_stream_step(
+            pmodel.encoder, cfg, state, torch.from_numpy(feats[:, :16]), torch.from_numpy(lens), 0
+        )
+    finally:
+        for h in hooks:
+            h.remove()
+    assert calls == dict.fromkeys(calls, 1)
+
+
 def test_transducer_session_moe_takes_the_window_route(rnnt):
     """A mixture-of-experts causal encoder routes by the tokens of its
     batch, so its session re-encodes windows (the step refuses it) and still
