@@ -647,7 +647,8 @@ def phase_main_path(torch_pkg):
     launches = dict(kernels.LAUNCHES)
     hook.remove()
     want = {"decode_prologue": N_REQUESTS, "ctc_beam_search_renorm": N_REQUESTS,
-            "top_m": 0, "ctc_beam_search": 0}
+            "top_m": 0, "ctc_beam_search": 0,
+            "depthwise_conv1d": N_REQUESTS * cfg.num_layers}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"serve launches {launches}, expected {want}")
 
@@ -1162,7 +1163,8 @@ def phase_beam_serve(pkg, kernels, model, requests):
         launches = dict(kernels.LAUNCHES)
         hook.remove()
         want = {"decode_prologue": 0, "top_m": N_REQUESTS, "ctc_beam_search": N_REQUESTS,
-                "ctc_beam_search_renorm": 0}
+                "ctc_beam_search_renorm": 0,
+                "depthwise_conv1d": N_REQUESTS * model.cfg.num_layers}
         if any(launches[k] != v for k, v in want.items()):
             raise AssertionError(f"beam route launches {launches}, expected {want}")
         check_served(outputs, captured, model.cfg)
@@ -1254,20 +1256,41 @@ def stream_session(rec, feats, lens, partials_every=0, times=None):
     return res
 
 
+def depthwise_calls(model):
+    """Forward hooks counting the calls of ``model``'s depthwise convs (one
+    ``depthwise_conv1d`` launch each without autograd): ``(count, hooks)``,
+    the count a one-item list."""
+    n = [0]
+
+    def hook(*args):
+        n[0] += 1
+
+    return n, [m.register_forward_hook(hook) for m in model.modules()
+               if type(m).__name__ == "_DepthwiseConv1D"]
+
+
 def stream_route(rec, kernels, feats, lens, want):
     """One timed streaming session of ``rec`` after a short warm one, its
-    launches equal to ``want`` a search (every other kernel's 0); the
-    outputs, the launches, the push and finish times and the peak memory."""
+    launches equal to ``want`` a search and one ``depthwise_conv1d`` a
+    depthwise conv call (every other kernel's 0); the outputs, the
+    launches, the push and finish times and the peak memory."""
     stream_session(rec, feats[:, : 4 * STREAM_PUSH], lens.clip(max=4 * STREAM_PUSH), 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = {"push": [], "partial": [], "finish": []}
     kernels.reset_launches()
-    out = stream_session(rec, feats, lens, STREAM_PARTIALS_EVERY, times)
+    convs, hooks = depthwise_calls(rec.model)
+    try:
+        out = stream_session(rec, feats, lens, STREAM_PARTIALS_EVERY, times)
+    finally:
+        for h in hooks:
+            h.remove()
     launches = dict(kernels.LAUNCHES)
     searches = len(times["partial"]) + 1
-    if any(v != searches * want.get(k, 0) for k, v in launches.items()):
-        raise AssertionError(f"streaming launches {launches}, {searches} searches of {want}")
+    exp = {k: searches * want.get(k, 0) for k in launches} | {"depthwise_conv1d": convs[0]}
+    if launches != exp or not convs[0]:
+        raise AssertionError(f"streaming launches {launches}, {searches} searches of {want}, "
+                             f"{convs[0]} depthwise convs")
     return out, launches, times, torch.cuda.max_memory_allocated()
 
 
@@ -1414,7 +1437,8 @@ def phase_lm_serve(pkg, kernels, model, requests, lm):
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     hook.remove()
-    want = dict.fromkeys(launches, 0) | {"decode_prologue": N_REQUESTS}
+    want = dict.fromkeys(launches, 0) | {
+        "decode_prologue": N_REQUESTS, "depthwise_conv1d": N_REQUESTS * model.cfg.num_layers}
     if launches != want:
         raise AssertionError(f"lm serve launches {launches}, expected {want}")
     check_served(outputs, captured, model.cfg)
@@ -1553,7 +1577,10 @@ def lm_gather(config, kernels, model, recognize, search, cpu_search, requests, c
         serve_s = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         hook.remove()
-        want = dict.fromkeys(launches, 0) | {"decode_prologue": len(requests)}
+        want = dict.fromkeys(launches, 0) | {
+            "decode_prologue": len(requests),
+            "depthwise_conv1d": len(requests) * model.cfg.num_layers,
+        }
         if launches != want:
             raise AssertionError(f"lm gather launches {launches}, expected {want}")
 
@@ -1768,6 +1795,58 @@ def phase_new_kernels(kernels, img):
                     raise AssertionError(f"edit_distance parity failed at {(R, H, N, costs)}")
                 worst["edit_distance"] = max(worst["edit_distance"], max_abs_err([(got, exp)]))
     return worst
+
+
+# The depthwise conv's kernel at the three cells' shapes: (N, T, C, causal)
+# of ctc_l.prefix16's encoder (centered), rnnt_m.greedy's and rnnt_m.stream's
+# cached step ([31 cached || 8 new] rows), all bfloat16 at K = 32.
+DEPTHWISE = (("ctc_l", 256, 875, 512, False), ("rnnt_m", 512, 875, 256, True),
+             ("rnnt_m.stream", 128, 39, 256, True))
+
+
+def phase_depthwise(kernels, cases=DEPTHWISE, K=32, dev="cuda"):
+    """``depthwise_conv1d`` against its plain version, the tap loop, on the
+    card at each case's shape (every output bit), then timed: the kernel's
+    device time, its wrapper's (CUDA events), its byte bound (the input
+    read once and the output written once at 3.35 TB/s), the plain loop
+    and ``F.conv1d(groups=C)`` on the same bfloat16 rows as the one-call
+    library yardstick (only measured: nothing calls it). Returns the
+    largest difference of the outputs compared and the times by case."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    out, worst = {}, 0.0
+    for name, N, T, C, causal in cases:
+        y = torch.randn((N, T, C), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((K, C), generator=gen, device=dev) / math.sqrt(K)
+        b = torch.randn((C,), generator=gen, device=dev) * 0.1
+        left = K - 1 if causal else (K - 1) // 2
+        got = kernels.depthwise_conv1d(y, w, b, left)
+        exp = kernels.depthwise_conv1d_reference(y, w, b, left)
+        torch.cuda.synchronize()
+        exact = torch.equal(got.view(torch.int16), exp.view(torch.int16))
+        worst = max(worst, max_abs_err([(got, exp)]))
+        emit({"phase": "kernels", "kernel": "depthwise_conv1d", "case": name,
+              "shape": [N, T, C, K], "causal": causal, "bit_exact": exact})
+        if not exact:
+            raise AssertionError(f"depthwise_conv1d differs from the tap loop at {name}")
+        yp = F.pad(y, (0, 0, left, K - 1 - left)).transpose(1, 2).contiguous()
+        wc, bc = w.t()[:, None, :].to(torch.bfloat16).contiguous(), b.to(torch.bfloat16)
+        t = {
+            "ms": device_ms(lambda: kernels.depthwise_conv1d(y, w, b, left), "pydt_dw::",
+                            count=lambda: kernels.LAUNCHES["depthwise_conv1d"]),
+            "wrapper_ms": cuda_ms(lambda: kernels.depthwise_conv1d(y, w, b, left)),
+            "bound_ms": 2 * y.numel() * y.element_size() / 3.35e12 * 1e3,
+            "plain_ms": cuda_ms(lambda: kernels.depthwise_conv1d_reference(y, w, b, left),
+                                reps=3, inner=2),
+            "library_ms": cuda_ms(lambda: F.conv1d(yp, wc, bc, groups=C)),
+        }
+        t["roofline_pct"] = 100.0 * t["bound_ms"] / t["ms"] if t["ms"] else None
+        emit({"phase": "depthwise", "case": name, "shape": [N, T, C, K],
+              "nvidia_smi": smi_line(), **t})
+        out[name] = t
+        del y, got, exp, yp
+    return worst, out
 
 
 def make_train_batch(cfg, dev="cuda", B=B_TRAIN, T=T_TRAIN, U=U_TRAIN):
@@ -5103,23 +5182,20 @@ def phase_artifact(pkg, kernels, cfg=ARTIFACT, dev="cuda"):
             stats = artifact_stats(art, path, count_body_kernels)
             heads[name] = (path, live, live_ms, export_s, stats)
             del art
-        expect = {
-            "ctc_greedy": {}, "rnnt_greedy": {}, "rnnt_beam": {},
-            "ctc_w16_scan": {"decode_prologue": cfg["requests"]} if on_card else {},
-            "ctc_w16_beam": (
-                {"decode_prologue": cfg["requests"], "ctc_beam_search_renorm": cfg["requests"]}
-                if on_card else {}
-            ),
-            "ctc_w16_raw": (
-                {"top_m": cfg["requests"], "ctc_beam_search": cfg["requests"]} if on_card else {}
-            ),
-        }
-        # the operators each program records, wherever it is served
+        # the operators each program records, wherever it is served: each
+        # encoder block's depthwise conv, and the search's kernels
+        convs = {"depthwise_conv1d": mcfg.num_layers}
+        rconvs = {"depthwise_conv1d": rcfg.encoder.num_layers}
         recorded = {
-            "ctc_greedy": {}, "rnnt_greedy": {}, "rnnt_beam": {},
-            "ctc_w16_scan": {"decode_prologue": 1},
-            "ctc_w16_beam": {"decode_prologue": 1, "ctc_beam_search_renorm": 1},
-            "ctc_w16_raw": {"top_m": 1, "ctc_beam_search": 1},
+            "ctc_greedy": convs, "rnnt_greedy": rconvs, "rnnt_beam": rconvs,
+            "ctc_w16_scan": {"decode_prologue": 1, **convs},
+            "ctc_w16_beam": {"decode_prologue": 1, "ctc_beam_search_renorm": 1, **convs},
+            "ctc_w16_raw": {"top_m": 1, "ctc_beam_search": 1, **convs},
+        }
+        expect = {
+            name: {k: n * (cfg["rnnt_requests"] if name.startswith("rnnt") else cfg["requests"])
+                   for k, n in ops.items()} if on_card else {}
+            for name, ops in recorded.items()
         }
         for name, h in heads.items():
             if h[4]["kernel_ops"] != recorded[name]:
@@ -5128,7 +5204,7 @@ def phase_artifact(pkg, kernels, cfg=ARTIFACT, dev="cuda"):
                     f"expected {recorded[name]}"
                 )
         launches = {"decode_prologue": 0, "top_m": 0, "ctc_beam_search": 0,
-                    "ctc_beam_search_renorm": 0}
+                    "ctc_beam_search_renorm": 0, "depthwise_conv1d": 0}
         recs, servers_s = serve_artifacts(
             [(name, h[0], calls if name.startswith("ctc") else rcalls)
              for name, h in heads.items()],
@@ -5608,10 +5684,14 @@ def main(argv):
     errs["ctc_beam_search"] = phase_beam_kernel(kernels)
     errs["ctc_beam_search_renorm"], renorm_cell = phase_renorm_kernel(
         kernels, CTCPrefixSearch, config)
+    errs["depthwise_conv1d"], dw_times = phase_depthwise(kernels)
     model, recognize, requests, launches, (logits, out_lens), served = phase_main_path(
         (config, ConformerConfig, ConformerCTC, ctc_recognizer, CTCPrefixSearch, kernels)
     )
     times = phase_times(kernels, model, recognize, requests, CTCPrefixSearch, logits)
+    times["depthwise_conv1d"] = {
+        "cases": dw_times,
+        "library": "F.conv1d(groups=C) on the padded rows, channels first, bfloat16"}
     times["ctc_beam_search_renorm"]["offline_cell"] = renorm_cell
     beam_launches, times["ctc_beam_search"] = phase_beam_serve(
         (config, ctc_recognizer, CTCPrefixSearch), kernels, model, requests
@@ -5694,6 +5774,11 @@ def main(argv):
             "beam serve": beam_launches[name], "stream": stream_launches[name],
             "blankskip": skip_beam_launches[name], "artifact": artifact_launches[name],
         }
+    times["depthwise_conv1d"]["launches_by_path"] = {
+        "serve": launches["depthwise_conv1d"], "beam serve": beam_launches["depthwise_conv1d"],
+        "lm serve": lm_launches["depthwise_conv1d"], "stream": stream_launches["depthwise_conv1d"],
+        "artifact": artifact_launches["depthwise_conv1d"],
+    }
     times["edit_distance"]["launches_by_path"] = {
         "score": score_launches["edit_distance"],
         "seq2seq train": mer_launches["edit_distance"],
@@ -5724,10 +5809,14 @@ def main(argv):
          sum(times["ctc_beam_search"]["launches_by_path"].values())),
         ("ctc_beam_search_renorm", "ctc_beam.cu", 649, "serve, stream, blankskip, artifact",
          sum(times["ctc_beam_search_renorm"]["launches_by_path"].values())),
+        ("depthwise_conv1d", "depthwise_conv.cu", None,
+         "serve, beam serve, lm serve, stream, artifact",
+         sum(times["depthwise_conv1d"]["launches_by_path"].values())),
     ):
         rows.append({
             "name": name, "route": "cuda", "source": csrc + src,
-            "replaces": f"pydrobert_tpu/ops/pallas.py:{replaces}", "path": path,
+            "replaces": f"pydrobert_tpu/ops/pallas.py:{replaces}" if replaces else "none",
+            "path": path,
             "launches": n, "max_abs_err": errs[name], **times[name],
         })
     emit({"phase_seconds": phase_seconds(t_start),

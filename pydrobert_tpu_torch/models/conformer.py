@@ -54,7 +54,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import default_device
+from ..ops import kernels
 from ..ops.topk import exact_top_k
+from ..utils.profiling import span
 
 __all__ = [
     "ConformerCTC",
@@ -374,25 +376,34 @@ class _MHSA(nn.Module):
 
 class _DepthwiseConv1D(nn.Module):
     """Depthwise conv over time as K shifted multiply-adds in the compute
-    dtype, summed in the JAX package's order; ``kernel (K, C)``."""
+    dtype (``y``'s, which the block's dense layer gives), summed in the JAX
+    package's order; ``kernel (K, C)``.
 
-    def __init__(self, K: int, C: int, dtype: torch.dtype, causal: bool):
+    With no gradient recorded through it, it runs
+    :func:`~pydrobert_tpu_torch.ops.kernels.depthwise_conv1d` (one kernel
+    launch on the card, the same bits; the wrapper refuses what its kernel
+    cannot take); otherwise, as in training, the loop under autograd."""
+
+    def __init__(self, K: int, C: int, causal: bool):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(K, C))
         self.bias = nn.Parameter(torch.zeros(C))
-        self.dtype = dtype
         self.causal = causal
 
     def forward(self, y):
         K = self.kernel.shape[0]
-        T = y.shape[1]
-        w = self.kernel.to(self.dtype)
         left = K - 1 if self.causal else (K - 1) // 2
-        yp = F.pad(y, (0, 0, left, K - 1 - left))
-        out = self.bias.to(self.dtype)
-        for k in range(K):
-            out = out + yp[:, k : k + T] * w[k]
-        return out
+        args = (y, self.kernel, self.bias, left)
+        with span("conv/depthwise"):
+            if _kernel_route(*args[:3]):
+                return kernels.depthwise_conv1d(*args)
+            return kernels.depthwise_conv1d_reference(*args)
+
+
+def _kernel_route(y, kernel, bias) -> bool:
+    """Whether :class:`_DepthwiseConv1D` takes the kernel's wrapper: no
+    gradient is recorded through it (the kernel has no backward)."""
+    return not (torch.is_grad_enabled() and any(a.requires_grad for a in (y, kernel, bias)))
 
 
 class _ConvModule(nn.Module):
@@ -401,7 +412,7 @@ class _ConvModule(nn.Module):
         d = cfg.d_model
         self.ln = _LayerNorm(d, cfg.dtype)
         self.pw1 = _Dense(d, 2 * d, cfg.dtype)
-        self.dw = _DepthwiseConv1D(cfg.conv_kernel, d, cfg.dtype, cfg.causal_conv)
+        self.dw = _DepthwiseConv1D(cfg.conv_kernel, d, cfg.causal_conv)
         self.norm = _LayerNorm(d, cfg.dtype)
         self.pw2 = _Dense(d, d, cfg.dtype)
         self.drop = _FastDropout(cfg.dropout)

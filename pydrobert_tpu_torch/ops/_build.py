@@ -27,7 +27,9 @@ __all__ = ["build_log", "load_library"]
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("prologue.cu", "spec_augment.cu", "edit_distance.cu", "ctc_beam.cu")
+SOURCES = (
+    "prologue.cu", "spec_augment.cu", "edit_distance.cu", "ctc_beam.cu", "depthwise_conv.cu",
+)
 HEADERS = ("select.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -94,6 +96,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pydt_ctc_beam_search_renorm.restype = i32
     lib.pydt_ctc_beam_smem_bytes.argtypes = [i32, i32, i32]
     lib.pydt_ctc_beam_smem_bytes.restype = i64
+    lib.pydt_depthwise_conv1d.argtypes = [p, i32, p, p, i32, i32, i32, i32, i32, i32, p, p]
+    lib.pydt_depthwise_conv1d.restype = i32
     return lib
 
 

@@ -9,7 +9,10 @@ versions (counterparts of the kernels in :mod:`pydrobert_tpu.ops.pallas`):
 - :func:`ctc_beam_search` (``csrc/ctc_beam.cu``): ``ctc_beam_search_pallas``,
   and :func:`ctc_beam_search_renorm`, its renormalizing variant, which the
   JAX package does not have (its searches with ``DECODE_RENORM`` on never
-  take its kernel).
+  take its kernel);
+- :func:`depthwise_conv1d` (``csrc/depthwise_conv.cu``): no TPU kernel (the
+  JAX package's Conformer runs its depthwise convolution as a loop of
+  shifted multiply-adds, which XLA fuses; this is that loop's kernel).
 
 A wrapper given a CPU tensor runs the plain version. Given a CUDA tensor it
 checks dtype, shape and contiguity, launches the kernel on the current
@@ -19,10 +22,9 @@ falls back to the plain version.
 Each kernel is also a :mod:`torch.library` operator in the
 ``pydrobert_tpu_torch`` namespace (``torch.ops.pydrobert_tpu_torch.
 decode_prologue``, ``top_m``, ``spec_augment_apply``, ``edit_distance``,
-``ctc_beam_search``, ``ctc_beam_search_renorm``): its CUDA implementation
-is the launch above, its CPU implementation the plain version, and a fake
-implementation gives the
-output shapes. Importing this module registers the operators. An eager
+``ctc_beam_search``, ``ctc_beam_search_renorm``, ``depthwise_conv1d``): its
+CUDA implementation is the launch above, its CPU implementation the plain
+version, and a fake implementation gives the output shapes. Importing this module registers the operators. An eager
 wrapper calls the launch or the plain version directly, without the
 dispatcher; a wrapper traced by :func:`torch.export.export` (or
 :func:`torch.compile`) records its operator whatever the device, so an
@@ -50,6 +52,8 @@ __all__ = [
     "ctc_beam_search_renorm_reference",
     "decode_prologue",
     "decode_prologue_reference",
+    "depthwise_conv1d",
+    "depthwise_conv1d_reference",
     "edit_distance",
     "edit_distance_reference",
     "reset_launches",
@@ -66,6 +70,7 @@ LAUNCHES = {
     "edit_distance": 0,
     "ctc_beam_search": 0,
     "ctc_beam_search_renorm": 0,
+    "depthwise_conv1d": 0,
 }
 """Kernel launches per wrapper since the last :func:`reset_launches`."""
 
@@ -1023,3 +1028,97 @@ def _(logits, top_vals, top_inds, sm_max, sm_den, blank_probs, lens, width):
         logits.new_empty((N, width), dtype=torch.float32),
         logits.new_empty((N,), dtype=torch.int32),
     )
+
+
+def _check_dw_args(y, kernel, bias, left):
+    if y.dim() != 3:
+        raise ValueError("y must be (N, T, C)")
+    if kernel.dim() != 2 or kernel.shape[0] < 1 or kernel.shape[1] != y.shape[2]:
+        raise ValueError(f"kernel must be (K, {y.shape[2]}) with K >= 1, got {tuple(kernel.shape)}")
+    if tuple(bias.shape) != (y.shape[2],):
+        raise ValueError(f"bias must have shape ({y.shape[2]},), got {tuple(bias.shape)}")
+    if not 0 <= left < kernel.shape[0]:
+        raise ValueError(f"left must be in [0, {kernel.shape[0]}), got {left}")
+    for name, a in (("kernel", kernel), ("bias", bias)):
+        if a.device != y.device:
+            raise ValueError(f"{name} must be on y's device ({y.device})")
+
+
+def depthwise_conv1d_reference(
+    y: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, left: int
+) -> torch.Tensor:
+    """Plain version of :func:`depthwise_conv1d`: the JAX package's K shifted
+    multiply-adds in ``y``'s dtype, each product and sum rounded to it, from
+    the bias in order of the taps (2K elementwise launches on the card)."""
+    K, T = kernel.shape[0], y.shape[1]
+    w = kernel.to(y.dtype)
+    yp = torch.nn.functional.pad(y, (0, 0, left, K - 1 - left))
+    out = bias.to(y.dtype)
+    for k in range(K):
+        out = out + yp[:, k : k + T] * w[k]
+    return out
+
+
+def depthwise_conv1d(
+    y: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, left: int
+) -> torch.Tensor:
+    """A depthwise convolution over time in one pass: ``out[n, t, c] =
+    bias[c] + sum_k y[n, t + k - left, c] * kernel[k, c]`` for ``y (N, T,
+    C)``, ``kernel (K, C)`` and ``bias (C,)``, rows outside ``[0, T)`` zero.
+    It computes in ``y``'s dtype (float32 or bfloat16 on the card) from
+    float32 or bfloat16 parameters, rounding each product and each sum to
+    that dtype in the order of the taps, so it equals
+    :func:`depthwise_conv1d_reference` bit for bit.
+    """
+    _check_dw_args(y, kernel, bias, left)
+    _check_local("depthwise_conv1d", y, kernel, bias)
+    if _traced():
+        return torch.ops.pydrobert_tpu_torch.depthwise_conv1d(y, kernel, bias, left)
+    if not y.is_cuda:
+        return depthwise_conv1d_reference(y, kernel, bias, left)
+    return _depthwise_conv1d_launch(y, kernel, bias, left)
+
+
+def _depthwise_conv1d_launch(
+    y: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, left: int
+) -> torch.Tensor:
+    _check_input(y, "depthwise_conv1d")
+    for name, a in (("kernel", kernel), ("bias", bias)):
+        if a.dtype not in _DTYPE_CODE:
+            raise TypeError(f"depthwise_conv1d takes a float32 or bfloat16 {name}, got {a.dtype}")
+    N, T, C = y.shape
+    K = kernel.shape[0]
+    x = y.contiguous()
+    # the kernel reads float32 parameters; a bfloat16 one widens exactly
+    w, b = kernel.float().contiguous(), bias.float().contiguous()
+    out = torch.empty_like(x)
+    vec = 16 // x.element_size()
+    if C % vec or x.data_ptr() % 16 or out.data_ptr() % 16:
+        vec = 1
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        err = lib.pydt_depthwise_conv1d(
+            ctypes.c_void_p(x.data_ptr()), _DTYPE_CODE[x.dtype],
+            ctypes.c_void_p(w.data_ptr()), ctypes.c_void_p(b.data_ptr()),
+            N, T, C, K, left, vec, ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        )
+    _raise_on(err, "depthwise_conv1d")
+    LAUNCHES["depthwise_conv1d"] += 1
+    return out
+
+
+_depthwise_conv1d_op = torch.library.custom_op(
+    f"{_NS}::depthwise_conv1d", _depthwise_conv1d_launch, mutates_args=(),
+    device_types="cuda",
+)
+
+
+@_depthwise_conv1d_op.register_kernel("cpu")
+def _(y, kernel, bias, left):
+    return depthwise_conv1d_reference(y, kernel, bias, left)
+
+
+@_depthwise_conv1d_op.register_fake
+def _(y, kernel, bias, left):
+    return y.new_empty(y.shape)

@@ -245,8 +245,9 @@ def test_export_records_kernel_operators_on_cpu_platforms(ctc, tmp_path, route, 
     """Where the JAX package refuses ``allow_pallas`` with ``"cpu"`` in
     ``platforms`` (``test_export_rejects_pallas_on_cpu_platforms``), every
     port artifact records the kernels' operators and runs on the CPU: a
-    width-4 program traced on the CPU with the default arguments holds the
-    decode prologue's and ``ctc_beam_search_renorm``'s operators, on the
+    width-4 program traced on the CPU with the default arguments holds each
+    encoder block's ``depthwise_conv1d`` operator, then the decode
+    prologue's and ``ctc_beam_search_renorm``'s operators, on the
     scan route (``USE_BEAM_KERNEL="0"``) the prologue's, on the raw route
     (``DECODE_RENORM`` off) ``top_m``'s and ``ctc_beam_search``'s, and its
     outputs equal the JAX package's live search. ``platforms`` still
@@ -271,8 +272,10 @@ def test_export_records_kernel_operators_on_cpu_platforms(ctc, tmp_path, route, 
         str(n.target).split(".")[-2] for n in art._programs[0].graph.nodes
         if n.op == "call_function" and "pydrobert_tpu_torch" in str(n.target)
     ]
-    want = {"auto": ["decode_prologue", "ctc_beam_search_renorm"], "0": ["decode_prologue"],
-            "raw": ["top_m", "ctc_beam_search"]}[route]
+    # each encoder block's depthwise conv, then the search's kernels
+    want = ["depthwise_conv1d"] * CTC["num_layers"] + {
+        "auto": ["decode_prologue", "ctc_beam_search_renorm"], "0": ["decode_prologue"],
+        "raw": ["top_m", "ctc_beam_search"]}[route]
     assert targets == want
     got = pexport.ServingArtifact.load(str(tmp_path / "art"), device="cpu")(feats, lens)
     from pydrobert_tpu.ops.decoding import CTCPrefixSearch as JSearch

@@ -311,6 +311,7 @@ def rehearse(smoke, monkeypatch):
     counted(decoding, "ctc_beam_search")
     counted(decoding, "ctc_beam_search_renorm")
     counted(kernels, "top_m")
+    counted(kernels, "depthwise_conv1d")
     kernels.lines = lines
     yield kernels
     del kernels.lines
@@ -326,10 +327,11 @@ def test_blankskip_phase_rehearsal(smoke, rehearse):
         (config, CTCPrefixSearch, compress_blank_frames), rehearse, cfg, dev="cpu", cpu_rows=3)
     assert (config.USE_BEAM_KERNEL, config.DECODE_RENORM) == saved
     assert launches == {"decode_prologue": 1, "top_m": 0, "spec_augment_apply": 0,
-                        "edit_distance": 0, "ctc_beam_search": 0, "ctc_beam_search_renorm": 1}
+                        "edit_distance": 0, "ctc_beam_search": 0, "ctc_beam_search_renorm": 1,
+                        "depthwise_conv1d": 0}
     assert beam_launches == {"decode_prologue": 0, "top_m": 1, "spec_augment_apply": 0,
                              "edit_distance": 0, "ctc_beam_search": 1,
-                             "ctc_beam_search_renorm": 0}
+                             "ctc_beam_search_renorm": 0, "depthwise_conv1d": 0}
     line = rehearse.lines[-1]
     assert line["phase"] == "blankskip" and line["compress_equals_cpu_bits"]
     assert line["cut_frames"] >= 0 and line["kept_frames"] <= line["valid_frames"]
@@ -761,16 +763,20 @@ def test_artifact_phase_rehearsal(smoke, rehearse):
                                   "rnnt_greedy", "rnnt_beam"))
     launches = smoke.phase_artifact(_artifact_pkg(), rehearse, cfg, dev="cpu")
     assert launches == {"decode_prologue": 0, "top_m": 0, "ctc_beam_search": 0,
-                        "ctc_beam_search_renorm": 0}
+                        "ctc_beam_search_renorm": 0, "depthwise_conv1d": 0}
     (line,) = [ln for ln in rehearse.lines if ln.get("phase") == "artifact"]
     assert set(line["heads"]) == set(cfg["heads"])
     for head in line["heads"].values():
         assert head["bit_equal_calls"] == 3 and head["bytes"] > 0
+    convs = {"depthwise_conv1d": _TINY["num_layers"]}
+    assert line["heads"]["ctc_greedy"]["kernel_ops"] == convs
+    assert line["heads"]["rnnt_greedy"]["kernel_ops"] == {"depthwise_conv1d": 1}
     assert line["heads"]["ctc_w16_scan"]["loop_body_nodes"]
-    assert line["heads"]["ctc_w16_scan"]["kernel_ops"] == {"decode_prologue": 1}
+    assert line["heads"]["ctc_w16_scan"]["kernel_ops"] == {"decode_prologue": 1, **convs}
     assert line["heads"]["ctc_w16_beam"]["kernel_ops"] == {
-        "decode_prologue": 1, "ctc_beam_search_renorm": 1}
-    assert line["heads"]["ctc_w16_raw"]["kernel_ops"] == {"top_m": 1, "ctc_beam_search": 1}
+        "decode_prologue": 1, "ctc_beam_search_renorm": 1, **convs}
+    assert line["heads"]["ctc_w16_raw"]["kernel_ops"] == {
+        "top_m": 1, "ctc_beam_search": 1, **convs}
     assert line["server"]["artifacts"] == 6
 
 

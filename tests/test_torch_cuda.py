@@ -118,7 +118,7 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     kernels.top_m(x, 8)
     assert kernels.LAUNCHES == {
         "decode_prologue": 1, "top_m": 1, "spec_augment_apply": 0, "edit_distance": 0,
-        "ctc_beam_search": 0, "ctc_beam_search_renorm": 0,
+        "ctc_beam_search": 0, "ctc_beam_search_renorm": 0, "depthwise_conv1d": 0,
     }
     with pytest.raises(ValueError):
         kernels.decode_prologue(x.transpose(0, 1), 8)  # not contiguous
@@ -126,7 +126,7 @@ def test_wrappers_count_launches_and_check_inputs(dev):
         kernels.decode_prologue(x, 8, torch.zeros(128))  # bias on the CPU
     assert kernels.LAUNCHES == {
         "decode_prologue": 1, "top_m": 1, "spec_augment_apply": 0, "edit_distance": 0,
-        "ctc_beam_search": 0, "ctc_beam_search_renorm": 0,
+        "ctc_beam_search": 0, "ctc_beam_search_renorm": 0, "depthwise_conv1d": 0,
     }
 
 
@@ -429,7 +429,7 @@ def test_new_wrappers_count_launches_and_check_inputs(dev, monkeypatch):
     kernels.edit_distance(*ed, 1.0, 1.0, 1.0)
     assert kernels.LAUNCHES == {
         "decode_prologue": 0, "top_m": 0, "spec_augment_apply": 1, "edit_distance": 1,
-        "ctc_beam_search": 0, "ctc_beam_search_renorm": 0,
+        "ctc_beam_search": 0, "ctc_beam_search_renorm": 0, "depthwise_conv1d": 0,
     }
     with pytest.raises(ValueError):
         kernels.spec_augment_apply(x, t0, t1, w0, w1, tm.cpu(), fm)
@@ -651,7 +651,7 @@ def test_beam_route_on_card(dev, monkeypatch):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {
         "decode_prologue": 0, "top_m": 1, "spec_augment_apply": 0, "edit_distance": 0,
-        "ctc_beam_search": 1, "ctc_beam_search_renorm": 0,
+        "ctc_beam_search": 1, "ctc_beam_search_renorm": 0, "depthwise_conv1d": 0,
     }
     monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "0")
     _search_equal(got, CTCPrefixSearch(8)(x, lens), rtol=1e-4)
@@ -700,7 +700,7 @@ def test_renorm_route_matches_scan_on_card(dev, monkeypatch, shape, scale, dtype
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {
         "decode_prologue": 1, "top_m": 0, "spec_augment_apply": 0, "edit_distance": 0,
-        "ctc_beam_search": 0, "ctc_beam_search_renorm": 1,
+        "ctc_beam_search": 0, "ctc_beam_search_renorm": 1, "depthwise_conv1d": 0,
     }
     monkeypatch.setattr(pconfig, "USE_BEAM_KERNEL", "0")
     exp = CTCPrefixSearch(W)(x, lens)
@@ -780,7 +780,8 @@ def test_streaming_session_on_card_matches_one_shot(dev, monkeypatch):
         got = rec.finish(sess)
         torch.cuda.synchronize()
         for name in kernels.LAUNCHES:
-            want = 4 * int(name in launched)
+            # three window encodes of the two blocks' depthwise convs
+            want = 6 if name == "depthwise_conv1d" else 4 * int(name in launched)
             assert kernels.LAUNCHES[name] == want, (renorm, kernels.LAUNCHES)
         assert got[0].device.type == "cuda" and got[0].shape[0] == 16
         gy, gl, gp = (t.cpu() for t in got)
@@ -1602,7 +1603,186 @@ def test_kernel_artifact_launches_the_operators(dev, tmp_path, export_on):
         kernels.reset_launches()
         got = art(feats, lens)
         for name in kernels.LAUNCHES:
-            want = int(name in launched)
+            # the program's two blocks each record the depthwise conv's operator
+            want = 2 if name == "depthwise_conv1d" else int(name in launched)
             assert kernels.LAUNCHES[name] == want, (route, renorm, kernels.LAUNCHES)
         for a, b in zip(got, live):
             assert torch.equal(a, b), (route, renorm)
+
+
+# ---------------------------------------------------------------------------
+# The Conformer's depthwise conv: one kernel against the tap loop
+
+
+def _dw_case(N, T, C, K, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn((N, T, C), generator=g, device=dev).to(dtype)
+    w = torch.randn((K, C), generator=g, device=dev) / K ** 0.5
+    b = torch.randn((C,), generator=g, device=dev) * 0.1
+    return y, w, b
+
+
+def _dw_bits_equal(a, b):
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("N, T, C, causal", [
+    (256, 875, 512, False), (512, 875, 256, True), (128, 39, 256, True),
+], ids=["ctc_l", "rnnt_m", "rnnt_m_stream"])
+def test_depthwise_kernel_equals_the_tap_loop_at_the_cells_shapes(dev, N, T, C, causal):
+    """At the offline cells' encoder shapes and the stream's cached step
+    (bfloat16, K = 32), one launch gives the tap loop's every bit."""
+    y, w, b = _dw_case(N, T, C, 32, torch.bfloat16, dev, N + T)
+    left = 31 if causal else 15
+    kernels.reset_launches()
+    got = kernels.depthwise_conv1d(y, w, b, left)
+    assert kernels.LAUNCHES["depthwise_conv1d"] == 1
+    assert _dw_bits_equal(got, kernels.depthwise_conv1d_reference(y, w, b, left))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N, T, C, K, left", [
+    (3, 5, 64, 32, 31), (3, 5, 64, 32, 15), (2, 40, 257, 31, 15), (2, 17, 6, 7, 0),
+    (4, 100, 24, 33, 16), (1, 1, 8, 1, 0), (5, 64, 2, 15, 14), (2, 9, 1024, 3, 1),
+])
+def test_depthwise_kernel_equals_the_tap_loop_on_odd_shapes(dev, dtype, N, T, C, K, left):
+    """T < K, odd C (the one-lane route), C under a vector, K off the
+    register ring's period, K = 1: every bit of the tap loop."""
+    y, w, b = _dw_case(N, T, C, K, dtype, dev, T * C + K)
+    got = kernels.depthwise_conv1d(y, w, b, left)
+    assert _dw_bits_equal(got, kernels.depthwise_conv1d_reference(y, w, b, left))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [64, 63])
+def test_depthwise_kernel_equals_the_tap_loop_on_adversarial_values(dev, dtype, C):
+    """Subnormals, exponents from the least to the largest, signed zeros,
+    inf and NaN in the input, the weights and the bias (so halo rows meet
+    inf weights): the loop's bits, NaN payloads included."""
+    N, T, K = 4, 50, 9
+    g = torch.Generator(device=dev).manual_seed(C)
+    tiny = torch.finfo(torch.bfloat16).tiny
+
+    def wild(shape):
+        x = torch.randn(shape, generator=g, device=dev)
+        e = torch.randint(-140, 128, shape, generator=g, device=dev).float()
+        x = x * torch.exp2(e.clamp(max=126))
+        pick = torch.rand(shape, generator=g, device=dev)
+        x = torch.where(pick < 0.05, tiny * torch.rand(shape, generator=g, device=dev), x)
+        x = torch.where((pick > 0.05) & (pick < 0.08), torch.inf, x)
+        x = torch.where((pick > 0.08) & (pick < 0.1), -torch.inf, x)
+        x = torch.where((pick > 0.1) & (pick < 0.12), torch.nan, x)
+        x = torch.where((pick > 0.12) & (pick < 0.15), -0.0, x)
+        return x
+
+    y, w, b = wild((N, T, C)).to(dtype), wild((K, C)), wild((C,))
+    for left in (0, 4, 8):
+        got = kernels.depthwise_conv1d(y, w, b, left)
+        exp = kernels.depthwise_conv1d_reference(y, w, b, left)
+        assert bool(torch.isnan(exp).any()) and bool(torch.isinf(exp).any())
+        assert _dw_bits_equal(got, exp), left
+
+
+@pytest.mark.parametrize("C", [65536, 65537], ids=["vectors", "lanes"])
+def test_depthwise_kernel_rounds_every_bfloat16_pair_as_the_loop(dev, C):
+    """At K = 1 the kernel computes ``bias + y * w`` once: with the bias -0.0
+    (which leaves every product as it is) it is the product, with w = 1 the
+    sum. Over all 65,536 x 65,536 pairs of bfloat16 bit patterns (y along
+    time, the other operand along channels; at C = 65,537 through the
+    one-lane route) both equal the loop's float32 operation rounded to
+    bfloat16, bit for bit: the packed instructions' single rounding is the
+    loop's double one."""
+    allbits = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16)
+    vals = allbits.view(torch.bfloat16)
+    chan = torch.cat([vals, vals[:1]])[:C]
+    for operand in ("mul", "add"):
+        w = (chan.float() if operand == "mul" else torch.ones(C, device=dev))[None]
+        b = torch.full((C,), -0.0, device=dev) if operand == "mul" else chan.float()
+        for t0 in range(0, 65536, 4096):
+            y = vals[t0 : t0 + 4096, None].expand(4096, C)[None].contiguous()
+            got = kernels.depthwise_conv1d(y, w, b, 0)
+            exp = kernels.depthwise_conv1d_reference(y, w, b, 0)
+            assert _dw_bits_equal(got, exp), (operand, t0)
+            del y, got, exp
+
+
+def _conformer_m(dev, dtype=torch.bfloat16):
+    from pydrobert_tpu_torch.models import transducer as prnnt
+
+    enc = pconf.ConformerConfig(
+        vocab_size=256, num_filts=80, d_model=256, num_layers=16, num_heads=4,
+        conv_kernel=32, subsample_channels=256, dropout=0.0, dtype=dtype,
+        attention_context=(16, 0), causal_conv=True,
+    )
+    cfg = prnnt.TransducerConfig(encoder=enc, pred_dim=320, joint_dim=320)
+    return prnnt.ConformerTransducer(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+
+
+def test_depthwise_kernel_leaves_the_encoder_and_the_session_as_the_loop(dev, monkeypatch):
+    """At Conformer-M widths (bf16, 16 blocks, kernel 32) the one-shot
+    encoder and a cached greedy session launch the kernel once a block a
+    call and give every output bit of the tap loop's (the route forced to
+    the loop); a forward that records gradients launches nothing."""
+    model = _conformer_m(dev)
+    N, P, pushes = 6, 32, 12
+    lens = np.asarray([384, 300, 211, 130, 35, 3], np.int64)
+    feats = torch.from_numpy(
+        np.random.RandomState(3).randn(N, P * pushes, 80).astype(np.float32)).to(dev)
+    dlens = torch.from_numpy(lens).to(dev)
+
+    def run():
+        kernels.reset_launches()
+        with torch.no_grad():
+            enc, out_lens = model.encode(feats, dlens)
+        torch.cuda.synchronize()
+        launched = kernels.LAUNCHES["depthwise_conv1d"]
+        rec = pserving.StreamingTransducerRecognizer(model, chunk=8, max_frames=1024)
+        sess = rec.start(N)
+        partial = [tuple(t.cpu() for t in rec.push(sess, feats[:, p * P : (p + 1) * P],
+                                                   np.clip(lens - p * P, 0, P)))
+                   for p in range(pushes)]
+        return enc, out_lens, launched, partial, tuple(t.cpu() for t in rec.finish(sess))
+
+    enc, out_lens, launched, partial, final = run()
+    assert launched == 16
+    monkeypatch.setattr(pconf, "_kernel_route", lambda *args: False)
+    enc0, out_lens0, launched0, partial0, final0 = run()
+    assert launched0 == 0
+    assert _dw_bits_equal(enc, enc0) and torch.equal(out_lens, out_lens0)
+    for a, b in zip(partial + [final], partial0 + [final0]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    monkeypatch.undo()
+    kernels.reset_launches()
+    model.encode(feats[:2, :64], dlens[:2].clamp(max=64))[0].float().sum().backward()
+    assert kernels.LAUNCHES["depthwise_conv1d"] == 0
+
+
+@pytest.mark.parametrize("y_dtype, p_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.float16, torch.float32), (torch.float16, torch.float16),
+])
+def test_depthwise_conv_without_gradient_launches_or_refuses(dev, y_dtype, p_dtype):
+    """Without autograd the module never falls back to the tap loop on the
+    card: bfloat16 parameters (a model cast with ``.to(torch.bfloat16)``)
+    launch the kernel once, with the loop's bits; a float16 input, which
+    the kernel cannot take, raises."""
+    from pydrobert_tpu_torch.models import conformer as pconf
+
+    y, w, b = _dw_case(3, 50, 64, 32, y_dtype, dev, 7)
+    module = pconf._DepthwiseConv1D(32, 64, True).to(dev)
+    with torch.no_grad():
+        module.kernel.copy_(w)
+        module.bias.copy_(b)
+    module.to(p_dtype)
+    kernels.reset_launches()
+    with torch.no_grad():
+        if y_dtype == torch.float16:
+            with pytest.raises(TypeError, match="float32 or bfloat16"):
+                module(y)
+            assert kernels.LAUNCHES["depthwise_conv1d"] == 0
+            return
+        got = module(y)
+    assert kernels.LAUNCHES["depthwise_conv1d"] == 1
+    exp = kernels.depthwise_conv1d_reference(y, module.kernel, module.bias, 31)
+    assert _dw_bits_equal(got, exp)

@@ -160,7 +160,7 @@ def test_wrappers_use_plain_versions_on_cpu():
     assert torch.equal(gv, ev) and torch.equal(gi, ei)
     assert kernels.LAUNCHES == {
         "decode_prologue": 0, "top_m": 0, "spec_augment_apply": 0, "edit_distance": 0,
-        "ctc_beam_search": 0, "ctc_beam_search_renorm": 0,
+        "ctc_beam_search": 0, "ctc_beam_search_renorm": 0, "depthwise_conv1d": 0,
     }
 
 
@@ -213,7 +213,11 @@ def _op_cases():
     renorm_in = (torch.exp(tl - mx[..., None]) / den[..., None], rti, mx, den,
                  torch.exp(bl - mx) / den, torch.tensor([6, 0, 3]))
     ops = torch.ops.pydrobert_tpu_torch
+    y = torch.randn(2, 9, 6, generator=g)
+    dw = torch.randn(5, 6, generator=g), torch.randn(6, generator=g)
     return {
+        "depthwise_conv1d": (ops.depthwise_conv1d.default, (y.bfloat16(), *dw, 2)),
+        "depthwise_conv1d_causal": (ops.depthwise_conv1d.default, (y, *dw, 4)),
         "decode_prologue": (ops.decode_prologue.default, (x, 4, None)),
         "decode_prologue_bias": (ops.decode_prologue.default, (x, 4, torch.randn(16, generator=g))),
         "top_m": (ops.top_m.default, (x, 4)),
@@ -278,6 +282,136 @@ def test_export_records_the_operators_on_cpu():
         assert torch.equal(a, b)
 
 
+def _tap_loop(y, kernel, bias, dtype, causal):
+    """The Conformer's depthwise conv as its module wrote it before the
+    kernel: K shifted multiply-adds in ``dtype``."""
+    K, T = kernel.shape[0], y.shape[1]
+    w = kernel.to(dtype)
+    left = K - 1 if causal else (K - 1) // 2
+    yp = torch.nn.functional.pad(y, (0, 0, left, K - 1 - left))
+    out = bias.to(dtype)
+    for k in range(K):
+        out = out + yp[:, k : k + T] * w[k]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("N, T, C, K", [(3, 20, 8, 7), (2, 3, 5, 8), (1, 1, 3, 1), (2, 40, 16, 32)])
+def test_depthwise_conv1d_cpu_operator_equals_the_tap_loop(dtype, causal, N, T, C, K):
+    """The operator's CPU registration, the wrapper and the module on the
+    CPU give the old tap loop's bits, T < K and K = 1 included."""
+    from pydrobert_tpu_torch.models import conformer as pconf
+
+    g = torch.Generator().manual_seed(N * T + C * K)
+    y = (torch.randn(N, T, C, generator=g) * 3).to(dtype)
+    kernel, bias = torch.randn(K, C, generator=g), torch.randn(C, generator=g)
+    exp = _tap_loop(y, kernel, bias, dtype, causal)
+    left = K - 1 if causal else (K - 1) // 2
+    assert torch.equal(torch.ops.pydrobert_tpu_torch.depthwise_conv1d(y, kernel, bias, left), exp)
+    assert torch.equal(kernels.depthwise_conv1d(y, kernel, bias, left), exp)
+    module = pconf._DepthwiseConv1D(K, C, causal)
+    with torch.no_grad():
+        module.kernel.copy_(kernel)
+        module.bias.copy_(bias)
+        assert torch.equal(module(y), exp)
+    assert torch.equal(module(y), exp)
+
+
+def test_depthwise_conv1d_checks_arguments():
+    y, kernel, bias = torch.zeros(2, 5, 4), torch.zeros(3, 4), torch.zeros(4)
+    with pytest.raises(ValueError):
+        kernels.depthwise_conv1d(y[0], kernel, bias, 1)
+    with pytest.raises(ValueError):
+        kernels.depthwise_conv1d(y, kernel[:, :3], bias, 1)
+    with pytest.raises(ValueError):
+        kernels.depthwise_conv1d(y, kernel[:0], bias, 0)
+    with pytest.raises(ValueError):
+        kernels.depthwise_conv1d(y, kernel, bias[:3], 1)
+    with pytest.raises(ValueError):
+        kernels.depthwise_conv1d(y, kernel, bias, 3)
+
+
+def test_depthwise_conv_records_a_gradient_through_the_tap_loop(monkeypatch):
+    """A call that records gradients takes the tap loop under autograd (the
+    wrapper is never called), with the old loop's gradients; one without
+    takes the wrapper."""
+    from pydrobert_tpu_torch.models import conformer as pconf
+
+    calls = []
+    wrapper = kernels.depthwise_conv1d
+    monkeypatch.setattr(kernels, "depthwise_conv1d",
+                        lambda *a: calls.append(1) or wrapper(*a))
+    g = torch.Generator().manual_seed(5)
+    module = pconf._DepthwiseConv1D(7, 6, False)
+    with torch.no_grad():
+        module.kernel.copy_(torch.randn(7, 6, generator=g))
+        module.bias.copy_(torch.randn(6, generator=g))
+    y = torch.randn(2, 11, 6, generator=g, requires_grad=True)
+    up = torch.randn(2, 11, 6, generator=g)
+    (module(y) * up).sum().backward()
+    assert not calls
+    grads = [t.grad.clone() for t in (y, module.kernel, module.bias)]
+    y2 = y.detach().clone().requires_grad_()
+    k2, b2 = (p.detach().clone().requires_grad_() for p in (module.kernel, module.bias))
+    (_tap_loop(y2, k2, b2, torch.float32, False) * up).sum().backward()
+    for a, b in zip(grads, (y2.grad, k2.grad, b2.grad)):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        module(y)
+    module.requires_grad_(False)
+    module(y.detach())  # grad mode on, nothing requires it
+    assert len(calls) == 2
+
+
+@pytest.mark.parametrize("y_dtype, p_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float16, torch.float32), (torch.float64, torch.float64),
+])
+def test_depthwise_conv_without_gradient_takes_the_wrapper_at_any_dtype(
+    monkeypatch, y_dtype, p_dtype
+):
+    """With no gradient recorded the module calls the wrapper whatever the
+    dtypes (the wrapper, not the route, refuses what the card's kernel
+    cannot take), and on the CPU gives the old loop's bits."""
+    from pydrobert_tpu_torch.models import conformer as pconf
+
+    calls = []
+    wrapper = kernels.depthwise_conv1d
+    monkeypatch.setattr(kernels, "depthwise_conv1d",
+                        lambda *a: calls.append(1) or wrapper(*a))
+    g = torch.Generator().manual_seed(9)
+    module = pconf._DepthwiseConv1D(5, 6, True)
+    with torch.no_grad():
+        module.kernel.copy_(torch.randn(5, 6, generator=g))
+        module.bias.copy_(torch.randn(6, generator=g))
+    module.to(p_dtype)
+    y = torch.randn(2, 9, 6, generator=g).to(y_dtype)
+    with torch.no_grad():
+        got = module(y)
+    assert calls == [1]
+    assert torch.equal(got, _tap_loop(y, module.kernel, module.bias, y_dtype, True))
+
+
+def test_export_records_the_depthwise_conv_operator():
+    """An exported Conformer records one ``depthwise_conv1d`` operator a
+    block (so its artifact launches the kernel on the card), and its CPU
+    outputs equal the eager model's."""
+    from pydrobert_tpu_torch.models import conformer as pconf
+
+    cfg = pconf.ConformerConfig(vocab_size=12, num_filts=8, d_model=16, num_layers=3, num_heads=2,
+                                subsample_channels=4, conv_kernel=5, dtype=torch.bfloat16)
+    model = pconf.ConformerCTC(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    feats = torch.randn(2, 30, 8, generator=torch.Generator().manual_seed(1))
+    lens = torch.tensor([30, 17])
+    with torch.no_grad():
+        eager = model(feats, lens)
+        ep = torch.export.export(model, (feats, lens), strict=False)
+    targets = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+    assert sum("pydrobert_tpu_torch.depthwise_conv1d" in t for t in targets) == 3
+    for a, b in zip(ep.module()(feats, lens), eager):
+        assert torch.equal(a, b)
+
+
 def test_wrappers_refuse_dtensors(tmp_path):
     """A kernel wrapper takes local tensors: a DTensor is refused before
     any route is taken (the kernels sit after the encoder's gathered
@@ -298,5 +432,7 @@ def test_wrappers_refuse_dtensors(tmp_path):
             kernels.decode_prologue(x, 4)
         with pytest.raises(TypeError, match="DTensor"):
             kernels.top_m(x, 4)
+        with pytest.raises(TypeError, match="DTensor"):
+            kernels.depthwise_conv1d(x, torch.zeros(3, 17), torch.zeros(17), 1)
     finally:
         dist.destroy_process_group()
